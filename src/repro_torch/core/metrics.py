@@ -1,0 +1,382 @@
+"""Instrumentation for CkIO: per-session counters and timings.
+
+Everything the paper's evaluation plots (throughput, overlap fraction,
+permutation cost, cross-node traffic) is derived from these counters.
+Thread-safe; negligible overhead (integer adds under a lock). This copy
+keeps the session, ingest and stream counters the thread-backend training
+path fills (plus the recovery record a session carries).
+
+Per-piece *timing* (two ``perf_counter`` calls per delivered piece) is the
+one non-negligible probe, so it sits behind ``piece_timing_every``: 0 (the
+default) disables it entirely, N samples every Nth piece — delivery
+instrumentation stays off the hot path unless a benchmark opts in.
+``bytes_copied`` counts bytes physically memcpy'd into a client destination
+buffer; the borrowed-view path leaves it untouched, which is how benchmarks
+and tests *prove* zero-copy delivery rather than assume it.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+
+@dataclass
+class RecoveryMetrics:
+    """I/O-fault accounting of the thread backend: transient pread errors
+    absorbed by the posix backoff layer (``io_retries``, by errno) and
+    advisory (fadvise-class) errors swallowed by design but counted
+    (``suppressed_errors``). One instance per session, merged into a
+    Director-lifetime aggregate on session close. ``record_io_retry`` /
+    ``record_suppressed`` match the stats protocol of ``io/posix.py``.
+    The process backend's respawn/reissue counters come with that slice."""
+
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    io_retries: int = 0
+    retried_errnos: Dict[int, int] = field(default_factory=dict)
+    suppressed_errors: int = 0
+
+    def record_io_retry(self, err: Optional[int] = None) -> None:
+        with self.lock:
+            self.io_retries += 1
+            if err is not None:
+                self.retried_errnos[err] = self.retried_errnos.get(err, 0) + 1
+
+    def record_suppressed(self, err: Optional[int] = None) -> None:
+        with self.lock:
+            self.suppressed_errors += 1
+
+    def merge(self, other: "RecoveryMetrics") -> None:
+        """Fold ``other`` (a finished session's counters) into this one."""
+        with other.lock:
+            retries, errnos = other.io_retries, dict(other.retried_errnos)
+            suppressed = other.suppressed_errors
+        with self.lock:
+            self.io_retries += retries
+            for err, c in errnos.items():
+                self.retried_errnos[err] = self.retried_errnos.get(err, 0) + c
+            self.suppressed_errors += suppressed
+
+    def summary(self) -> Dict[str, float]:
+        with self.lock:
+            return {"io_retries": float(self.io_retries),
+                    "suppressed_errors": float(self.suppressed_errors)}
+
+
+@dataclass
+class SessionMetrics:
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    session_bytes: int = 0
+    num_readers: int = 0
+    t_start: float = 0.0
+    t_last_read: float = 0.0
+    read_calls: int = 0
+    bytes_read: int = 0
+    read_time_s: float = 0.0          # summed per-call wall time (across threads)
+    bytes_per_reader: Dict[int, int] = field(default_factory=dict)
+    # per-reader breakdowns (keyed by *planned owner*, i.e. stripe index):
+    # the straggler signals the per-reader SplinterSizer consumes.
+    read_time_per_reader: Dict[int, float] = field(default_factory=dict)
+    reads_per_reader: Dict[int, int] = field(default_factory=dict)
+    steals_from_reader: Dict[int, int] = field(default_factory=dict)
+    steals: int = 0
+    # phase-2 (permutation/delivery) accounting
+    pieces_served: int = 0
+    bytes_served: int = 0
+    bytes_copied: int = 0             # memcpy'd to client buffers (0 = zero-copy)
+    # Cross-node accounting is split by delivery kind so a piece is never
+    # double-counted as both a transfer and a zero-copy delivery:
+    # ``cross_node_bytes`` counts pieces physically copied to a client on
+    # another node (the NetworkModel-modeled transfer); a piece delivered
+    # as a borrowed view — same address space, or the mapped shm arena of
+    # the process backend — moves no bytes and lands in
+    # ``cross_node_view_bytes`` instead (the locality signal survives, the
+    # phantom transfer does not).
+    cross_node_bytes: int = 0
+    cross_node_view_bytes: int = 0
+    permute_time_s: float = 0.0
+    timed_pieces: int = 0             # pieces that contributed to permute_time_s
+    piece_timing_every: int = 0       # 0 = timing off; N = time every Nth piece
+    requests: int = 0
+    request_latencies_s: List[float] = field(default_factory=list)
+    # I/O retry observables; travels the same Director observer path as the
+    # rest of the session counters. Has its own lock.
+    recovery: RecoveryMetrics = field(default_factory=RecoveryMetrics)
+    _piece_seq: int = 0               # sampling counter (racy by design)
+
+    def session_started(self, nbytes: int, num_readers: int) -> None:
+        with self.lock:
+            self.session_bytes = nbytes
+            self.num_readers = num_readers
+            self.t_start = time.perf_counter()
+
+    def record_read(self, reader: int, nbytes: int, dt: float) -> None:
+        with self.lock:
+            self.read_calls += 1
+            self.bytes_read += nbytes
+            self.read_time_s += dt
+            self.t_last_read = time.perf_counter()
+            self.bytes_per_reader[reader] = (
+                self.bytes_per_reader.get(reader, 0) + nbytes
+            )
+            self.read_time_per_reader[reader] = (
+                self.read_time_per_reader.get(reader, 0.0) + dt
+            )
+            self.reads_per_reader[reader] = (
+                self.reads_per_reader.get(reader, 0) + 1
+            )
+
+    def record_steal(self, victim: int) -> None:
+        """One splinter stolen from reader ``victim``'s pending queue —
+        the per-reader straggler-pressure signal."""
+        with self.lock:
+            self.steals += 1
+            self.steals_from_reader[victim] = (
+                self.steals_from_reader.get(victim, 0) + 1
+            )
+
+    def should_time_piece(self) -> bool:
+        """Cheap sampling decision — no lock; an off-by-one under contention
+        only shifts which piece gets sampled."""
+        if self.piece_timing_every <= 0:
+            return False
+        self._piece_seq += 1
+        return self._piece_seq % self.piece_timing_every == 0
+
+    def record_piece(
+        self,
+        nbytes: int,
+        cross_node: bool,
+        dt: Optional[float] = None,
+        copied: int = 0,
+        borrowed: bool = False,
+    ) -> None:
+        """``borrowed=True`` marks a zero-copy (view) delivery: cross-node
+        bytes then count as ``cross_node_view_bytes`` (no transfer
+        happened), never ``cross_node_bytes``."""
+        with self.lock:
+            self.pieces_served += 1
+            self.bytes_served += nbytes
+            self.bytes_copied += copied
+            if cross_node:
+                if borrowed:
+                    self.cross_node_view_bytes += nbytes
+                else:
+                    self.cross_node_bytes += nbytes
+            if dt is not None:
+                self.permute_time_s += dt
+                self.timed_pieces += 1
+
+    def record_request(self, latency_s: float) -> None:
+        with self.lock:
+            self.requests += 1
+            self.request_latencies_s.append(latency_s)
+
+    # -- derived -------------------------------------------------------------
+    def ingest_seconds(self) -> float:
+        """Wall time from session start to last byte read."""
+        if self.t_last_read == 0.0:
+            return 0.0
+        return self.t_last_read - self.t_start
+
+    def throughput_bytes_per_s(self) -> float:
+        t = self.ingest_seconds()
+        return self.bytes_read / t if t > 0 else 0.0
+
+    def imbalance(self) -> float:
+        """max/mean bytes per reader — straggler indicator."""
+        if not self.bytes_per_reader:
+            return 0.0
+        vals = list(self.bytes_per_reader.values())
+        mean = sum(vals) / len(vals)
+        return max(vals) / mean if mean else 0.0
+
+    def summary(self) -> Dict[str, float]:
+        return {
+            "session_bytes": float(self.session_bytes),
+            "num_readers": float(self.num_readers),
+            "read_calls": float(self.read_calls),
+            "bytes_read": float(self.bytes_read),
+            "ingest_s": self.ingest_seconds(),
+            "throughput_MBps": self.throughput_bytes_per_s() / 1e6,
+            "steals": float(self.steals),
+            "pieces_served": float(self.pieces_served),
+            "bytes_served": float(self.bytes_served),
+            "bytes_copied": float(self.bytes_copied),
+            "cross_node_bytes": float(self.cross_node_bytes),
+            "cross_node_view_bytes": float(self.cross_node_view_bytes),
+            "permute_time_s": self.permute_time_s,
+            "timed_pieces": float(self.timed_pieces),
+            "requests": float(self.requests),
+            "imbalance": self.imbalance(),
+        }
+
+
+@dataclass
+class StreamMetrics:
+    """Per-pipeline streamed-staging accounting (the overlap proof).
+
+    The streaming delivery path ships splinter groups host→device *while the
+    session's reads are still in flight*; these counters exist so benchmarks
+    and tests can prove the overlap instead of assuming it:
+
+    * ``stage_latency_s`` / ``max_stage_latency_s`` — per-splinter
+      arrival→staged latency (read completion to the end of the ``device_put``
+      that shipped it);
+    * ``inflight_bytes_hwm`` — high-water mark of bytes handed to
+      ``device_put`` whose transfers have not been awaited yet (the staging
+      budget's observable);
+    * overlap fraction — per step, the staging span (first chunk's
+      ``device_put`` start → last chunk's end) is intersected with the read
+      span (session start → last byte read); the summed intersection over the
+      summed step wall time is ``overlap_fraction()``. The whole-window path
+      stages strictly after the last read, so it scores 0 by construction;
+      a streaming run whose staging rides inside the read window approaches
+      the read span / step time ratio.
+    * ``stale_events`` — late splinter events dropped because their step was
+      already finalized/retired (e.g. delivery racing ``resize()``).
+    """
+
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    splinters_staged: int = 0
+    bytes_staged: int = 0
+    stage_chunks: int = 0             # device_put calls issued by the stager
+    stage_time_s: float = 0.0         # summed wall time inside device_put
+    stage_latency_s: float = 0.0      # summed arrival->staged latency
+    max_stage_latency_s: float = 0.0
+    inflight_bytes: int = 0
+    inflight_bytes_hwm: int = 0
+    stale_events: int = 0
+    steps: int = 0
+    overlap_s: float = 0.0            # read-span ∩ stage-span, summed
+    step_time_s: float = 0.0
+    read_time_s: float = 0.0          # summed read spans (denominator cap)
+
+    def record_chunk(
+        self, nbytes: int, nsplinters: int, dt: float, latencies_s: List[float]
+    ) -> None:
+        with self.lock:
+            self.stage_chunks += 1
+            self.splinters_staged += nsplinters
+            self.bytes_staged += nbytes
+            self.stage_time_s += dt
+            for lat in latencies_s:
+                self.stage_latency_s += lat
+                if lat > self.max_stage_latency_s:
+                    self.max_stage_latency_s = lat
+
+    def stage_inflight(self, delta_bytes: int) -> None:
+        """Track bytes staged-but-not-awaited (+ on device_put, - on wait)."""
+        with self.lock:
+            self.inflight_bytes += delta_bytes
+            if self.inflight_bytes > self.inflight_bytes_hwm:
+                self.inflight_bytes_hwm = self.inflight_bytes
+
+    def record_stale_event(self) -> None:
+        with self.lock:
+            self.stale_events += 1
+
+    def record_step(
+        self,
+        read_span: "tuple[float, float]",
+        stage_span: "tuple[float, float]",
+        step_time_s: float,
+    ) -> None:
+        """Fold one step's spans into the overlap accounting.
+
+        Spans are absolute ``perf_counter`` intervals; the concurrent time is
+        their intersection, clamped to the step wall time (prefetched steps
+        can have spans that predate the step's own wall interval)."""
+        r0, r1 = read_span
+        s0, s1 = stage_span
+        ov = max(0.0, min(r1, s1) - max(r0, s0))
+        with self.lock:
+            self.steps += 1
+            self.step_time_s += max(step_time_s, 0.0)
+            self.read_time_s += max(r1 - r0, 0.0)
+            self.overlap_s += min(ov, max(step_time_s, 0.0))
+
+    # -- derived -------------------------------------------------------------
+    def overlap_fraction(self) -> float:
+        """Concurrent read+staging time / total step time (0 when no steps)."""
+        with self.lock:
+            return self.overlap_s / self.step_time_s if self.step_time_s else 0.0
+
+    def mean_stage_latency_s(self) -> float:
+        with self.lock:
+            return (self.stage_latency_s / self.splinters_staged
+                    if self.splinters_staged else 0.0)
+
+    def summary(self) -> Dict[str, float]:
+        with self.lock:
+            frac = self.overlap_s / self.step_time_s if self.step_time_s else 0.0
+            mean_lat = (self.stage_latency_s / self.splinters_staged
+                        if self.splinters_staged else 0.0)
+            return {
+                "splinters_staged": float(self.splinters_staged),
+                "bytes_staged": float(self.bytes_staged),
+                "stage_chunks": float(self.stage_chunks),
+                "stage_time_s": self.stage_time_s,
+                "mean_stage_latency_s": mean_lat,
+                "max_stage_latency_s": self.max_stage_latency_s,
+                "inflight_bytes_hwm": float(self.inflight_bytes_hwm),
+                "stale_events": float(self.stale_events),
+                "steps": float(self.steps),
+                "overlap_s": self.overlap_s,
+                "step_time_s": self.step_time_s,
+                "read_time_s": self.read_time_s,
+                "overlap_fraction": frac,
+            }
+
+
+@dataclass
+class IngestMetrics:
+    """Per-pipeline step-ingest accounting (host vs device reassembly).
+
+    ``host_permute_bytes`` counts bytes the *host* handles past the session
+    arena to build a training batch — the paper's phase-2 permutation cost.
+    The host path pays the window once per step; the device path
+    (``get_batch_device``) must keep it at **0**: its only per-step host
+    work is one ``device_put`` of the borrowed arena view, accounted
+    separately as ``h2d_transfers`` / ``h2d_bytes``. Benchmarks assert on
+    these counters rather than assuming the permutation moved.
+    """
+
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    steps: int = 0
+    host_steps: int = 0
+    device_steps: int = 0
+    host_permute_bytes: int = 0
+    h2d_transfers: int = 0
+    h2d_bytes: int = 0
+
+    def record_host_step(self, permute_bytes: int) -> None:
+        with self.lock:
+            self.steps += 1
+            self.host_steps += 1
+            self.host_permute_bytes += permute_bytes
+
+    def record_device_step(
+        self, staged_bytes: int, transfers: int = 1, host_bytes: int = 0
+    ) -> None:
+        """``host_bytes`` covers host-side copies the staging still pays
+        (e.g. the copy-mode session→step-arena copy); the zero-copy device
+        path passes 0."""
+        with self.lock:
+            self.steps += 1
+            self.device_steps += 1
+            self.h2d_transfers += transfers
+            self.h2d_bytes += staged_bytes
+            self.host_permute_bytes += host_bytes
+
+    def summary(self) -> Dict[str, float]:
+        with self.lock:
+            return {
+                "steps": float(self.steps),
+                "host_steps": float(self.host_steps),
+                "device_steps": float(self.device_steps),
+                "host_permute_bytes": float(self.host_permute_bytes),
+                "h2d_transfers": float(self.h2d_transfers),
+                "h2d_bytes": float(self.h2d_bytes),
+            }

@@ -1,0 +1,139 @@
+"""Read sessions: handles, options, lifecycle state (paper §III-A)."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from repro_torch.core.buffers import BufferReaderSet, NetworkModel, ReaderOptions
+from repro_torch.core.metrics import SessionMetrics
+from repro_torch.io.layout import StripePlan
+from repro_torch.io.posix import PosixFile
+
+
+def _later(option: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{option} is not carried by this port yet: it comes with the "
+        f"{slice_name} slice (ROADMAP.md, Queue A)")
+
+
+@dataclass
+class FileOptions:
+    """Paper: ``Ck::IO::Options`` — ``numReaders`` is the headline knob.
+
+    The port carries the default thread backend. The remaining fields keep
+    the reference's names so that configurations read the same, but a
+    value other than the default raises ``NotImplementedError`` naming the
+    slice that brings it."""
+
+    num_readers: Optional[int] = None       # None → sized from the window
+    splinter_bytes: int = 8 * 1024 * 1024
+    # Reader backend: only "thread" (helper I/O threads in this process).
+    backend: str = "thread"
+    adaptive_splinters: bool = False
+    work_stealing: bool = True
+    max_io_threads: int = 64
+    placement: str = "node_spread"          # see core/placement.py
+    network: Optional[NetworkModel] = None
+    delay_model: object = None              # test hook, forwarded to readers
+    piece_timing_every: int = 0             # 0 = delivery timing off (hot path)
+    topology: Optional[object] = None
+    numa_pin: bool = False
+    # Zero-fill the arena up front (legacy seed path).
+    prefault_arena: bool = False
+    # Fault-injection hook for PosixFile.pread_into (short reads / OSErrors).
+    io_fault: object = None
+    direct_io: bool = False
+    # In-flight reads per reader: 0/1 = the blocking per-splinter loop.
+    queue_depth: int = 0
+    adaptive_queue: bool = False
+
+    def reader_options(self) -> ReaderOptions:
+        if self.backend == "process":
+            raise _later("backend='process'", "process backend and service")
+        if self.backend != "thread":
+            raise ValueError(
+                f"unknown reader backend {self.backend!r} "
+                f"(expected 'thread' or 'process')")
+        if self.topology is not None or self.numa_pin:
+            raise _later("topology / numa_pin", "NUMA")
+        if self.direct_io:
+            raise _later("direct_io", "direct I/O and async submit")
+        if self.queue_depth < 0:
+            raise ValueError(
+                f"queue_depth must be >= 0, got {self.queue_depth}")
+        if self.queue_depth >= 2:
+            raise _later("queue_depth >= 2", "direct I/O and async submit")
+        if self.adaptive_splinters or self.adaptive_queue:
+            raise _later("adaptive_splinters / adaptive_queue",
+                         "direct I/O and async submit")
+        return ReaderOptions(
+            splinter_bytes=self.splinter_bytes,
+            work_stealing=self.work_stealing,
+            max_io_threads=self.max_io_threads,
+            io_fault=self.io_fault,
+            delay_model=self.delay_model,  # type: ignore[arg-type]
+            network=self.network,
+            piece_timing_every=self.piece_timing_every,
+            prefault_arena=self.prefault_arena,
+        )
+
+
+@dataclass
+class FileHandle:
+    """Returned by ``CkIO.open`` (paper: ``Ck::IO::File``)."""
+
+    id: int
+    path: str
+    posix: PosixFile
+    opts: FileOptions
+
+    @property
+    def size(self) -> int:
+        return self.posix.size
+
+
+@dataclass
+class Session:
+    """Live read session (paper: ``Ck::IO::Session``)."""
+
+    id: int
+    file: FileHandle
+    plan: StripePlan
+    readers: BufferReaderSet
+    opts: FileOptions
+    reader_pes: List[int]
+    metrics: SessionMetrics = field(default_factory=SessionMetrics)
+    closed: bool = False
+
+    @property
+    def offset(self) -> int:
+        return self.plan.offset
+
+    @property
+    def nbytes(self) -> int:
+        return self.plan.nbytes
+
+    @property
+    def num_readers(self) -> int:
+        return self.plan.num_readers
+
+    def contains(self, abs_off: int, nbytes: int) -> bool:
+        return abs_off >= self.plan.offset and abs_off + nbytes <= self.plan.end
+
+    @property
+    def arrival_order(self):
+        """Splinter completion order (see BufferReaderSet.arrival_order)."""
+        return self.readers.arrival_order()
+
+    # -- streaming ------------------------------------------------------------
+    def subscribe_splinters(self, cb, replay: bool = True) -> int:
+        """Per-splinter completion stream (see BufferReaderSet.subscribe)."""
+        return self.readers.subscribe(cb, replay=replay)
+
+    def unsubscribe_splinters(self, token: int) -> None:
+        self.readers.unsubscribe(token)
+
+    @property
+    def splinter_events(self):
+        """Recorded completion events so far (arrival order snapshot)."""
+        return self.readers.events()

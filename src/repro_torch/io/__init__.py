@@ -1,0 +1,14 @@
+"""POSIX file layer: pread-based stripe reads and layout math."""
+from repro_torch.io.layout import StripePlan, Splinter, pieces_for_range, plan_session
+from repro_torch.io.posix import DEFAULT_ALIGN, PosixFile, aligned_floor, write_file
+
+__all__ = [
+    "PosixFile",
+    "write_file",
+    "DEFAULT_ALIGN",
+    "aligned_floor",
+    "StripePlan",
+    "Splinter",
+    "plan_session",
+    "pieces_for_range",
+]

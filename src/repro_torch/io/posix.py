@@ -1,0 +1,322 @@
+"""Thin POSIX I/O wrapper used by CkIO buffer readers.
+
+All reads are positional (``os.pread``) so a single file descriptor can be
+shared by many reader threads without seek races — this mirrors the paper's
+buffer chares each reading a disjoint section of one shared file. ``os.pread``
+releases the GIL for the duration of the syscall, which is what lets helper
+I/O threads overlap with host-side compute (paper §III-C.4).
+
+Transient-error handling (the recovery layer's lowest rung)
+-----------------------------------------------------------
+At scale the dominant failure class is *transient* device/FS errors —
+``EINTR``/``EAGAIN`` from signal/async plumbing and sporadic ``EIO`` from a
+flaky path to storage. Every pread here therefore runs under a
+:class:`RetryPolicy`: a failed syscall whose errno is in the policy's set is
+retried with exponential backoff, capped both by a retry count and a
+per-call wall-clock deadline, so a *persistently* failing device still
+surfaces its error promptly instead of spinning. Retries are **counted,
+never silent**: each call takes a ``stats`` sink (duck-typed —
+``record_io_retry(errno)`` / ``record_suppressed(errno)``; the reader layer
+passes its session's ``RecoveryMetrics``) falling back to the module-level
+:data:`IO_EVENTS` aggregate so no suppression is ever dropped on the floor.
+
+Fault injection: ``pread_into``/``pread`` consult an optional ``fault``
+hook (``(offset, nbytes) -> Optional[int]``, may raise ``OSError``) before
+each syscall — the deterministic short-read / flaky-EIO injection point
+used by ``core/faults.py`` (picklable, so it also ships to reader worker
+processes through ``WorkerSpec.io_fault``).
+
+This copy reads through the buffered descriptor only; ``O_DIRECT`` and
+multi-file (FileSet) handles come with later slices of the port.
+"""
+from __future__ import annotations
+
+import errno
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+# Typical FS block size; stripe/splinter boundaries are aligned to this when
+# possible to avoid read-modify-write amplification on the storage side.
+# Prefer :func:`fs_block_size` (statvfs probe) wherever a path is in hand —
+# this constant is only the probe's fallback and the no-path default.
+DEFAULT_ALIGN = 4096
+
+
+def aligned_floor(nbytes: int, align: int = DEFAULT_ALIGN) -> int:
+    """Largest multiple of ``align`` that is <= ``nbytes`` — but never below
+    ``align`` itself. The zero-copy read path plans preadv offsets on
+    splinter boundaries, so every dynamically-chosen splinter size must pass
+    through this floor (a sub-block size would put read offsets off the FS
+    block grid and re-introduce read-modify-write amplification)."""
+    return max(align, (nbytes // align) * align)
+
+
+def fs_block_size(path: str, fallback: int = DEFAULT_ALIGN) -> int:
+    """Probe the filesystem block size backing ``path`` via ``os.statvfs``.
+
+    Returns ``f_bsize`` (the preferred I/O block size — this is also the
+    O_DIRECT alignment requirement on Linux for every mainstream FS) when it
+    is a sane power of two in ``[512, 1 MiB]``; otherwise ``fallback``.
+    A missing path is probed through its parent directory so callers can
+    plan before the file exists."""
+    p = path
+    for _ in range(2):
+        try:
+            bs = int(os.statvfs(p).f_bsize)
+            if 512 <= bs <= (1 << 20) and (bs & (bs - 1)) == 0:
+                return bs
+            return fallback
+        except (OSError, AttributeError):
+            p = os.path.dirname(p) or "."
+    return fallback
+
+
+# os.preadv reads straight into a caller-provided buffer (no intermediate
+# bytes object); available on Linux/BSD since Python 3.7. When absent we fall
+# back to the allocate-then-copy pread path (also used by benchmarks to
+# measure the cost of that extra copy).
+HAVE_PREADV = hasattr(os, "preadv")
+
+# fadvise errnos that mean "this file/FS does not support the hint" — the
+# only OSErrors the advisory helpers may swallow (counted, see IO_EVENTS).
+# Anything else (EBADF — a closed/reused descriptor — above all) is a bug
+# in the caller and propagates.
+_FADVISE_SUPPRESS = (
+    errno.EINVAL,
+    errno.ESPIPE,
+    errno.ENOSYS,
+    errno.EOPNOTSUPP,
+    getattr(errno, "ENOTSUP", errno.EOPNOTSUPP),
+)
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Deadline-capped exponential backoff for transient I/O errors.
+
+    A syscall failing with an errno in ``errnos`` is retried up to
+    ``max_retries`` times, sleeping ``base_backoff_s`` doubled per attempt
+    (capped at ``max_backoff_s``), but never past ``deadline_s`` of total
+    wall time for one logical call — a dead device fails fast, a blip is
+    absorbed. ``EINTR`` is included for completeness (Python retries it
+    itself since PEP 475, but a custom signal handler raising keeps it
+    reachable); ``EAGAIN`` covers O_NONBLOCK-ish paths; ``EIO`` is the
+    transient-media class Cloud's survey names dominant at scale."""
+
+    max_retries: int = 4
+    base_backoff_s: float = 0.5e-3
+    max_backoff_s: float = 20e-3
+    deadline_s: float = 2.0
+    errnos: Tuple[int, ...] = (errno.EINTR, errno.EAGAIN, errno.EIO)
+
+
+class IOEventCounts:
+    """Process-wide fallback sink for retry/suppression counts.
+
+    Callers that have a session context pass their own sink (the session's
+    ``RecoveryMetrics``); everything else lands here so no suppressed error
+    or retry is ever silently dropped. Thread-safe."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.retries = 0
+        self.suppressed = 0
+        self.by_errno: Dict[int, int] = {}
+
+    def record_io_retry(self, err: Optional[int] = None) -> None:
+        with self._lock:
+            self.retries += 1
+            if err is not None:
+                self.by_errno[err] = self.by_errno.get(err, 0) + 1
+
+    def record_suppressed(self, err: Optional[int] = None) -> None:
+        with self._lock:
+            self.suppressed += 1
+            if err is not None:
+                self.by_errno[err] = self.by_errno.get(err, 0) + 1
+
+
+IO_EVENTS = IOEventCounts()
+
+
+@dataclass
+class PosixFile:
+    """A shared, positionally-read file handle.
+
+    One instance is shared by every BufferReader of every session on this
+    "node" — matching the paper's model where chares on a node share the file
+    opened by the runtime.
+
+    Within a process, the rule stays: every sharer that outlives the
+    opener must ``addref()`` and balance it with ``close()``; the last
+    ``close`` releases the descriptor.
+    """
+
+    path: str
+    fd: int = -1
+    size: int = 0
+    # When False (or when the platform lacks os.preadv) pread_into uses the
+    # allocate-then-copy fallback; benchmarks flip this to quantify the copy.
+    use_preadv: bool = True
+    # Transient-error retry policy for every pread through this handle.
+    retry: RetryPolicy = field(default_factory=RetryPolicy)
+    # Test/bench fault hook consulted before each syscall:
+    # ``(abs_offset, nbytes) -> Optional[int]`` — return a byte cap to force
+    # a short read, raise OSError to inject a (possibly transient) failure.
+    # Per-call ``fault=`` overrides this; reader workers set it from
+    # ``WorkerSpec.io_fault`` (core/faults.py hooks are picklable).
+    fault: Optional[object] = None
+    # Probed FS block size: the stripe/splinter grid is planned on it.
+    block_size: int = DEFAULT_ALIGN
+    _refcount: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    @classmethod
+    def open(cls, path: str) -> "PosixFile":
+        fd = os.open(path, os.O_RDONLY)
+        size = os.fstat(fd).st_size
+        f = cls(path=path, fd=fd, size=size, block_size=fs_block_size(path))
+        f._refcount = 1
+        return f
+
+    def addref(self) -> None:
+        with self._lock:
+            self._refcount += 1
+
+    def pread(self, offset: int, nbytes: int, *, stats=None) -> bytes:
+        """Positional read; safe from any thread; releases the GIL.
+        Transient errors retry under ``self.retry`` (counted in ``stats``,
+        default the module aggregate)."""
+        if nbytes <= 0:
+            return b""
+        sink = stats if stats is not None else IO_EVENTS
+        pol = self.retry
+        attempts, pause, deadline = 0, pol.base_backoff_s, None
+        while True:
+            try:
+                return os.pread(self.fd, nbytes, offset)
+            except OSError as e:
+                if e.errno not in pol.errnos:
+                    raise
+                if deadline is None:
+                    deadline = time.monotonic() + pol.deadline_s
+                attempts += 1
+                if attempts > pol.max_retries or time.monotonic() > deadline:
+                    raise
+                sink.record_io_retry(e.errno)
+                time.sleep(pause)
+                pause = min(pause * 2.0, pol.max_backoff_s)
+
+    def pread_into(self, offset: int, view: memoryview, *,
+                   stats=None, fault=None) -> int:
+        """Positional read into a caller-provided buffer — zero intermediate
+        copies on the preadv path.
+
+        Loops on short reads (the kernel may return fewer bytes than asked,
+        e.g. across page-cache/readahead boundaries) and stops at EOF, so the
+        return value is only < len(view) when the file genuinely ends inside
+        the range. Safe from any thread; releases the GIL per syscall.
+
+        Transient errors (``self.retry.errnos``) are retried per syscall
+        with deadline-capped exponential backoff; each retry is counted in
+        ``stats`` (``record_io_retry``), defaulting to :data:`IO_EVENTS`.
+        ``fault`` (default ``self.fault``) is the injection hook — it may
+        cap a syscall's length (short read) or raise ``OSError`` (which
+        then flows through the same retry machinery a real error would).
+        """
+        want = len(view)
+        total = 0
+        sink = stats if stats is not None else IO_EVENTS
+        hook = fault if fault is not None else self.fault
+        pol = self.retry
+        use_v = self.use_preadv and HAVE_PREADV
+        while total < want:
+            attempts, pause, deadline = 0, pol.base_backoff_s, None
+            while True:
+                cap = want - total
+                try:
+                    if hook is not None:
+                        c = hook(offset + total, cap)
+                        if c is not None:
+                            cap = max(1, min(cap, int(c)))
+                    if use_v:
+                        got = os.preadv(
+                            self.fd, [view[total: total + cap]], offset + total
+                        )
+                    else:
+                        # Fallback: os.pread allocates a bytes object we
+                        # must copy out of.
+                        data = os.pread(self.fd, cap, offset + total)
+                        got = len(data)
+                        if got:
+                            view[total: total + got] = data
+                    break
+                except OSError as e:
+                    if e.errno not in pol.errnos:
+                        raise
+                    if deadline is None:
+                        deadline = time.monotonic() + pol.deadline_s
+                    attempts += 1
+                    if attempts > pol.max_retries or \
+                            time.monotonic() > deadline:
+                        raise
+                    sink.record_io_retry(e.errno)
+                    time.sleep(pause)
+                    pause = min(pause * 2.0, pol.max_backoff_s)
+            if got <= 0:              # EOF (preadv never returns <0 in py)
+                break
+            total += got
+        return total
+
+    def advise_sequential(self, offset: int, nbytes: int, *,
+                          stats=None) -> bool:
+        """Hint the kernel that ``[offset, offset+nbytes)`` will be read
+        sequentially and soon (``POSIX_FADV_SEQUENTIAL`` doubles readahead,
+        ``WILLNEED`` starts it). Called once per reader stripe on session
+        start; best-effort — returns False where unsupported.
+
+        Only the *intended* gaps are swallowed: a platform without
+        ``posix_fadvise`` (AttributeError) and the does-not-support-hints
+        errnos (counted in ``stats``/:data:`IO_EVENTS`, never silent).
+        Anything else — ``EBADF`` above all — propagates: it means a bug,
+        not an unsupported FS."""
+        try:
+            fadvise = os.posix_fadvise
+        except AttributeError:        # platform gap — nothing to count
+            return False
+        sink = stats if stats is not None else IO_EVENTS
+        try:
+            fadvise(self.fd, offset, nbytes, os.POSIX_FADV_SEQUENTIAL)
+            fadvise(self.fd, offset, nbytes, os.POSIX_FADV_WILLNEED)
+            return True
+        except OSError as e:
+            if e.errno in _FADVISE_SUPPRESS:
+                sink.record_suppressed(e.errno)
+                return False
+            raise
+
+    def close(self) -> None:
+        with self._lock:
+            self._refcount -= 1
+            if self._refcount <= 0 and self.fd >= 0:
+                os.close(self.fd)
+                self.fd = -1
+
+    @property
+    def closed(self) -> bool:
+        return self.fd < 0
+
+
+def write_file(path: str, data: bytes, *, sync: bool = False) -> None:
+    """Write a file in one shot (used by benchmarks / data generators)."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+        if sync:
+            f.flush()
+            os.fsync(f.fileno())

@@ -1,0 +1,222 @@
+"""Hopper kernels for CkIO's phase-2 data permutation: build, bind, launch.
+
+``csrc/reassemble.cu`` holds three CUDA kernels with a plain C interface.
+They are compiled at first use with ``nvcc`` for ``sm_90a`` into
+``build/repro_torch/`` at the repository root (``REPRO_TORCH_BUILD_DIR``
+overrides it) and loaded with ``ctypes``: no PyTorch headers, so the build
+takes seconds. Each wrapper here checks device, dtype, shape and
+contiguity, allocates the outputs with ``torch.empty``, launches on the
+current stream, raises if the launcher reports a CUDA error, and adds one
+to its entry in :data:`LAUNCHES`.
+
+What each kernel replaces, what bounds it and how its design meets the
+bound is noted at the top of the CUDA source. The plain PyTorch versions
+of the same functions are in ``kernels/ref.py``; ``kernels/ops.py`` picks
+between the two by the device of the tensors it is given.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "reassemble.cu"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# Kernel launches per wrapper, counted where the wrapper launches its kernel.
+LAUNCHES: Dict[str, int] = {
+    "reassemble_window": 0,
+    "reassemble": 0,
+    "reassemble_tokens": 0,
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "toolkit is needed to build the reassembly kernels")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/reassemble.cu`` into the build directory unless an
+    up-to-date library is already there; returns the library's path."""
+    out = build_dir() / "libckio_reassemble.so"
+    if out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose and res.stderr:
+        print(res.stderr, end="")
+    os.replace(tmp, out)
+    return out
+
+
+def _library():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.ckio_reassemble_window.argtypes = [P, P, I, L, P, P, I, I, L, I, P]
+            lib.ckio_reassemble.argtypes = [P, P, P, L, L, I, P]
+            lib.ckio_reassemble_tokens.argtypes = [P, L, P, P, P, L, I, I, P]
+            for fn in (lib.ckio_reassemble_window, lib.ckio_reassemble,
+                       lib.ckio_reassemble_tokens):
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on one CUDA device "
+                             f"(got {[str(x.device) for x in tensors]})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    return dev
+
+
+def reassemble_window_cuda(
+    chunks: Sequence[torch.Tensor],
+    *,
+    global_batch: int,
+    seq_len: int,
+    window_tok_off: int = 0,
+    valid_limit: int | None = None,
+    pad_id: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """File-order int32 chunks (concatenated, the window's token buffer) ->
+    batch-major ``(inputs, labels)`` of shape ``(B, S)``. The chunks are
+    read in place through a device pointer table; nothing is concatenated."""
+    chunks = list(chunks)
+    if not chunks:
+        raise ValueError("reassemble_window: no chunks")
+    dev = _require_cuda("reassemble_window", *chunks)
+    for c in chunks:
+        if c.dtype != torch.int32 or c.dim() != 1:
+            raise ValueError("reassemble_window: chunks must be 1-D int32")
+    B, S = int(global_batch), int(seq_len)
+    if B < 0 or S < 1 or B > 65535:
+        raise ValueError(f"reassemble_window: bad shape B={B} S={S}")
+    inputs = torch.empty((B, S), dtype=torch.int32, device=dev)
+    labels = torch.empty((B, S), dtype=torch.int32, device=dev)
+    if B == 0:
+        return inputs, labels
+    starts: List[int] = [0]
+    for c in chunks:
+        starts.append(starts[-1] + c.numel())
+    total = starts[-1]
+    limit = B * (S + 1) + window_tok_off if valid_limit is None else valid_limit
+    limit = min(limit, total)
+    # Chunk pointer table + prefix token offsets, uploaded per call from
+    # page-locked memory, so the copy is queued on the stream and does not
+    # wait for the work already there (PyTorch's host allocator keeps the
+    # pinned block until the copy has run).
+    table = torch.tensor([c.data_ptr() for c in chunks] + starts,
+                         dtype=torch.int64).pin_memory().to(dev,
+                                                            non_blocking=True)
+    rc = _library().ckio_reassemble_window(
+        table.data_ptr(), table.data_ptr() + 8 * len(chunks), len(chunks),
+        limit, inputs.data_ptr(), labels.data_ptr(), B, S,
+        int(window_tok_off), int(pad_id), _stream(inputs))
+    _check(rc, "reassemble_window")
+    LAUNCHES["reassemble_window"] += 1
+    return inputs, labels
+
+
+def reassemble_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Block gather ``out[i] = src[idx[i]]`` over the leading axis of an
+    N-D ``src`` (any dtype; rows are copied as bytes). ``idx`` is int32 on
+    the same device, every value in ``[0, src.shape[0])``."""
+    if src.dim() < 2:
+        raise ValueError(f"src must have >= 2 dims (got shape {tuple(src.shape)})")
+    dev = _require_cuda("reassemble", src, idx)
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise ValueError("reassemble: idx must be 1-D int32")
+    out = torch.empty((idx.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=dev)
+    row_bytes = src[0].numel() * src.element_size()
+    if out.numel() == 0:
+        return out
+    if row_bytes // 16384 >= 65535:
+        raise ValueError("reassemble: rows above 1 GiB are not supported")
+    unit = 16
+    while unit > 1 and (row_bytes % unit or src.data_ptr() % unit
+                        or out.data_ptr() % unit):
+        unit //= 2 if unit != 16 else 4
+    rc = _library().ckio_reassemble(
+        src.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+        row_bytes, unit, _stream(out))
+    _check(rc, "reassemble")
+    LAUNCHES["reassemble"] += 1
+    return out
+
+
+def reassemble_tokens_cuda(
+    staged: torch.Tensor, row_idx: torch.Tensor, *, pad_id: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token gather: row ``b`` of the window is ``staged[row_idx[b]]``
+    (``row_idx (B, S+1)`` int32; negative entries pad, others clip to
+    ``[0, L-1]``). Inputs take columns ``[:S]``, labels ``[1:]``."""
+    dev = _require_cuda("reassemble_tokens", staged, row_idx)
+    if staged.dtype != torch.int32 or staged.dim() != 1:
+        raise ValueError("reassemble_tokens: staged must be 1-D int32")
+    if row_idx.dtype != torch.int32 or row_idx.dim() != 2:
+        raise ValueError("reassemble_tokens: row_idx must be 2-D int32")
+    if staged.numel() == 0:
+        raise ValueError("reassemble_tokens: empty staged buffer")
+    B, S = row_idx.shape[0], row_idx.shape[1] - 1
+    inputs = torch.empty((B, S), dtype=torch.int32, device=dev)
+    labels = torch.empty((B, S), dtype=torch.int32, device=dev)
+    if B * S == 0:
+        return inputs, labels
+    rc = _library().ckio_reassemble_tokens(
+        staged.data_ptr(), staged.numel(), row_idx.data_ptr(),
+        inputs.data_ptr(), labels.data_ptr(), B, S, int(pad_id),
+        _stream(inputs))
+    _check(rc, "reassemble_tokens")
+    LAUNCHES["reassemble_tokens"] += 1
+    return inputs, labels
