@@ -6,7 +6,8 @@
 Phases (each failure is reported; any failure exits 1 and prints no result):
 
 1. card      the card's name and power limit, as nvidia-smi reports them;
-2. build     nvcc builds ``kernels/csrc/reassemble.cu`` into ``build/``;
+2. build     nvcc builds every ``kernels/csrc/*.cu`` into ``build/`` (one
+             nvcc per source, all started together);
 3. kernels   every reassembly kernel against its plain PyTorch version on the
              card, bit-equal, over aligned/unaligned window offsets,
              remainder windows, 1- and many-chunk tables, block gathers in
@@ -28,12 +29,31 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
 7. timing    each kernel, its plain version and, where one exists, a single
              PyTorch call for the same function, at the main-path shapes and
              at a 64 MiB window, beside the bytes bound (3.35 TB/s);
-8. profile   only with ``--profile``: two whole-window main-path steps under
+8. attention the flash-attention kernel against its plain version on the
+             card (fp32 at 1e-5, bf16 at 2e-2): the six sweep cases of
+             tests/test_kernels.py, phi4-mini decode shapes (Sq=1, H=24,
+             K=8, hd=128, Sk in 1/17/129/2048) and a 2048-token causal
+             prefill; then its time, the plain version's and
+             ``scaled_dot_product_attention``'s at the served decode shape
+             and at the prefill shape, beside the bound;
+9. serve     the second main path, ``repro_torch.launch.serve``: phi4-mini
+             at full width with all 32 layers, random weights from seed 0,
+             bf16 compute; static mode (BatchServer over one CkIO bulk read,
+             4 requests, batch 4) and continuous mode (a 3-shard FileSet,
+             3 requests, 4 slots, Poisson arrivals), 128 prompt tokens and
+             16 new tokens a request. Every decode call runs the attention
+             of each of the 32 layers through the kernel; continuous tokens
+             must equal the sequential oracle's on the same engine, and
+             replaying a prompt through decode must give the logits of the
+             plain prefill forward;
+10. profile  only with ``--profile``: two whole-window main-path steps, and
+             16 B=1 decode calls of the 32-layer model, under
              ``torch.profiler`` (device busy share, kernels by device time).
 
-The launch counts are zeroed just before each main-path phase (4-6) and read
-just after it. The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+The launch counts are zeroed just before each main-path run (phases 4-6 and
+each mode of phase 9) and read just after it. The line before the last is a
+JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -52,14 +72,30 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_PEAK = 989e12                 # dense bf16 FLOP/s, same source
-SOURCE = "src/repro_torch/kernels/csrc/reassemble.cu"
+SOURCES = {
+    "reassemble_window": "src/repro_torch/kernels/csrc/reassemble.cu",
+    "reassemble": "src/repro_torch/kernels/csrc/reassemble.cu",
+    "reassemble_tokens": "src/repro_torch/kernels/csrc/reassemble.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+}
 REPLACES = {
     "reassemble_window": "src/repro/kernels/reassemble.py:81",
     "reassemble": "src/repro/kernels/reassemble.py:52",
     "reassemble_tokens": "src/repro/kernels/reassemble.py:173",
+    "flash_attention": "src/repro/kernels/flash_attention.py:90",
 }
 ARCH_LAYERS = 4
 B, S, MICROBATCHES, STEPS = 8, 2048, 4, 4
+# Serving: prompt and new tokens per request, requests per mode, slots.
+PROMPT, NEW, STATIC_REQUESTS, CONT_REQUESTS, SLOTS = 128, 16, 4, 3, 4
+ARRIVAL_RATE = 1.0                 # Poisson arrivals, requests/s
+H, KV, HD = 24, 8, 128             # phi4-mini attention heads
+# Logits of a prompt replayed through decode (kernel attention) against the
+# plain prefill forward: relative L2 bound by compute dtype. In bf16 each
+# path is ~2e-2 from the fp32 logits after 32 layers (a CPU run of
+# d_model 768 put both, and their difference, at 1.9e-2), so the bound is
+# 5e-2; in fp32 the two differ by summation order only.
+PREFILL_REL_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 
 
 def log(*a) -> None:
@@ -99,8 +135,10 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda", 0)
         self.failed = []
+        # Kernel against plain version, by kernel; "sdpa" holds the check
+        # of the library yardstick against the plain version, apart.
         self.err = {"reassemble_window": 0, "reassemble": 0,
-                    "reassemble_tokens": 0}
+                    "reassemble_tokens": 0, "flash_attention": 0, "sdpa": 0}
         self.launches = {}
         self.main_inputs = {}      # kernel -> args captured from the main path
         self.timing = {}
@@ -136,8 +174,10 @@ class Smoke:
     def build(self):
         from repro_torch.kernels import reassemble as K
 
-        lib = K.build(verbose=True)
-        log(f"built {os.path.relpath(lib, ROOT)}")
+        t0 = time.perf_counter()
+        libs = K.build(verbose=True)
+        log(f"built {[os.path.relpath(p, ROOT) for p in libs]} in "
+            f"{time.perf_counter() - t0:.1f} s")
 
     # -- 3 ---------------------------------------------------------------------
     def _same(self, name, got, want) -> None:
@@ -382,13 +422,19 @@ class Smoke:
 
     # -- optional: where a main-path step's device time goes -----------------
     def profile(self):
-        """``--profile``: one warm-up step, then two whole-window main-path
-        steps under ``torch.profiler``; prints the device busy share and the
-        kernels by device time, and writes the table to ``chiprun_out/``."""
+        """``--profile``: (a) one warm-up step, then two whole-window
+        main-path steps under ``torch.profiler``; (b) a PROMPT-token prompt
+        replayed through decode on the 32-layer model, then ``NEW`` B=1
+        bf16 decode calls under the profiler. Prints the device busy share
+        and the kernels by device time of each, and writes the full tables
+        to ``profile_window.txt`` and ``profile_decode.txt``."""
         import torch
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models import build_model
+
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         _, path, _, params, opt, step_fn = self._trainer()
         pipe = self._pipeline(path, streaming=False)
 
@@ -402,8 +448,7 @@ class Smoke:
             one(0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=acts) as prof:
                 for step in (1, 2):
                     one(step)
                 torch.cuda.synchronize()
@@ -412,6 +457,34 @@ class Smoke:
             pipe.close()
         del params, opt
         torch.cuda.empty_cache()
+        self._report_profile(prof, wall, 2, "step", "profile_window.txt")
+
+        cfg = get_config("phi4-mini-3.8b")
+        model = build_model(cfg)
+        params = model.init(0, device=self.dev)
+        tok = torch.arange(PROMPT, dtype=torch.int32, device=self.dev)[None]
+        with torch.no_grad():
+            state = model.init_decode_state(params, 1, PROMPT + NEW)
+            for t in range(PROMPT):
+                logits, state = model.decode(params, state,
+                                             {"tokens": tok[:, t:t + 1]})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=acts) as prof:
+                for _ in range(NEW):
+                    nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                    logits, state = model.decode(params, state,
+                                                 {"tokens": nxt})
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del params, state, logits
+        torch.cuda.empty_cache()
+        self._report_profile(prof, wall, NEW, "decode call",
+                             "profile_decode.txt")
+
+    def _report_profile(self, prof, wall, n, unit, fname):
+        from torch.autograd import DeviceType
+
         # Device-side events only (kernels, copies), as the profiler's own
         # "Self CUDA time total" counts them; operator rows would count
         # their kernels a second time.
@@ -421,15 +494,15 @@ class Smoke:
              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
              and e.self_device_time_total > 0), reverse=True)
         busy = sum(r[0] for r in rows) / 1e6
-        log(f"profile: 2 steps, {wall * 1e3:.1f} ms wall under the profiler "
-            f"(host clock), device busy {busy * 1e3:.1f} ms = "
+        log(f"profile: {n} {unit}s, {wall * 1e3:.1f} ms wall under the "
+            f"profiler (host clock), device busy {busy * 1e3:.1f} ms = "
             f"{busy / wall:.3f} of wall")
         for dev_us, key, count in rows[:15]:
-            log(f"profile: {dev_us / 2e3:9.3f} ms/step {count // 2:6d} "
-                f"calls/step {dev_us / 1e6 / busy:6.3f} {key[:90]}")
+            log(f"profile: {dev_us / n / 1e3:9.3f} ms/{unit} {count // n:6d} "
+                f"calls/{unit} {dev_us / 1e6 / busy:6.3f} {key[:90]}")
         out = os.path.join(ROOT, "chiprun_out")
         os.makedirs(out, exist_ok=True)
-        with open(os.path.join(out, "profile_window.txt"), "w") as f:
+        with open(os.path.join(out, fname), "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=60))
 
@@ -584,6 +657,235 @@ class Smoke:
             self.timing[key] = r
             log(f"time {key}: {json.dumps(r)}")
 
+    # -- 8 ---------------------------------------------------------------------
+    def _close(self, name, got, want, tol) -> None:
+        """``got`` within ``tol`` of ``want`` (|g - w| <= tol + tol*|w|, the
+        test of np.testing.assert_allclose), in the output dtype."""
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
+                                 f"{want.shape}/{want.dtype}")
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        err = diff.max().item() if diff.numel() else 0.0
+        self.err[name] = max(self.err[name], err)
+        if not bool((diff <= tol + tol * w.abs()).all()):
+            raise AssertionError(f"{name}: differs from the plain version "
+                                 f"beyond {tol} (max abs err {err})")
+
+    def _attn_inputs(self, rng, b, h, kv, sq, sk, hd, dtype):
+        import torch
+
+        mk = lambda *shape: torch.from_numpy(  # noqa: E731
+            rng.standard_normal(shape).astype("float32")).to(self.dev).to(dtype)
+        return mk(b, h, sq, hd), mk(b, kv, sk, hd), mk(b, kv, sk, hd)
+
+    def attention(self):
+        import numpy as np
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import ref
+
+        rng = np.random.default_rng(2)
+        cases = [  # (B, H, K, Sq, Sk, hd, causal, window)
+            (1, 2, 2, 64, 64, 32, True, 0), (2, 4, 2, 128, 128, 64, True, 0),
+            (1, 4, 1, 64, 64, 32, True, 0), (1, 2, 2, 64, 64, 32, True, 16),
+            (1, 2, 2, 96, 96, 16, True, 24), (2, 2, 2, 64, 64, 32, False, 0),
+            *[(1, H, KV, 1, sk, HD, True, 0) for sk in (1, 17, 129, 2048)],
+            (1, H, KV, 2048, 2048, HD, True, 0),
+        ]
+        for b, h, kv, sq, sk, hd, causal, window in cases:
+            for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+                q, k, v = self._attn_inputs(rng, b, h, kv, sq, sk, hd, dtype)
+                self._close("flash_attention",
+                            FA.flash_attention_cuda(q, k, v, causal=causal,
+                                                    window=window),
+                            ref.attention_ref(q, k, v, causal=causal,
+                                              window=window), tol)
+        torch.cuda.synchronize()
+        log(f"attention: {2 * len(cases)} cases within tolerance of the plain "
+            f"version; max abs err {self.err['flash_attention']}")
+
+        # Time at the served decode shape (the longest prefix the serve
+        # phase reaches) and at the prefill shape, bf16 as served.
+        for key, sq, sk in (("decode", 1, PROMPT + NEW), ("prefill", 2048, 2048)):
+            q, k, v = self._attn_inputs(rng, 1, H, KV, sq, sk, HD,
+                                        torch.bfloat16)
+            # Kept (query, key) pairs under the end-aligned causal mask.
+            pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))
+            flops = 4 * H * HD * pairs
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            b_ops = flops / BF16_PEAK * 1e3
+            r = {"shape": f"B=1 H={H} K={KV} Sq={sq} Sk={sk} hd={HD} bf16 "
+                          f"causal", "bytes": nbytes, "flops": flops,
+                 "bound_ms": max(b_bytes, b_ops),
+                 "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+            kernel = lambda: FA.flash_attention_cuda(q, k, v)  # noqa: E731
+            plain = lambda: ref.attention_ref(q, k, v)  # noqa: E731
+            # The yardstick: one PyTorch call for the same function (for
+            # Sq = 1 every key is kept, which is no causal mask).
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=sq > 1, enable_gqa=True)
+            self._close("sdpa", library(), plain(), 2e-2)
+            it = 200 if sq == 1 else 20
+            k1, p1, p2, k2 = (time_ms(kernel, it), time_ms(plain, it),
+                              time_ms(plain, it), time_ms(kernel, it))
+            r["ms"], r["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+            r["library_ms"] = time_ms(library, it)
+            self.timing[f"flash_attention/{key}"] = r
+            log(f"time flash_attention/{key}: {json.dumps(r)}")
+        log(f"attention: scaled_dot_product_attention within 2e-2 of the "
+            f"plain version; max abs err {self.err['sdpa']}")
+
+    # -- 9 ---------------------------------------------------------------------
+    def serve(self):
+        import numpy as np
+        import torch
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import ref
+        from repro_torch.launch import serve as L
+        from repro_torch.models import build_model, transformer
+        from repro_torch.serve import sequential_oracle
+
+        cfg = get_config("phi4-mini-3.8b")
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(0, device=self.dev)
+        torch.cuda.synchronize()
+        n_params = cfg.param_counts()["total"]
+        log(f"serve: {cfg.name}, {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, {n_params / 1e9:.3f} B params in fp32 "
+            f"({4 * n_params / 1e9:.2f} GB), bf16 compute; weights made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        base = ["--arch", cfg.name, "--batch", str(SLOTS), "--prompt-len",
+                str(PROMPT), "--max-new", str(NEW), "--data",
+                os.path.join(self.tmp, "prompts.bin")]
+        modes = {
+            "static": base + ["--requests", str(STATIC_REQUESTS)],
+            "continuous": base + ["--requests", str(CONT_REQUESTS),
+                                  "--continuous", "--arrival-rate",
+                                  str(ARRIVAL_RATE)],
+        }
+        decode_step = transformer.decode_step
+        fa = FA.flash_attention_cuda
+        calls = [0]
+        captured = {}
+
+        def counting(*a, **kw):
+            calls[0] += 1
+            return decode_step(*a, **kw)
+
+        def capture(q, k, v, **kw):
+            # One layer's served decode inputs at the longest prefix (B=1).
+            if not captured and q.shape[0] == 1 and k.shape[2] == PROMPT + NEW:
+                captured.update(args=(q.clone(), k.clone(), v.clone()), kw=kw)
+            return fa(q, k, v, **kw)
+
+        runs, counts = {}, {}
+        transformer.decode_step = counting
+        FA.flash_attention_cuda = capture
+        try:
+            for mode, argv in modes.items():
+                torch.cuda.synchronize()
+                FA.reset_launch_counts()
+                calls[0] = 0
+                t = time.perf_counter()
+                runs[mode] = L.main(argv, params=params)
+                torch.cuda.synchronize()
+                counts[mode] = (FA.LAUNCHES["flash_attention"], calls[0],
+                                time.perf_counter() - t)
+        finally:
+            transformer.decode_step = decode_step
+            FA.flash_attention_cuda = fa
+        self.launches["serve"] = {"flash_attention": sum(
+            c[0] for c in counts.values())}
+        # -- checks -------------------------------------------------------------
+        for mode, (launches, n_calls, wall) in counts.items():
+            run = runs[mode]
+            if launches != cfg.num_layers * n_calls or n_calls == 0:
+                raise AssertionError(
+                    f"serve {mode}: flash_attention launched {launches} times "
+                    f"in {n_calls} decode calls of {cfg.num_layers} layers")
+            toks = [list(np.asarray(r.result)) for r in run.requests]
+            if not (run.summary["all_completed"] and all(
+                    len(t) == NEW and all(0 <= x < cfg.vocab_size for x in t)
+                    for t in toks)):
+                raise AssertionError(f"serve {mode}: {run.summary}")
+            log(f"serve {mode}: {len(toks)} requests, {run.summary['new_tokens']}"
+                f" new tokens in {run.summary['total_s']} s = "
+                f"{run.summary['tok_per_s']} tokens/s; {n_calls} decode calls"
+                f" in {wall:.2f} s = {wall / n_calls * 1e3:.2f} ms a call "
+                f"(host clock, mode wall time over calls); flash_attention "
+                f"launches {launches} = {cfg.num_layers} x {n_calls}")
+        cont = runs["continuous"]
+        for which in ("first_token", "e2e"):
+            p = cont.metrics.latency_percentiles(which)
+            log(f"serve continuous: arrival -> {which} p50 {p['p50']:.4f} s, "
+                f"p99 {p['p99']:.4f} s")
+        by_rid = sorted(cont.requests, key=lambda r: r.rid)
+        prompts = [cont.corpus[r.row_start:r.row_start + r.num_rows]
+                   for r in by_rid]
+        oracle = sequential_oracle(cont.engine, prompts, [NEW] * len(by_rid))
+        if [r.result for r in by_rid] != oracle:
+            raise AssertionError("serve continuous: tokens differ from the "
+                                 "sequential oracle on the same engine")
+        log(f"serve continuous: {len(by_rid)} token streams bit-identical to "
+            f"the sequential oracle")
+        q, k, v = captured["args"]
+        self._close("flash_attention", fa(q, k, v, **captured["kw"]),
+                    ref.attention_ref(q, k, v, **captured["kw"]), 2e-2)
+        log(f"serve: captured decode inputs q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} {q.dtype}: kernel within 2e-2 of the plain "
+            f"version")
+        # Decode replay of one prompt against the plain prefill forward, in
+        # bf16 as served and in fp32, then the time of a synchronized B=1
+        # decode call past the prompt (bf16).
+        prompt = torch.from_numpy(prompts[0].astype(np.int32)).to(self.dev)[None]
+        for dtype, tol in PREFILL_REL_TOL.items():
+            m = build_model(cfg.replace(dtype=dtype))
+            with torch.no_grad():
+                state = m.init_decode_state(params, 1, PROMPT + NEW)
+                for t in range(PROMPT):
+                    logits, state = m.decode(params, state,
+                                             {"tokens": prompt[:, t:t + 1]})
+                pre = m.prefill_logits(params, {"tokens": prompt})
+            a, b = logits.float(), pre.float()
+            rel = ((a - b).norm() / b.norm()).item()
+            log(f"serve: {dtype} decode-replay logits vs prefill logits: "
+                f"relative L2 {rel:.3e} (bound {tol}), max abs "
+                f"{(a - b).abs().max().item():.3e}, |logit| max "
+                f"{b.abs().max().item():.3f}, same argmax "
+                f"{bool(a.argmax() == b.argmax())}")
+            if not (rel <= tol and bool(torch.isfinite(a).all())):
+                raise AssertionError(f"serve: {dtype} decode replay differs "
+                                     f"from prefill (relative L2 {rel})")
+            if dtype != cfg.dtype:
+                continue
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                for _ in range(NEW):
+                    logits, state = m.decode(params, state, {"tokens": tok})
+                    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            per_call = (time.perf_counter() - t) / NEW
+            log(f"serve: B=1 {dtype} decode call at positions {PROMPT}-"
+                f"{PROMPT + NEW - 1}: {per_call * 1e3:.2f} ms (host clock, "
+                f"synchronized) = {1 / per_call:.1f} tokens/s a stream; it "
+                f"reads the {4 * n_params / 1e9:.2f} GB of fp32 weights -> "
+                f">= {4 * n_params / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+                f"3.35 TB/s")
+        log(f"serve: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del params, runs, cont, state, logits, pre, a, b
+        torch.cuda.empty_cache()
+
     # -- result ----------------------------------------------------------------
     def kernel_line(self):
         launches = {}
@@ -592,16 +894,18 @@ class Smoke:
                 launches[k] = launches.get(k, 0) + v
         main_key = {"reassemble_window": "reassemble_window/window",
                     "reassemble": "reassemble/main",
-                    "reassemble_tokens": "reassemble_tokens/main"}
+                    "reassemble_tokens": "reassemble_tokens/main",
+                    "flash_attention": "flash_attention/decode"}
         out = []
-        for name in ("reassemble_window", "reassemble", "reassemble_tokens"):
-            r = self.timing[main_key[name]]
+        for name, key in main_key.items():
+            r = self.timing[key]
             out.append({
-                "name": name, "route": "cuda", "source": SOURCE,
+                "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": self.err[name], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": "bytes", "library_ms": r["library_ms"],
+                "bound_by": r.get("bound_by", "bytes"),
+                "library_ms": r["library_ms"],
             })
         return {"kernels": out}
 
@@ -635,6 +939,8 @@ def main() -> int:
             sm.phase("streamed", sm.streamed)
             sm.phase("arrival", sm.arrival)
             sm.phase("timing", sm.timing_phase)
+            sm.phase("attention", sm.attention)
+            sm.phase("serve", sm.serve)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)
     finally:

@@ -6,7 +6,7 @@ from repro_torch.core.api import CkIO
 from repro_torch.core.assembler import ReadComplete
 from repro_torch.core.buffers import BufferReaderSet, NetworkModel, ReaderOptions, SplinterEvent
 from repro_torch.core.futures import CkCallback, CkFuture
-from repro_torch.core.metrics import IngestMetrics, SessionMetrics, StreamMetrics
+from repro_torch.core.metrics import IngestMetrics, ServeMetrics, SessionMetrics, StreamMetrics, percentile
 from repro_torch.core.migration import Client, LocationManager, VirtualProxy
 from repro_torch.core.placement import place_readers
 from repro_torch.core.scheduler import BackgroundWorker, TaskScheduler
@@ -22,6 +22,8 @@ __all__ = [
     "CkCallback",
     "CkFuture",
     "IngestMetrics",
+    "ServeMetrics",
+    "percentile",
     "SessionMetrics",
     "StreamMetrics",
     "Client",

@@ -97,6 +97,20 @@ class CkIO:
     ) -> None:
         self.director.open_file(name, opts or FileOptions(), _to_cb(opened))
 
+    def open_fileset(
+        self,
+        fileset,
+        opened: Union[CkCallback, CkFuture, None] = None,
+        opts: Optional[FileOptions] = None,
+    ) -> None:
+        """Open a multi-shard manifest (``repro_torch.data.fileset.FileSet``)
+        as ONE logical file. The returned ``FileHandle`` addresses the
+        manifest's global data byte space (shard data regions concatenated,
+        header pages excluded, byte 0 = row 0); sessions, ``read``/
+        ``read_stream``/subscribe and zero-copy views work unchanged."""
+        self.director.open_fileset(fileset, opts or FileOptions(),
+                                   _to_cb(opened))
+
     def start_read_session(
         self,
         file: FileHandle,
@@ -165,6 +179,14 @@ class CkIO:
     ) -> FileHandle:
         f: CkFuture = CkFuture()
         self.open(name, f, opts)
+        return f.wait(self.sched, timeout=timeout)
+
+    def open_fileset_sync(
+        self, fileset, opts: Optional[FileOptions] = None,
+        timeout: float = 60.0,
+    ) -> FileHandle:
+        f: CkFuture = CkFuture()
+        self.open_fileset(fileset, f, opts)
         return f.wait(self.sched, timeout=timeout)
 
     def start_read_session_sync(

@@ -98,6 +98,26 @@ class Director:
         # Opening is itself split-phase: runs as a task on PE 0.
         self.sched.enqueue(0, do_open, label="ckio-open")
 
+    def open_fileset(
+        self, fileset, opts: FileOptions, opened: CkCallback
+    ) -> None:
+        """Open a multi-shard manifest (``data/fileset.py FileSet``) as one
+        logical file: the handle's ``posix`` is a ``ShardedFile`` over the
+        manifest's global data byte space, so sessions/reads/streams work
+        unchanged. The manifest is duck-typed (``sharded_file()``) — the
+        core layer never imports the data layer."""
+
+        def do_open() -> None:
+            sharded = fileset.sharded_file()
+            with self._lock:
+                fid = next(self._file_ids)
+                handle = FileHandle(id=fid, path=sharded.path, posix=sharded,
+                                    opts=opts)
+                self.files[fid] = handle
+            opened.send(self.sched, handle)
+
+        self.sched.enqueue(0, do_open, label="ckio-open-fileset")
+
     def close_file(self, handle: FileHandle, closed: CkCallback) -> None:
         def do_close() -> None:
             handle.posix.close()

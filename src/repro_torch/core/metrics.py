@@ -4,7 +4,8 @@ Everything the paper's evaluation plots (throughput, overlap fraction,
 permutation cost, cross-node traffic) is derived from these counters.
 Thread-safe; negligible overhead (integer adds under a lock). This copy
 keeps the session, ingest and stream counters the thread-backend training
-path fills (plus the recovery record a session carries).
+path fills (plus the recovery record a session carries), and the serving
+subsystem's ``ServeMetrics``.
 
 Per-piece *timing* (two ``perf_counter`` calls per delivered piece) is the
 one non-negligible probe, so it sits behind ``piece_timing_every``: 0 (the
@@ -16,6 +17,7 @@ and tests *prove* zero-copy delivery rather than assume it.
 """
 from __future__ import annotations
 
+import math
 import threading
 import time
 from dataclasses import dataclass, field
@@ -380,3 +382,218 @@ class IngestMetrics:
                 "h2d_transfers": float(self.h2d_transfers),
                 "h2d_bytes": float(self.h2d_bytes),
             }
+
+
+# -- serving ------------------------------------------------------------------
+def percentile(values: List[float], q: float) -> float:
+    """Nearest-rank percentile (q in [0, 100]) — monotone in q by
+    construction: rank = ceil(q/100 * n) indexes a *sorted* copy, so a
+    larger q can never select a smaller order statistic. Empty input folds
+    to 0.0 (a histogram with no samples has no tail)."""
+    if not values:
+        return 0.0
+    s = sorted(values)
+    if q <= 0.0:
+        return s[0]
+    rank = math.ceil(q / 100.0 * len(s))
+    return s[min(len(s), max(1, rank)) - 1]
+
+
+@dataclass
+class ServeMetrics:
+    """Serving-subsystem observables (``serve/``): request-latency
+    histograms, slot occupancy, session churn rate, and the ingest
+    backpressure state machine.
+
+    Rides the Director observer path like every other metrics sink:
+    ``director.add_observer(serve_metrics.record_session)`` folds each
+    closing prompt-ingest session's byte counters in (a serving CkIO
+    instance carries only ingest sessions, so no filtering is needed), and
+    the proof obligation ``ingest_bytes_copied == 0`` is how the benchmark
+    shows prompts ride the borrowed-view path end to end.
+
+    Latency histograms are raw sample lists folded by nearest-rank
+    :func:`percentile` at ``summary()`` time — p50/p99/p999 are monotone in
+    q by construction. Three clocks per request, all measured from
+    *arrival* (``submit``), not batch formation:
+
+      * ``ingest``       arrival -> prompt bytes readable (view delivered)
+      * ``first_token``  arrival -> first generated token
+      * ``e2e``          arrival -> eviction (EOS / max-tokens)
+
+    Backpressure is an explicit three-state machine owned by the
+    ``RequestIngester`` and *recorded* here (``set_state`` counts every
+    transition): ``open`` (admit immediately) -> ``queueing`` (``ServiceBusy``
+    or the inflight-ingest-byte budget tripped; bounded FIFO) ->
+    ``shedding`` (queue full; new submits raise ``ServeOverloaded``). A
+    request that reached the queue is *admitted* and is never dropped —
+    ``shed`` counts only rejected submits.
+    """
+
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    slots: int = 0                    # decode slots (set by the batcher)
+    # request lifecycle counters
+    submitted: int = 0
+    admitted: int = 0                 # accepted: started or queued (never dropped)
+    shed: int = 0                     # rejected with ServeOverloaded at submit
+    completed: int = 0
+    failed: int = 0                   # terminal ingest errors (surfaced, not lost)
+    generated_tokens: int = 0
+    # backpressure state machine + triggers
+    state: str = "open"
+    transitions: Dict[str, int] = field(default_factory=dict)
+    busy_events: int = 0              # ServiceBusy absorbed into the queue
+    over_budget_events: int = 0       # inflight ingest bytes > budget
+    queue_depth_hwm: int = 0
+    inflight_bytes_hwm: int = 0
+    # latency histograms (seconds, measured from arrival)
+    ingest_lat_s: List[float] = field(default_factory=list)
+    first_token_lat_s: List[float] = field(default_factory=list)
+    e2e_lat_s: List[float] = field(default_factory=list)
+    # decode-loop occupancy
+    steps: int = 0
+    occupied_slot_steps: int = 0
+    admissions: int = 0
+    evictions: int = 0
+    # ingest-session fold (Director observer path)
+    ingest_sessions: int = 0
+    ingest_bytes: int = 0
+    ingest_bytes_copied: int = 0
+    pooled_sessions: int = 0
+    t_first_submit: float = 0.0
+    t_last_done: float = 0.0
+
+    # -- lifecycle ------------------------------------------------------------
+    def record_submitted(self, now: float) -> None:
+        with self.lock:
+            self.submitted += 1
+            if self.t_first_submit == 0.0:
+                self.t_first_submit = now
+
+    def record_accepted(self) -> None:
+        with self.lock:
+            self.admitted += 1
+
+    def record_shed(self) -> None:
+        with self.lock:
+            self.shed += 1
+
+    def record_failed(self) -> None:
+        with self.lock:
+            self.failed += 1
+
+    def record_ingested(self, latency_s: float) -> None:
+        with self.lock:
+            self.ingest_lat_s.append(latency_s)
+
+    def record_first_token(self, latency_s: float) -> None:
+        with self.lock:
+            self.first_token_lat_s.append(latency_s)
+
+    def record_completed(self, latency_s: float, new_tokens: int,
+                         now: float) -> None:
+        with self.lock:
+            self.completed += 1
+            self.generated_tokens += new_tokens
+            self.e2e_lat_s.append(latency_s)
+            self.t_last_done = max(self.t_last_done, now)
+
+    # -- backpressure ----------------------------------------------------------
+    def set_state(self, new: str) -> None:
+        with self.lock:
+            if new == self.state:
+                return
+            key = f"{self.state}->{new}"
+            self.transitions[key] = self.transitions.get(key, 0) + 1
+            self.state = new
+
+    def record_busy(self) -> None:
+        with self.lock:
+            self.busy_events += 1
+
+    def record_over_budget(self) -> None:
+        with self.lock:
+            self.over_budget_events += 1
+
+    def record_queue_depth(self, depth: int) -> None:
+        with self.lock:
+            self.queue_depth_hwm = max(self.queue_depth_hwm, depth)
+
+    def record_inflight_bytes(self, nbytes: int) -> None:
+        with self.lock:
+            self.inflight_bytes_hwm = max(self.inflight_bytes_hwm, nbytes)
+
+    # -- decode loop -----------------------------------------------------------
+    def record_step(self, occupied: int) -> None:
+        with self.lock:
+            self.steps += 1
+            self.occupied_slot_steps += occupied
+
+    def record_admission(self) -> None:
+        with self.lock:
+            self.admissions += 1
+
+    def record_eviction(self) -> None:
+        with self.lock:
+            self.evictions += 1
+
+    # -- Director observer -----------------------------------------------------
+    def record_session(self, m: "SessionMetrics") -> None:
+        # pooled_sessions stays 0: the port has no ReaderService yet
+        # (ROADMAP.md, Queue A item 3).
+        with self.lock:
+            self.ingest_sessions += 1
+            self.ingest_bytes += m.bytes_read
+            self.ingest_bytes_copied += m.bytes_copied
+
+    # -- folds -----------------------------------------------------------------
+    def latency_percentiles(self, which: str) -> Dict[str, float]:
+        with self.lock:
+            vals = list(getattr(self, f"{which}_lat_s"))
+        return {
+            "p50": percentile(vals, 50.0),
+            "p99": percentile(vals, 99.0),
+            "p999": percentile(vals, 99.9),
+        }
+
+    def sessions_per_s(self) -> float:
+        with self.lock:
+            span = self.t_last_done - self.t_first_submit
+            n = self.ingest_sessions
+        return n / span if span > 0 else 0.0
+
+    def mean_occupancy(self) -> float:
+        with self.lock:
+            if self.steps == 0 or self.slots == 0:
+                return 0.0
+            return self.occupied_slot_steps / (self.steps * self.slots)
+
+    def summary(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for which in ("ingest", "first_token", "e2e"):
+            for k, v in self.latency_percentiles(which).items():
+                out[f"{which}_{k}_s"] = v
+        with self.lock:
+            out.update({
+                "submitted": float(self.submitted),
+                "admitted": float(self.admitted),
+                "completed": float(self.completed),
+                "shed": float(self.shed),
+                "failed": float(self.failed),
+                "generated_tokens": float(self.generated_tokens),
+                "busy_events": float(self.busy_events),
+                "over_budget_events": float(self.over_budget_events),
+                "queue_depth_hwm": float(self.queue_depth_hwm),
+                "inflight_bytes_hwm": float(self.inflight_bytes_hwm),
+                "bp_transitions": float(sum(self.transitions.values())),
+                "steps": float(self.steps),
+                "admissions": float(self.admissions),
+                "evictions": float(self.evictions),
+                "ingest_sessions": float(self.ingest_sessions),
+                "ingest_bytes": float(self.ingest_bytes),
+                "ingest_bytes_copied": float(self.ingest_bytes_copied),
+                "pooled_sessions": float(self.pooled_sessions),
+            })
+        out["sessions_per_s"] = self.sessions_per_s()
+        out["mean_occupancy"] = self.mean_occupancy()
+        return out

@@ -80,11 +80,14 @@ class FileOptions:
 
 @dataclass
 class FileHandle:
-    """Returned by ``CkIO.open`` (paper: ``Ck::IO::File``)."""
+    """Returned by ``CkIO.open`` / ``CkIO.open_fileset`` (paper:
+    ``Ck::IO::File``). ``posix`` is a ``PosixFile``, or the
+    byte-space-compatible ``io.posix.ShardedFile`` for FileSet opens
+    (offsets are then global data bytes)."""
 
     id: int
     path: str
-    posix: PosixFile
+    posix: PosixFile                    # or io.posix.ShardedFile (duck-typed)
     opts: FileOptions
 
     @property

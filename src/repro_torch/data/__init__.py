@@ -1,4 +1,5 @@
 """Training data pipeline built on CkIO read sessions."""
+from repro_torch.data.fileset import FileSet, ShardInfo, write_token_shards
 from repro_torch.data.packing import (
     as_block_permutation,
     batch_from_tokens,
@@ -12,6 +13,9 @@ from repro_torch.data.synthetic import make_token_file
 from repro_torch.data.tokenfile import TokenFileMeta, decode_rows, read_meta, write_token_file
 
 __all__ = [
+    "FileSet",
+    "ShardInfo",
+    "write_token_shards",
     "TokenFileMeta",
     "write_token_file",
     "read_meta",

@@ -1,9 +1,10 @@
 """POSIX file layer: pread-based stripe reads and layout math."""
 from repro_torch.io.layout import StripePlan, Splinter, pieces_for_range, plan_session
-from repro_torch.io.posix import DEFAULT_ALIGN, PosixFile, aligned_floor, write_file
+from repro_torch.io.posix import DEFAULT_ALIGN, PosixFile, ShardedFile, aligned_floor, write_file
 
 __all__ = [
     "PosixFile",
+    "ShardedFile",
     "write_file",
     "DEFAULT_ALIGN",
     "aligned_floor",

@@ -26,8 +26,9 @@ each syscall — the deterministic short-read / flaky-EIO injection point
 used by ``core/faults.py`` (picklable, so it also ships to reader worker
 processes through ``WorkerSpec.io_fault``).
 
-This copy reads through the buffered descriptor only; ``O_DIRECT`` and
-multi-file (FileSet) handles come with later slices of the port.
+This copy reads through the buffered descriptor only; ``O_DIRECT`` comes
+with a later slice of the port. ``ShardedFile`` presents the shards of a
+FileSet as one byte space.
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ import errno
 import os
 import threading
 import time
+from bisect import bisect_right
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 # Typical FS block size; stripe/splinter boundaries are aligned to this when
 # possible to avoid read-modify-write amplification on the storage side.
@@ -308,6 +310,122 @@ class PosixFile:
     @property
     def closed(self) -> bool:
         return self.fd < 0
+
+
+class ShardedFile:
+    """A ``PosixFile``-compatible handle over an ordered set of shard files.
+
+    Presents N on-disk shards as ONE contiguous byte space so every layer
+    above (stripe planning, buffer readers, borrowed views) works unchanged
+    over a multi-file corpus. The byte space is whatever the segment table
+    says it is — for token-file sets it is the concatenation of each shard's
+    *data* region (headers excluded), built by ``data/fileset.py``.
+
+    ``segments`` is a tuple of ``(path, global_start, file_base, nbytes,
+    shard_id)``: bytes ``[global_start, global_start + nbytes)`` of the
+    global space live at file offset ``file_base`` of ``path``. Segments
+    must be ascending and contiguous (no gaps); zero-byte shards are simply
+    omitted from the table (their ``shard_id``s stay reserved).
+
+    It carries the part of the ``PosixFile`` surface the reader runtime
+    uses (``pread_into``, ``advise_sequential``, ``block_size``, ``size``,
+    ``path``, ``close``), with ``PosixFile``'s semantics: positional reads
+    from any thread, short-read/EOF behaviour (a torn shard body returns
+    short, it does not raise), per-shard transient-error retry (each
+    underlying handle keeps its own ``RetryPolicy``). A read that crosses a
+    shard boundary is split at it (this copy's stripe planning does not pin
+    shard starts as stripe bounds). The ``fault`` injection hook is
+    forwarded to the per-shard reads and observes *shard-file* offsets.
+    """
+
+    def __init__(self, segments: Sequence[Tuple[str, int, int, int, int]]):
+        segs = tuple(
+            (str(p), int(g), int(b), int(n), int(sid))
+            for (p, g, b, n, sid) in segments
+        )
+        if not segs:
+            raise ValueError("ShardedFile needs at least one segment")
+        for i, (p, g, b, n, sid) in enumerate(segs):
+            if n <= 0:
+                raise ValueError(f"segment {i} ({p}): non-positive length {n}")
+            if i and g != segs[i - 1][1] + segs[i - 1][3]:
+                raise ValueError(
+                    f"segment {i} ({p}): global space has a gap "
+                    f"({segs[i - 1][1] + segs[i - 1][3]} != {g})")
+        self.segments = segs
+        self._starts = tuple(g for (_, g, _, _, _) in segs)
+        self.offset = segs[0][1]
+        self.size = segs[-1][1] + segs[-1][3]   # end of the global space
+        self.path = (f"fileset[{len(segs)} shards: {segs[0][0]} .. "
+                     f"{segs[-1][0]}]")
+        # One descriptor per unique path (a path may legally back several
+        # segments); opened here, owned by this handle alone.
+        self._by_path: Dict[str, PosixFile] = {}
+        try:
+            for p, *_ in segs:
+                if p not in self._by_path:
+                    self._by_path[p] = PosixFile.open(p)
+        except OSError:
+            for f in self._by_path.values():
+                f.close()
+            raise
+        self._files = tuple(self._by_path[p] for (p, *_ ) in segs)
+        self.block_size = max(f.block_size for f in self._by_path.values())
+
+    def _seg_at(self, global_off: int) -> int:
+        i = bisect_right(self._starts, global_off) - 1
+        if i < 0:
+            raise ValueError(
+                f"offset {global_off} before global space start {self.offset}")
+        return i
+
+    # -- PosixFile surface -------------------------------------------------
+    def pread_into(self, offset: int, view: memoryview, *,
+                   stats=None, fault=None) -> int:
+        """Positional read of the global space into ``view``; loops across
+        shard boundaries. Returns short only at genuine end-of-space or a
+        torn shard body (per-shard EOF), mirroring ``PosixFile``."""
+        want = len(view)
+        if want <= 0:
+            return 0
+        total = 0
+        i = self._seg_at(offset)
+        while total < want and i < len(self.segments):
+            _, g, b, n, _ = self.segments[i]
+            seg_off = offset + total - g
+            if seg_off >= n:            # past this segment: next one
+                i += 1
+                continue
+            take = min(want - total, n - seg_off)
+            got = self._files[i].pread_into(
+                b + seg_off, view[total: total + take],
+                stats=stats, fault=fault)
+            total += got
+            if got < take:              # torn shard body — stop short
+                break
+            i += 1
+        return total
+
+    def advise_sequential(self, offset: int, nbytes: int, *,
+                          stats=None) -> bool:
+        """Per-shard sequential/willneed hints over the intersected ranges."""
+        ok = False
+        end = offset + nbytes
+        for (_, g, b, n, _), f in zip(self.segments, self._files):
+            s, e = max(offset, g), min(end, g + n)
+            if s < e:
+                ok = f.advise_sequential(b + (s - g), e - s, stats=stats) or ok
+        return ok
+
+    def close(self) -> None:
+        for f in self._by_path.values():
+            f.close()
+        self._by_path = {}
+        self._files = ()
+
+    @property
+    def closed(self) -> bool:
+        return not self._files
 
 
 def write_file(path: str, data: bytes, *, sync: bool = False) -> None:

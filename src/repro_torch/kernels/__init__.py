@@ -1,8 +1,9 @@
-"""Hand-written Hopper kernels for CkIO's on-device batch reassembly.
+"""Hand-written Hopper kernels of the port.
 
-reassemble — the three gathers of the phase-2 data permutation (CUDA C++,
-``csrc/reassemble.cu``), with plain PyTorch versions in ``ref.py`` and the
-device-dispatching entry points in ``ops.py``.
+reassemble — the three gathers of CkIO's phase-2 data permutation
+(``csrc/reassemble.cu``); flash_attention — the attention forward
+(``csrc/flash_attention.cu``). Plain PyTorch versions are in ``ref.py``,
+the device-dispatching entry points in ``ops.py``.
 """
 from repro_torch.kernels import ops, ref
 

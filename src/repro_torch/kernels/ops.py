@@ -1,11 +1,12 @@
-"""Public entry points for on-device batch reassembly.
+"""Public entry points for on-device batch reassembly and attention.
 
 Dispatch is by the device of the tensors: CUDA tensors go to the
-hand-written kernels in ``kernels/reassemble.py`` (which raise if they
-cannot launch), CPU tensors to the plain PyTorch versions in
-``kernels/ref.py``. There is no fallback from one to the other. Host
-metadata (index maps from ``data/packing.py``) may be passed as NumPy
-arrays; it is checked on the host and uploaded next to the data.
+hand-written kernels in ``kernels/reassemble.py`` and
+``kernels/flash_attention.py`` (which raise if they cannot launch), CPU
+tensors to the plain PyTorch versions in ``kernels/ref.py``. There is no
+fallback from one to the other. Host metadata (index maps from
+``data/packing.py``) may be passed as NumPy arrays; it is checked on the
+host and uploaded next to the data.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.packing import as_block_permutation, row_gather_index
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 from repro_torch.kernels import reassemble as K
 
@@ -25,7 +27,7 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
         return True
     if kinds == {"cpu"}:
         return False
-    raise ValueError(f"reassembly inputs on unsupported or mixed devices: "
+    raise ValueError(f"kernel inputs on unsupported or mixed devices: "
                      f"{sorted(kinds)}")
 
 
@@ -38,6 +40,29 @@ def _index(idx, device: torch.device, upper: int | None = None) -> torch.Tensor:
     if upper is not None and host.size and (host.min() < 0 or host.max() >= upper):
         raise IndexError(f"block index out of range [0, {upper})")
     return torch.from_numpy(np.ascontiguousarray(host, dtype=np.int32)).to(device)
+
+
+def flash_attention(
+    q: torch.Tensor,              # (B, Sq, H, hd)
+    k: torch.Tensor,              # (B, Sk, K, hd)
+    v: torch.Tensor,              # (B, Sk, K, hd)
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Attention in the reference's ``(B, S, H, hd)`` layout; returns
+    ``(B, Sq, H, hd)``. The CUDA kernel reads the inputs through their
+    strides (views such as a cache prefix need no copy). A window without
+    a causal mask is refused: the reference's Pallas kernel and its oracle
+    disagree there, and no caller uses it."""
+    if window > 0 and not causal:
+        raise ValueError("flash_attention: window > 0 needs causal=True")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if _on_cuda(q, k, v):
+        out = FA.flash_attention_cuda(qt, kt, vt, causal=causal, window=window)
+    else:
+        out = ref.attention_ref(qt, kt, vt, causal=causal, window=window)
+    return out.transpose(1, 2)
 
 
 def reassemble(src: torch.Tensor, idx) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """Hopper kernels for CkIO's phase-2 data permutation: build, bind, launch.
 
 ``csrc/reassemble.cu`` holds three CUDA kernels with a plain C interface.
-They are compiled at first use with ``nvcc`` for ``sm_90a`` into
-``build/repro_torch/`` at the repository root (``REPRO_TORCH_BUILD_DIR``
-overrides it) and loaded with ``ctypes``: no PyTorch headers, so the build
-takes seconds. Each wrapper here checks device, dtype, shape and
-contiguity, allocates the outputs with ``torch.empty``, launches on the
-current stream, raises if the launcher reports a CUDA error, and adds one
-to its entry in :data:`LAUNCHES`.
+Every ``csrc/*.cu`` of the package is compiled at first use with ``nvcc``
+for ``sm_90a`` into ``build/repro_torch/`` at the repository root
+(``REPRO_TORCH_BUILD_DIR`` overrides it), one shared library per source,
+and loaded with ``ctypes``: no PyTorch headers, so a build takes seconds.
+The builder here serves every kernel module of the package
+(``kernels/flash_attention.py`` too). Each wrapper checks device, dtype,
+shape and contiguity, allocates the outputs with ``torch.empty``, launches
+on the current stream, raises if the launcher reports a CUDA error, and
+adds one to its entry in :data:`LAUNCHES`.
 
 What each kernel replaces, what bounds it and how its design meets the
 bound is noted at the top of the CUDA source. The plain PyTorch versions
@@ -22,11 +24,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "reassemble.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "reassemble.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -38,7 +41,7 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _lock = threading.Lock()
-_lib = None
+_libs: Dict[Path, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -61,50 +64,77 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
-                       "toolkit is needed to build the reassembly kernels")
+                       "toolkit is needed to build the port's kernels")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/reassemble.cu`` into the build directory unless an
-    up-to-date library is already there; returns the library's path."""
-    out = build_dir() / "libckio_reassemble.so"
-    if out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr, end="")
-    os.replace(tmp, out)
-    return out
+def _library_path(source: Path) -> Path:
+    return build_dir() / f"libckio_{source.stem}.so"
+
+
+def build(*sources: Path, verbose: bool = False) -> List[Path]:
+    """Compile each CUDA source (default: every ``csrc/*.cu``) into the
+    build directory unless an up-to-date library is already there. One
+    ``nvcc`` per source, all started together; returns the libraries'
+    paths in the order of ``sources``."""
+    sources = tuple(sources) or tuple(sorted(CSRC.glob("*.cu")))
+    outs = [_library_path(s) for s in sources]
+    jobs = []
+    for src, out in zip(sources, outs):
+        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(src)]
+        jobs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, out, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+            continue
+        if verbose and err:
+            print(err, end="")
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def load_library(source: Path, bind: Callable[[ctypes.CDLL], None]
+                 ) -> ctypes.CDLL:
+    """The library built from ``source`` (built at first use), with
+    ``bind`` called once to declare its functions' argument types."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)[0]))
+            bind(lib)
+            _libs[source] = lib
+        return lib
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ckio_reassemble_window.argtypes = [P, P, I, L, P, P, I, I, L, I, P]
+    lib.ckio_reassemble.argtypes = [P, P, P, L, L, I, P]
+    lib.ckio_reassemble_tokens.argtypes = [P, L, P, P, P, L, I, I, P]
+    for fn in (lib.ckio_reassemble_window, lib.ckio_reassemble,
+               lib.ckio_reassemble_tokens):
+        fn.restype = ctypes.c_int
 
 
 def _library():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.ckio_reassemble_window.argtypes = [P, P, I, L, P, P, I, I, L, I, P]
-            lib.ckio_reassemble.argtypes = [P, P, P, L, L, I, P]
-            lib.ckio_reassemble_tokens.argtypes = [P, L, P, P, P, L, I, I, P]
-            for fn in (lib.ckio_reassemble_window, lib.ckio_reassemble,
-                       lib.ckio_reassemble_tokens):
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return load_library(SOURCE, _bind)
 
 
-def _check(rc: int, name: str) -> None:
+def check_rc(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def _stream(t: torch.Tensor) -> int:
+def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -161,8 +191,8 @@ def reassemble_window_cuda(
     rc = _library().ckio_reassemble_window(
         table.data_ptr(), table.data_ptr() + 8 * len(chunks), len(chunks),
         limit, inputs.data_ptr(), labels.data_ptr(), B, S,
-        int(window_tok_off), int(pad_id), _stream(inputs))
-    _check(rc, "reassemble_window")
+        int(window_tok_off), int(pad_id), stream_of(inputs))
+    check_rc(rc, "reassemble_window")
     LAUNCHES["reassemble_window"] += 1
     return inputs, labels
 
@@ -189,8 +219,8 @@ def reassemble_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         unit //= 2 if unit != 16 else 4
     rc = _library().ckio_reassemble(
         src.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-        row_bytes, unit, _stream(out))
-    _check(rc, "reassemble")
+        row_bytes, unit, stream_of(out))
+    check_rc(rc, "reassemble")
     LAUNCHES["reassemble"] += 1
     return out
 
@@ -216,7 +246,7 @@ def reassemble_tokens_cuda(
     rc = _library().ckio_reassemble_tokens(
         staged.data_ptr(), staged.numel(), row_idx.data_ptr(),
         inputs.data_ptr(), labels.data_ptr(), B, S, int(pad_id),
-        _stream(inputs))
-    _check(rc, "reassemble_tokens")
+        stream_of(inputs))
+    check_rc(rc, "reassemble_tokens")
     LAUNCHES["reassemble_tokens"] += 1
     return inputs, labels

@@ -1,10 +1,43 @@
-"""Plain PyTorch versions of the reassembly kernels (the bit-exact ground
-truth the CUDA kernels are held to, and the path CPU tensors take)."""
+"""Plain PyTorch versions of the port's kernels: the ground truth the CUDA
+kernels are held to (bit-exact for the reassembly gathers, within the
+stated tolerance for attention), and the path CPU tensors take."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import torch
+
+NEG_INF = -2.0e38
+
+
+def attention_ref(
+    q: torch.Tensor,          # (B, H, Sq, hd)
+    k: torch.Tensor,          # (B, K, Sk, hd)
+    v: torch.Tensor,          # (B, K, Sk, hd)
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Dense softmax attention, GQA by head-group folding, fp32 throughout;
+    the output is cast to q's dtype. Causal positions are end-aligned
+    (query i sits at i + Sk - Sq); the window applies to causal masks only,
+    and a row with every key masked softmaxes over the -2e38 fill (uniform
+    weights), as in the reference oracle."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    qf = q.reshape(B, K, G, Sq, hd).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * (hd ** -0.5)
+    if causal:
+        i = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        j = torch.arange(Sk, device=q.device)[None, :]
+        m = j <= i
+        if window > 0:
+            m &= (i - j) < window
+        s = s.masked_fill(~m, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return o.reshape(B, H, Sq, hd).to(q.dtype)
 
 
 def reassemble_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

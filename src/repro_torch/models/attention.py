@@ -1,20 +1,49 @@
-"""Attention, train half: GQA/MQA/MHA with causal and sliding-window masks.
+"""Attention: GQA/MQA/MHA with causal and sliding-window masks; the KV
+cache for decode.
 
-The math is the reference's XLA path (``repro/models/attention.py``): scores
-in fp32, probabilities cast back to the compute dtype before the PV product.
-Like the reference model, it does not call the flash-attention kernel.
-Decode (the ring-buffer KV cache) comes with the serving slice.
+The train/prefill half is the reference's XLA path
+(``repro/models/attention.py``): scores in fp32, probabilities cast back to
+the compute dtype before the PV product.
+
+Decode departs from the reference on purpose: its attention goes through
+``ops.flash_attention`` (the hand-written kernel on CUDA tensors, the plain
+version on CPU tensors) over the valid prefix of the cache, where the
+reference runs ``_sdpa`` over the whole ring with a slot mask. While
+``pos < capacity`` the valid slots are exactly ``0..pos`` and the slot mask
+equals the kernel's end-aligned causal mask over ``k[:, :pos+1]``, so both
+compute the same function (the reference rounds the probabilities to the
+compute dtype before PV; the kernel keeps them in fp32). A ring that would
+wrap (local-window layers decoding past their window) comes with the
+gemma3 and recurrentgemma slices.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, fan_in_init, rmsnorm, rmsnorm_init, shard_act
 
 NEG_INF = -2.0e38
+
+
+class KVCache(NamedTuple):
+    """Slot ``p`` holds position ``p``: the ring never wraps in the port
+    (decode raises first), so the reference's ``slot_pos`` is not kept."""
+    k: torch.Tensor          # (B, C, K, hd)
+    v: torch.Tensor          # (B, C, K, hd)
+
+
+def init_cache(batch: int, capacity: int, kv_heads: int, head_dim: int,
+               dtype, device) -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, capacity, kv_heads, head_dim), dtype=dtype,
+                      device=device),
+        v=torch.zeros((batch, capacity, kv_heads, head_dim), dtype=dtype,
+                      device=device),
+    )
 
 
 def attn_init(gen, d: int, heads: int, kv_heads: int, head_dim: int, dtype,
@@ -139,3 +168,44 @@ def attention_train(
         out = _sdpa(q, k, v, mask=mask, softcap=softcap)
     out = shard_act(out, "batch", None, "model", None)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+
+
+def attention_decode(
+    params: dict,
+    x: torch.Tensor,               # (B, 1, d) new token
+    cache: KVCache,
+    pos: int,                      # absolute position of the new token (host int)
+    cos: torch.Tensor, sin: torch.Tensor,  # (B, 1, hd//2) for the new position
+    *,
+    dtype,
+    eps: float,
+    window: int = 0,
+    softcap: float = 0.0,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step of one layer. Writes the new token's k/v into slot
+    ``pos`` of ``cache`` and attends over slots ``0..pos`` through
+    ``ops.flash_attention``. The cache is updated in place (the reference
+    returns a new one): the caller's cache and the returned one are the same
+    tensors, which saves a copy of the cache per layer per token."""
+    C = cache.k.shape[1]
+    if pos >= C:
+        raise NotImplementedError(
+            f"decode at position {pos} would wrap a ring of {C} slots: "
+            f"local-window decode comes with the gemma3 and recurrentgemma "
+            f"slices (ROADMAP.md, Queue A item 9)")
+    if softcap > 0.0:
+        raise NotImplementedError(
+            "attention logit softcap in decode: the flash-attention kernel "
+            "does not compute it; it comes with the gemma slices (ROADMAP.md,"
+            " Queue A item 9)")
+    q, k_new, v_new = _project_qkv(params, x, dtype, eps)
+    if use_rope:
+        q = apply_rope(q, cos, sin)
+        k_new = apply_rope(k_new, cos, sin)
+    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+    out = ops.flash_attention(q, cache.k[:, :pos + 1], cache.v[:, :pos + 1],
+                              causal=True, window=window)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+    return out, cache

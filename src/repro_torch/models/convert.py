@@ -1,4 +1,5 @@
-"""Parameter conversion between the reference's JAX pytree and the port.
+"""Parameter and decode-state conversion between the reference's JAX
+pytrees and the port.
 
 The reference stacks each block-pattern position's params over a leading
 ``num_blocks`` axis (``params["blocks"]["l{i}"]``, scanned by the stack)
@@ -16,6 +17,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import KVCache
+from repro_torch.models.transformer import DecodeState
 
 
 def _map(fn, tree):
@@ -78,3 +81,33 @@ def to_reference(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     if "lm_head" in params:
         out["lm_head"] = _map(to_np, params["lm_head"])
     return out
+
+
+def decode_state_from_reference(state, cfg: ModelConfig, *,
+                                device="cuda") -> DecodeState:
+    """Reference ``DecodeState`` (NumPy leaves: ``blocks`` a tuple of
+    ``KVCache`` stacked over the blocks, ``tail`` a list of ``KVCache``,
+    ``pos`` a scalar) -> the port's, one cache per layer in schedule order.
+    Read by attribute, so the reference's NamedTuples pass as they are."""
+    dev = resolve_device(device)
+    to_t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
+    pattern, nb, tail = cfg.scan_split()
+    pos = int(np.asarray(state.pos))
+    caches = [tuple(np.asarray(a)[bi] for a in (c.k, c.v, c.slot_pos))
+              for bi in range(nb) for c in state.blocks[:len(pattern)]]
+    caches += [tuple(np.asarray(a) for a in (c.k, c.v, c.slot_pos))
+               for c in state.tail]
+    layers = []
+    for k, v, slot_pos in caches:
+        # The port's cache keeps position p in slot p: a wrapped ring has
+        # no port counterpart yet.
+        if not np.array_equal(slot_pos[:pos], np.arange(pos)):
+            raise NotImplementedError(
+                "a reference cache whose ring has wrapped: local-window "
+                "decode comes with the gemma3 and recurrentgemma slices "
+                "(ROADMAP.md, Queue A item 9)")
+        layers.append(KVCache(k=to_t(k), v=to_t(v)))
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"state holds {len(layers)} layers, config "
+                         f"{cfg.name} has {cfg.num_layers}")
+    return DecodeState(layers=layers, pos=pos)

@@ -37,6 +37,24 @@ class Model:
     def prefill_logits(self, params, batch) -> torch.Tensor:
         return transformer.forward_logits(params, self.cfg, batch)
 
+    def decode(self, params, state, batch):
+        return transformer.decode_step(params, self.cfg, state, batch)
+
+    def init_decode_state(self, params, batch_size: int, seq_budget: int,
+                          frames=None):
+        """Empty KV caches on the device of ``params``."""
+        if frames is not None:
+            raise NotImplementedError(
+                "encoder frames: encoder-decoder decode comes with the "
+                "whisper slice (ROADMAP.md, Queue A item 9)")
+        return transformer.init_decode_state(self.cfg, batch_size, seq_budget,
+                                             self.device(params))
+
+    @staticmethod
+    def device(params) -> torch.device:
+        """The device the params (and so the model's steps) live on."""
+        return params["embed"]["table"].device
+
 
 @functools.lru_cache(maxsize=None)
 def _cached_model(name: str) -> Model:

@@ -1,4 +1,4 @@
-"""Decoder-only transformer stack, train/prefill half.
+"""Decoder-only transformer stack: train/prefill forward and decode.
 
 The reference scans over whole blocks of stacked params; the port keeps one
 param dict per layer in ``params["layers"]`` (schedule order) and loops
@@ -7,19 +7,24 @@ over them. With ``remat_policy != "none"`` each block of
 port's counterpart of the reference's per-block ``jax.checkpoint``.
 ``models/convert.py`` maps between the two layouts.
 
+Decode keeps one KV cache per layer in ``DecodeState.layers`` (schedule
+order, like the params) and the next position as a host int, so that
+slicing the valid cache prefix needs no device sync; the caches are updated
+in place (``attention_decode``).
+
 The port carries dense attention blocks (phi4-mini) so far; the other mixer
 and FFN kinds raise ``NotImplementedError`` and come with their families.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, DENSE, ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.attention import attn_init
+from repro_torch.models.attention import KVCache, attn_init, init_cache
 from repro_torch.models.layers import (
     embed_init,
     embed_lookup,
@@ -177,3 +182,69 @@ def forward_logits(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if last_only:
         x = x[:, -1:]
     return _logits(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+class DecodeState(NamedTuple):
+    layers: List[KVCache]  # one cache per layer, schedule order
+    pos: int               # next absolute position (host int)
+
+
+def _layer_capacity(cfg: ModelConfig, spec, seq_budget: int) -> int:
+    if spec.mixer == ATTN_LOCAL and spec.window > 0:
+        return min(spec.window, seq_budget)
+    return seq_budget
+
+
+def init_layer_state(cfg: ModelConfig, spec, batch: int, seq_budget: int,
+                     device) -> KVCache:
+    _check_spec(spec)
+    return init_cache(batch, _layer_capacity(cfg, spec, seq_budget),
+                      cfg.num_kv_heads, cfg.resolved_head_dim, _dtype(cfg),
+                      device)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, seq_budget: int, device,
+                      pos: int = 0) -> DecodeState:
+    return DecodeState(
+        layers=[init_layer_state(cfg, spec, batch, seq_budget, device)
+                for spec in cfg.layer_schedule()],
+        pos=pos)
+
+
+def apply_layer_decode(params, state: KVCache, spec, cfg: ModelConfig, x,
+                       pos: int, cos, sin) -> Tuple[torch.Tensor, KVCache]:
+    dt = _dtype(cfg)
+    eps = cfg.norm_eps
+    h = rmsnorm(params["norm1"], x, eps)
+    m, new_state = attn_mod.attention_decode(
+        params["mixer"], h, state, pos, cos, sin, dtype=dt, eps=eps,
+        window=spec.window, softcap=cfg.attn_logit_softcap,
+        use_rope=cfg.use_rope,
+    )
+    x = x + m
+    h = rmsnorm(params["norm2"], x, eps)
+    return x + mlp_apply(params["ffn"], h, cfg.act, dt), new_state
+
+
+def decode_step(params, cfg: ModelConfig, state: DecodeState,
+                batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, DecodeState]:
+    """One token for every sequence in the batch.
+
+    batch: ``{"tokens": (B, 1)}``. Returns (logits (B, 1, V), new state);
+    the new state holds the same (updated) caches and ``pos + 1``."""
+    x, B, _ = _input_x(params, cfg, batch)
+    pos = state.pos
+    pos_ids = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    cos, sin = rope_angles(pos_ids, cfg.resolved_head_dim, cfg.rope_theta,
+                           cfg.mrope_sections)
+    layers = []
+    for lp, ls, spec in zip(params["layers"], state.layers,
+                            cfg.layer_schedule()):
+        x, ns = apply_layer_decode(lp, ls, spec, cfg, x, pos, cos, sin)
+        layers.append(ns)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), DecodeState(layers=layers, pos=pos + 1)

@@ -1,16 +1,19 @@
-"""The CUDA reassembly kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, on the
 card (``gpu`` marker; every test skips where torch sees no CUDA device).
 Imports torch and numpy only, so the file runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
 
-Token movement is exact, so every comparison is ``torch.equal``.
+Token movement is exact, so every reassembly comparison is ``torch.equal``.
+Attention is held to ``attention_ref`` at 1e-5 in float32 (another
+summation order) and 2e-2 in bfloat16 (outputs rounded to bf16).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reassemble as K  # noqa: E402
 
@@ -69,3 +72,69 @@ def test_cuda_ops_count_one_launch_each(cuda):
     torch.cuda.synchronize()
     assert K.LAUNCHES == {"reassemble_window": 1, "reassemble": 1,
                           "reassemble_tokens": 1}
+
+
+FA_CASES = [   # (B, H, K, Sq, Sk, hd, causal, window)
+    (1, 2, 2, 64, 64, 32, True, 0),      # the six cases of
+    (2, 4, 2, 128, 128, 64, True, 0),    # tests/test_kernels.py's sweep
+    (1, 4, 1, 64, 64, 32, True, 0),
+    (1, 2, 2, 64, 64, 32, True, 16),
+    (1, 2, 2, 96, 96, 16, True, 24),
+    (2, 2, 2, 64, 64, 32, False, 0),
+    (1, 24, 8, 1, 1, 128, True, 0),      # phi4-mini decode
+    (1, 24, 8, 1, 129, 128, True, 0),
+    (2, 6, 2, 37, 70, 64, True, 9),      # ragged tiles, end-aligned
+    (1, 32, 1, 5, 40, 16, True, 0),      # a group wider than a block
+]
+FA_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
+
+
+def _attn_inputs(B, H, K, Sq, Sk, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device).to(dtype)
+    return mk(B, H, Sq, hd), mk(B, K, Sk, hd), mk(B, K, Sk, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FA_DTYPES)
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,window", FA_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, B, H, K, Sq, Sk, hd, causal,
+                                            window, dtype, tol):
+    q, k, v = _attn_inputs(B, H, K, Sq, Sk, hd, dtype, cuda, seed=Sk + hd)
+    got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FA_DTYPES)
+def test_cuda_flash_attention_reads_a_cache_prefix_in_place(cuda, dtype, tol):
+    # The decode call: (B, 1, H, hd) activations against the first pos+1
+    # slots of a (B, C, K, hd) cache, through ops (strided views, no copy).
+    rng = np.random.default_rng(5)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda).to(dtype)
+    q, kc, vc = mk(2, 1, 24, 128), mk(2, 152, 8, 128), mk(2, 152, 8, 128)
+    FA.reset_launch_counts()
+    for pos in (0, 31, 32, 100):
+        got = ops.flash_attention(q, kc[:, :pos + 1], vc[:, :pos + 1])
+        want = ref.attention_ref(q.transpose(1, 2), kc[:, :pos + 1].transpose(
+            1, 2), vc[:, :pos + 1].transpose(1, 2)).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    assert FA.LAUNCHES == {"flash_attention": 4}
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_is_deterministic_and_checks_inputs(cuda):
+    q, k, v = _attn_inputs(1, 24, 8, 300, 300, 128, torch.bfloat16, cuda)
+    a = FA.flash_attention_cuda(q, k, v)
+    b = FA.flash_attention_cuda(q, k, v)
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention_cuda(q[..., :96], k[..., :96], v[..., :96])
+    with pytest.raises(ValueError, match="dtype"):
+        FA.flash_attention_cuda(q.half(), k.half(), v.half())
