@@ -36,7 +36,14 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              prefill; then its time, the plain version's and
              ``scaled_dot_product_attention``'s at the served decode shape
              and at the prefill shape, beside the bound;
-9. serve     the second main path, ``repro_torch.launch.serve``: phi4-mini
+9. scan      the selective-scan kernel against its plain version on the card
+             (1e-4): the four sweep cases of tests/test_kernels.py, the
+             falcon-mamba decode shape (B=1, S=1, D=8192, N=16) from a
+             random h0 (y and h_S), a 64-token prefill and the bound's shape
+             (B=8, S=2048, D=8192, N=16: 2^31 elements an input); then its
+             time and the plain version's at the decode and bound shapes,
+             beside the bound (no PyTorch call computes a selective scan);
+10. serve    the second main path, ``repro_torch.launch.serve``: phi4-mini
              at full width with all 32 layers, random weights from seed 0,
              bf16 compute; static mode (BatchServer over one CkIO bulk read,
              4 requests, batch 4) and continuous mode (a 3-shard FileSet,
@@ -46,12 +53,19 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              must equal the sequential oracle's on the same engine, and
              replaying a prompt through decode must give the logits of the
              plain prefill forward;
-10. profile  only with ``--profile``: two whole-window main-path steps, and
-             16 B=1 decode calls of the 32-layer model, under
+11. serve_ssm the third main path: the same for falcon-mamba-7b at full
+             width with all 64 layers (static: 4 requests, batch 4;
+             continuous: 2 requests, 4 slots), 64 prompt tokens and 16 new
+             ones a request. Every decode call runs the selective scan of
+             each of the 64 layers through the kernel (S=1 from the carried
+             state); the prefill forward runs it once a layer over the
+             prompt;
+12. profile  only with ``--profile``: two whole-window main-path steps, 16
+             B=1 decode calls of phi4-mini and 8 of falcon-mamba under
              ``torch.profiler`` (device busy share, kernels by device time).
 
 The launch counts are zeroed just before each main-path run (phases 4-6 and
-each mode of phase 9) and read just after it. The line before the last is a
+each mode of phases 10 and 11) and read just after it. The line before the last is a
 JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -72,17 +86,20 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_PEAK = 989e12                 # dense bf16 FLOP/s, same source
+FP32_PEAK = 67e12                  # fp32 FLOP/s outside the tensor cores
 SOURCES = {
     "reassemble_window": "src/repro_torch/kernels/csrc/reassemble.cu",
     "reassemble": "src/repro_torch/kernels/csrc/reassemble.cu",
     "reassemble_tokens": "src/repro_torch/kernels/csrc/reassemble.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
 }
 REPLACES = {
     "reassemble_window": "src/repro/kernels/reassemble.py:81",
     "reassemble": "src/repro/kernels/reassemble.py:52",
     "reassemble_tokens": "src/repro/kernels/reassemble.py:173",
     "flash_attention": "src/repro/kernels/flash_attention.py:90",
+    "mamba_scan": "src/repro/kernels/mamba_scan.py:44",
 }
 ARCH_LAYERS = 4
 B, S, MICROBATCHES, STEPS = 8, 2048, 4, 4
@@ -90,6 +107,9 @@ B, S, MICROBATCHES, STEPS = 8, 2048, 4, 4
 PROMPT, NEW, STATIC_REQUESTS, CONT_REQUESTS, SLOTS = 128, 16, 4, 3, 4
 ARRIVAL_RATE = 1.0                 # Poisson arrivals, requests/s
 H, KV, HD = 24, 8, 128             # phi4-mini attention heads
+# falcon-mamba serving: prompt tokens, requests per mode; d_inner, state.
+SSM_PROMPT, SSM_STATIC_REQUESTS, SSM_CONT_REQUESTS = 64, 4, 2
+SSM_D, SSM_N = 8192, 16
 # Logits of a prompt replayed through decode (kernel attention) against the
 # plain prefill forward: relative L2 bound by compute dtype. In bf16 each
 # path is ~2e-2 from the fp32 logits after 32 layers (a CPU run of
@@ -138,7 +158,8 @@ class Smoke:
         # Kernel against plain version, by kernel; "sdpa" holds the check
         # of the library yardstick against the plain version, apart.
         self.err = {"reassemble_window": 0, "reassemble": 0,
-                    "reassemble_tokens": 0, "flash_attention": 0, "sdpa": 0}
+                    "reassemble_tokens": 0, "flash_attention": 0, "sdpa": 0,
+                    "mamba_scan": 0}
         self.launches = {}
         self.main_inputs = {}      # kernel -> args captured from the main path
         self.timing = {}
@@ -424,15 +445,14 @@ class Smoke:
     def profile(self):
         """``--profile``: (a) one warm-up step, then two whole-window
         main-path steps under ``torch.profiler``; (b) a PROMPT-token prompt
-        replayed through decode on the 32-layer model, then ``NEW`` B=1
-        bf16 decode calls under the profiler. Prints the device busy share
-        and the kernels by device time of each, and writes the full tables
-        to ``profile_window.txt`` and ``profile_decode.txt``."""
+        replayed through decode on the 32-layer phi4-mini, then ``NEW`` B=1
+        bf16 decode calls under the profiler; (c) the same for the 64-layer
+        falcon-mamba with SSM_PROMPT tokens and 8 calls. Prints the device
+        busy share and the kernels by device time of each, and writes the
+        full tables to ``profile_window.txt``, ``profile_decode.txt`` and
+        ``profile_decode_ssm.txt``."""
         import torch
         from torch.profiler import ProfilerActivity, profile
-
-        from repro_torch.configs.registry import get_config
-        from repro_torch.models import build_model
 
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         _, path, _, params, opt, step_fn = self._trainer()
@@ -459,19 +479,33 @@ class Smoke:
         torch.cuda.empty_cache()
         self._report_profile(prof, wall, 2, "step", "profile_window.txt")
 
-        cfg = get_config("phi4-mini-3.8b")
-        model = build_model(cfg)
+        self._profile_decode("phi4-mini-3.8b", PROMPT, NEW,
+                             "profile_decode.txt")
+        self._profile_decode("falcon-mamba-7b", SSM_PROMPT, 8,
+                             "profile_decode_ssm.txt")
+
+    def _profile_decode(self, arch, prompt_len, n, fname):
+        """A ``prompt_len``-token prompt replayed through decode at full
+        width, then ``n`` B=1 bf16 decode calls under the profiler."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models import build_model
+
+        model = build_model(get_config(arch))
         params = model.init(0, device=self.dev)
-        tok = torch.arange(PROMPT, dtype=torch.int32, device=self.dev)[None]
+        tok = torch.arange(prompt_len, dtype=torch.int32, device=self.dev)[None]
         with torch.no_grad():
-            state = model.init_decode_state(params, 1, PROMPT + NEW)
-            for t in range(PROMPT):
+            state = model.init_decode_state(params, 1, prompt_len + n)
+            for t in range(prompt_len):
                 logits, state = model.decode(params, state,
                                              {"tokens": tok[:, t:t + 1]})
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with profile(activities=acts) as prof:
-                for _ in range(NEW):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
                     nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
                     logits, state = model.decode(params, state,
                                                  {"tokens": nxt})
@@ -479,8 +513,8 @@ class Smoke:
             wall = time.perf_counter() - t0
         del params, state, logits
         torch.cuda.empty_cache()
-        self._report_profile(prof, wall, NEW, "decode call",
-                             "profile_decode.txt")
+        log(f"profile: {arch}")
+        self._report_profile(prof, wall, n, "decode call", fname)
 
     def _report_profile(self, prof, wall, n, unit, fname):
         from torch.autograd import DeviceType
@@ -740,39 +774,113 @@ class Smoke:
             f"plain version; max abs err {self.err['sdpa']}")
 
     # -- 9 ---------------------------------------------------------------------
-    def serve(self):
+    def scan(self):
+        import torch
+
+        from repro_torch.kernels import mamba_scan as MS
+        from repro_torch.kernels import ref
+
+        dev = self.dev
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+
+        def inputs(b, s, d, n, with_h0):
+            # Made in place on the card: at the bound's shape Abar and Bx
+            # are 8.6 GB each.
+            A = torch.randn((b, s, d, n), device=dev, generator=g).sigmoid_()
+            Bx = torch.randn((b, s, d, n), device=dev, generator=g).mul_(0.1)
+            C = torch.randn((b, s, n), device=dev, generator=g)
+            h0 = (torch.randn((b, d, n), device=dev, generator=g).mul_(0.5)
+                  if with_h0 else None)
+            return A, Bx, C, h0
+
+        cases = [  # (key, B, S, D, N, h0 and h_S)
+            *[(None, *c, False) for c in ((1, 32, 16, 4), (2, 64, 32, 8),
+                                          (1, 128, 64, 16), (2, 96, 16, 4))],
+            ("decode", 1, 1, SSM_D, SSM_N, True),
+            (None, 1, SSM_PROMPT, SSM_D, SSM_N, False),
+            ("bound", B, S, SSM_D, SSM_N, False),
+        ]
+        for key, b, s, d, n, with_h0 in cases:
+            A, Bx, C, h0 = inputs(b, s, d, n, with_h0)
+            y, h = MS.mamba_scan_cuda(A, Bx, C, h0=h0, return_state=with_h0)
+            y_ref, h_ref = ref.ssm_scan_ref(A, Bx, C, h0, return_state=True)
+            self._close("mamba_scan", y, y_ref, 1e-4)
+            if with_h0:
+                self._close("mamba_scan", h, h_ref, 1e-4)
+            del y, h, y_ref, h_ref
+            torch.cuda.synchronize()
+            log(f"scan: B={b} S={s} D={d} N={n}{' h0/h_S' if with_h0 else ''}"
+                f" within 1e-4 of the plain version; max abs err so far "
+                f"{self.err['mamba_scan']}")
+            if key is not None:
+                # Each input read once, each output written once; FLOPs:
+                # an FMA for h and a product and a sum for y per element.
+                nbytes = 4 * (2 * b * s * d * n + b * s * n + b * s * d
+                              + (2 * b * d * n if with_h0 else 0))
+                flops = 4 * b * s * d * n
+                b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                b_ops = flops / FP32_PEAK * 1e3
+                r = {"shape": f"B={b} S={s} D={d} N={n} fp32"
+                              f"{' h0 h_S' if with_h0 else ''}",
+                     "bytes": nbytes, "flops": flops,
+                     "bound_ms": max(b_bytes, b_ops),
+                     "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                     "library_ms": None}   # no PyTorch call is a selective scan
+                kernel = lambda: MS.mamba_scan_cuda(  # noqa: E731
+                    A, Bx, C, h0=h0, return_state=with_h0)
+                plain = lambda: ref.ssm_scan_ref(  # noqa: E731
+                    A, Bx, C, h0, return_state=with_h0)
+                it, pit, warm = (200, 200, 5) if s == 1 else (5, 2, 1)
+                k1 = time_ms(kernel, it, warm)
+                p1 = time_ms(plain, pit, warm)
+                p2 = time_ms(plain, pit, warm)
+                k2 = time_ms(kernel, it, warm)
+                r["ms"], r["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+                self.timing[f"mamba_scan/{key}"] = r
+                log(f"time mamba_scan/{key}: {json.dumps(r)}")
+            del A, Bx, C, h0
+            torch.cuda.empty_cache()
+
+    # -- 10, 11 ----------------------------------------------------------------
+    def _serve_arch(self, arch, *, prompt_len, new, static_requests,
+                    cont_requests, kmod, kfn, kname, want, check):
+        """Serve ``arch`` at full width through ``launch.serve``, static
+        and continuous, with random weights from seed 0. ``kmod.kfn`` is
+        the wrapper of the kernel every layer of a decode call launches
+        (``kname`` in ``kmod.LAUNCHES``); the first call whose arguments
+        satisfy ``want`` is captured and handed to ``check`` after the run.
+        Returns the launches of both modes."""
         import numpy as np
         import torch
 
         from repro_torch.configs.registry import get_config
-        from repro_torch.kernels import flash_attention as FA
-        from repro_torch.kernels import ref
         from repro_torch.launch import serve as L
         from repro_torch.models import build_model, transformer
         from repro_torch.serve import sequential_oracle
 
-        cfg = get_config("phi4-mini-3.8b")
+        cfg = get_config(arch)
         model = build_model(cfg)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = model.init(0, device=self.dev)
         torch.cuda.synchronize()
         n_params = cfg.param_counts()["total"]
-        log(f"serve: {cfg.name}, {cfg.num_layers} layers, d_model "
-            f"{cfg.d_model}, {n_params / 1e9:.3f} B params in fp32 "
-            f"({4 * n_params / 1e9:.2f} GB), bf16 compute; weights made in "
+        log(f"serve {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{n_params / 1e9:.3f} B params in fp32 ({4 * n_params / 1e9:.2f}"
+            f" GB), bf16 compute; weights made in "
             f"{time.perf_counter() - t0:.1f} s")
         base = ["--arch", cfg.name, "--batch", str(SLOTS), "--prompt-len",
-                str(PROMPT), "--max-new", str(NEW), "--data",
-                os.path.join(self.tmp, "prompts.bin")]
+                str(prompt_len), "--max-new", str(new), "--data",
+                os.path.join(self.tmp, f"prompts_{arch}.bin")]
         modes = {
-            "static": base + ["--requests", str(STATIC_REQUESTS)],
-            "continuous": base + ["--requests", str(CONT_REQUESTS),
+            "static": base + ["--requests", str(static_requests)],
+            "continuous": base + ["--requests", str(cont_requests),
                                   "--continuous", "--arrival-rate",
                                   str(ARRIVAL_RATE)],
         }
         decode_step = transformer.decode_step
-        fa = FA.flash_attention_cuda
+        wrapper = getattr(kmod, kfn)
         calls = [0]
         captured = {}
 
@@ -780,68 +888,66 @@ class Smoke:
             calls[0] += 1
             return decode_step(*a, **kw)
 
-        def capture(q, k, v, **kw):
-            # One layer's served decode inputs at the longest prefix (B=1).
-            if not captured and q.shape[0] == 1 and k.shape[2] == PROMPT + NEW:
-                captured.update(args=(q.clone(), k.clone(), v.clone()), kw=kw)
-            return fa(q, k, v, **kw)
+        def capture(*a, **kw):
+            if not captured and want(*a, **kw):
+                captured.update(
+                    args=[x.clone() for x in a],
+                    kw={k: v.clone() if isinstance(v, torch.Tensor) else v
+                        for k, v in kw.items()})
+            return wrapper(*a, **kw)
 
         runs, counts = {}, {}
         transformer.decode_step = counting
-        FA.flash_attention_cuda = capture
+        setattr(kmod, kfn, capture)
         try:
             for mode, argv in modes.items():
                 torch.cuda.synchronize()
-                FA.reset_launch_counts()
+                kmod.reset_launch_counts()
                 calls[0] = 0
                 t = time.perf_counter()
                 runs[mode] = L.main(argv, params=params)
                 torch.cuda.synchronize()
-                counts[mode] = (FA.LAUNCHES["flash_attention"], calls[0],
+                counts[mode] = (kmod.LAUNCHES[kname], calls[0],
                                 time.perf_counter() - t)
         finally:
             transformer.decode_step = decode_step
-            FA.flash_attention_cuda = fa
-        self.launches["serve"] = {"flash_attention": sum(
-            c[0] for c in counts.values())}
+            setattr(kmod, kfn, wrapper)
         # -- checks -------------------------------------------------------------
         for mode, (launches, n_calls, wall) in counts.items():
             run = runs[mode]
             if launches != cfg.num_layers * n_calls or n_calls == 0:
                 raise AssertionError(
-                    f"serve {mode}: flash_attention launched {launches} times "
+                    f"serve {arch} {mode}: {kname} launched {launches} times "
                     f"in {n_calls} decode calls of {cfg.num_layers} layers")
             toks = [list(np.asarray(r.result)) for r in run.requests]
             if not (run.summary["all_completed"] and all(
-                    len(t) == NEW and all(0 <= x < cfg.vocab_size for x in t)
+                    len(t) == new and all(0 <= x < cfg.vocab_size for x in t)
                     for t in toks)):
-                raise AssertionError(f"serve {mode}: {run.summary}")
-            log(f"serve {mode}: {len(toks)} requests, {run.summary['new_tokens']}"
-                f" new tokens in {run.summary['total_s']} s = "
-                f"{run.summary['tok_per_s']} tokens/s; {n_calls} decode calls"
-                f" in {wall:.2f} s = {wall / n_calls * 1e3:.2f} ms a call "
-                f"(host clock, mode wall time over calls); flash_attention "
-                f"launches {launches} = {cfg.num_layers} x {n_calls}")
+                raise AssertionError(f"serve {arch} {mode}: {run.summary}")
+            log(f"serve {arch} {mode}: {len(toks)} requests, "
+                f"{run.summary['new_tokens']} new tokens in "
+                f"{run.summary['total_s']} s = {run.summary['tok_per_s']} "
+                f"tokens/s; {n_calls} decode calls in {wall:.2f} s = "
+                f"{wall / n_calls * 1e3:.2f} ms a call (host clock, mode wall"
+                f" time over calls); {kname} launches {launches} = "
+                f"{cfg.num_layers} x {n_calls}")
         cont = runs["continuous"]
         for which in ("first_token", "e2e"):
             p = cont.metrics.latency_percentiles(which)
-            log(f"serve continuous: arrival -> {which} p50 {p['p50']:.4f} s, "
-                f"p99 {p['p99']:.4f} s")
+            log(f"serve {arch} continuous: arrival -> {which} p50 "
+                f"{p['p50']:.4f} s, p99 {p['p99']:.4f} s")
         by_rid = sorted(cont.requests, key=lambda r: r.rid)
         prompts = [cont.corpus[r.row_start:r.row_start + r.num_rows]
                    for r in by_rid]
-        oracle = sequential_oracle(cont.engine, prompts, [NEW] * len(by_rid))
+        oracle = sequential_oracle(cont.engine, prompts, [new] * len(by_rid))
         if [r.result for r in by_rid] != oracle:
-            raise AssertionError("serve continuous: tokens differ from the "
-                                 "sequential oracle on the same engine")
-        log(f"serve continuous: {len(by_rid)} token streams bit-identical to "
-            f"the sequential oracle")
-        q, k, v = captured["args"]
-        self._close("flash_attention", fa(q, k, v, **captured["kw"]),
-                    ref.attention_ref(q, k, v, **captured["kw"]), 2e-2)
-        log(f"serve: captured decode inputs q {tuple(q.shape)} k "
-            f"{tuple(k.shape)} {q.dtype}: kernel within 2e-2 of the plain "
-            f"version")
+            raise AssertionError(f"serve {arch} continuous: tokens differ "
+                                 f"from the sequential oracle on the same "
+                                 f"engine")
+        log(f"serve {arch} continuous: {len(by_rid)} token streams "
+            f"bit-identical to the sequential oracle")
+        log(f"serve {arch}: captured decode inputs "
+            f"{check(wrapper, *captured['args'], **captured['kw'])}")
         # Decode replay of one prompt against the plain prefill forward, in
         # bf16 as served and in fp32, then the time of a synchronized B=1
         # decode call past the prompt (bf16).
@@ -849,42 +955,93 @@ class Smoke:
         for dtype, tol in PREFILL_REL_TOL.items():
             m = build_model(cfg.replace(dtype=dtype))
             with torch.no_grad():
-                state = m.init_decode_state(params, 1, PROMPT + NEW)
-                for t in range(PROMPT):
+                state = m.init_decode_state(params, 1, prompt_len + new)
+                for t in range(prompt_len):
                     logits, state = m.decode(params, state,
                                              {"tokens": prompt[:, t:t + 1]})
                 pre = m.prefill_logits(params, {"tokens": prompt})
             a, b = logits.float(), pre.float()
             rel = ((a - b).norm() / b.norm()).item()
-            log(f"serve: {dtype} decode-replay logits vs prefill logits: "
-                f"relative L2 {rel:.3e} (bound {tol}), max abs "
+            log(f"serve {arch}: {dtype} decode-replay logits vs prefill "
+                f"logits: relative L2 {rel:.3e} (bound {tol}), max abs "
                 f"{(a - b).abs().max().item():.3e}, |logit| max "
                 f"{b.abs().max().item():.3f}, same argmax "
                 f"{bool(a.argmax() == b.argmax())}")
             if not (rel <= tol and bool(torch.isfinite(a).all())):
-                raise AssertionError(f"serve: {dtype} decode replay differs "
-                                     f"from prefill (relative L2 {rel})")
+                raise AssertionError(f"serve {arch}: {dtype} decode replay "
+                                     f"differs from prefill (relative L2 "
+                                     f"{rel})")
             if dtype != cfg.dtype:
                 continue
             tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
             torch.cuda.synchronize()
             t = time.perf_counter()
             with torch.no_grad():
-                for _ in range(NEW):
+                for _ in range(new):
                     logits, state = m.decode(params, state, {"tokens": tok})
                     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
             torch.cuda.synchronize()
-            per_call = (time.perf_counter() - t) / NEW
-            log(f"serve: B=1 {dtype} decode call at positions {PROMPT}-"
-                f"{PROMPT + NEW - 1}: {per_call * 1e3:.2f} ms (host clock, "
-                f"synchronized) = {1 / per_call:.1f} tokens/s a stream; it "
-                f"reads the {4 * n_params / 1e9:.2f} GB of fp32 weights -> "
-                f">= {4 * n_params / HBM_BYTES_PER_S * 1e3:.2f} ms at "
-                f"3.35 TB/s")
-        log(f"serve: max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            per_call = (time.perf_counter() - t) / new
+            log(f"serve {arch}: B=1 {dtype} decode call at positions "
+                f"{prompt_len}-{prompt_len + new - 1}: {per_call * 1e3:.2f} "
+                f"ms (host clock, synchronized) = {1 / per_call:.1f} tokens/s"
+                f" a stream; it reads the {4 * n_params / 1e9:.2f} GB of "
+                f"fp32 weights -> >= {4 * n_params / HBM_BYTES_PER_S * 1e3:.2f}"
+                f" ms at 3.35 TB/s")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"serve {arch}: max_memory_allocated {peak / 2**30:.2f} GiB")
+        if peak >= 80e9:
+            raise AssertionError(f"serve {arch}: peak memory {peak} B")
         del params, runs, cont, state, logits, pre, a, b
         torch.cuda.empty_cache()
+        return {kname: sum(c[0] for c in counts.values())}
+
+    def serve(self):
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import ref
+
+        def check(fa, q, k, v, **kw):
+            self._close("flash_attention", fa(q, k, v, **kw),
+                        ref.attention_ref(q, k, v, **kw), 2e-2)
+            return (f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}: "
+                    f"kernel within 2e-2 of the plain version")
+
+        # One layer's served decode inputs at the longest prefix (B=1).
+        self.launches["serve"] = self._serve_arch(
+            "phi4-mini-3.8b", prompt_len=PROMPT, new=NEW,
+            static_requests=STATIC_REQUESTS, cont_requests=CONT_REQUESTS,
+            kmod=FA, kfn="flash_attention_cuda", kname="flash_attention",
+            want=lambda q, k, v, **kw: (q.shape[0] == 1
+                                        and k.shape[2] == PROMPT + NEW),
+            check=check)
+
+    def serve_ssm(self):
+        from repro_torch.kernels import mamba_scan as MS
+        from repro_torch.kernels import ref
+
+        def check(scan, A, Bx, C, **kw):
+            y, h = scan(A, Bx, C, **kw)
+            y_ref, h_ref = ref.ssm_scan_ref(A, Bx, C, kw["h0"],
+                                            return_state=True)
+            self._close("mamba_scan", y, y_ref, 1e-4)
+            self._close("mamba_scan", h, h_ref, 1e-4)
+            return (f"Abar {tuple(A.shape)} with h0: kernel within 1e-4 of "
+                    f"the plain version (y and h_S)")
+
+        # One layer's served decode inputs past the prompt (B=1, S=1).
+        served = [0]
+
+        def want(A, Bx, C, h0=None, **kw):
+            if A.shape[:2] != (1, 1):
+                return False
+            served[0] += 1
+            return served[0] > 64 * SSM_PROMPT
+
+        self.launches["serve_ssm"] = self._serve_arch(
+            "falcon-mamba-7b", prompt_len=SSM_PROMPT, new=NEW,
+            static_requests=SSM_STATIC_REQUESTS,
+            cont_requests=SSM_CONT_REQUESTS, kmod=MS, kfn="mamba_scan_cuda",
+            kname="mamba_scan", want=want, check=check)
 
     # -- result ----------------------------------------------------------------
     def kernel_line(self):
@@ -895,7 +1052,8 @@ class Smoke:
         main_key = {"reassemble_window": "reassemble_window/window",
                     "reassemble": "reassemble/main",
                     "reassemble_tokens": "reassemble_tokens/main",
-                    "flash_attention": "flash_attention/decode"}
+                    "flash_attention": "flash_attention/decode",
+                    "mamba_scan": "mamba_scan/decode"}
         out = []
         for name, key in main_key.items():
             r = self.timing[key]
@@ -940,7 +1098,9 @@ def main() -> int:
             sm.phase("arrival", sm.arrival)
             sm.phase("timing", sm.timing_phase)
             sm.phase("attention", sm.attention)
+            sm.phase("scan", sm.scan)
             sm.phase("serve", sm.serve)
+            sm.phase("serve_ssm", sm.serve_ssm)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)
     finally:

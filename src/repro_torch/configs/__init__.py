@@ -1,1 +1,2 @@
-"""Model configurations carried by the port (phi4-mini-3.8b so far)."""
+"""Model configurations carried by the port (phi4-mini-3.8b and
+falcon-mamba-7b so far)."""

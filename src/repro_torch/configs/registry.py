@@ -11,9 +11,10 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as _phi4
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_phi4,)}
+ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_phi4, _falcon_mamba)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -45,6 +46,16 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         window=min(cfg.window, 16) if cfg.window else 0,
         max_position=4096,
     )
+    if cfg.num_experts:
+        kw.update(num_experts=8, top_k=min(cfg.top_k, 2), moe_d_ff=32,
+                  num_shared_experts=min(cfg.num_shared_experts, 2))
+    if cfg.ssm_state:
+        kw.update(d_inner=128, ssm_state=4, dt_rank=8, ssm_chunk=16)
+    if cfg.lru_width:
+        kw.update(lru_width=64)
+    if cfg.encoder_layers:
+        kw.update(encoder_layers=2, encoder_seq=32)
+    # rebuild block pattern with the reduced window
     if cfg.window:
         kw["block_pattern"] = tuple(
             dataclasses.replace(s, window=min(s.window, 16) if s.window else 0)

@@ -1,22 +1,24 @@
-"""Public entry points for on-device batch reassembly and attention.
+"""Public entry points for on-device batch reassembly, attention and the
+selective scan.
 
 Dispatch is by the device of the tensors: CUDA tensors go to the
-hand-written kernels in ``kernels/reassemble.py`` and
-``kernels/flash_attention.py`` (which raise if they cannot launch), CPU
-tensors to the plain PyTorch versions in ``kernels/ref.py``. There is no
-fallback from one to the other. Host metadata (index maps from
-``data/packing.py``) may be passed as NumPy arrays; it is checked on the
-host and uploaded next to the data.
+hand-written kernels in ``kernels/reassemble.py``,
+``kernels/flash_attention.py`` and ``kernels/mamba_scan.py`` (which raise
+if they cannot launch), CPU tensors to the plain PyTorch versions in
+``kernels/ref.py``. There is no fallback from one to the other. Host
+metadata (index maps from ``data/packing.py``) may be passed as NumPy
+arrays; it is checked on the host and uploaded next to the data.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.data.packing import as_block_permutation, row_gather_index
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ref
 from repro_torch.kernels import reassemble as K
 
@@ -63,6 +65,31 @@ def flash_attention(
     else:
         out = ref.attention_ref(qt, kt, vt, causal=causal, window=window)
     return out.transpose(1, 2)
+
+
+def mamba_scan(
+    Abar: torch.Tensor,                   # (B, S, D, N) fp32
+    Bx: torch.Tensor,                     # (B, S, D, N) fp32
+    C: torch.Tensor,                      # (B, S, N) fp32
+    *,
+    h0: Optional[torch.Tensor] = None,    # (B, D, N) fp32
+    return_state: bool = False,
+):
+    """The Mamba-1 selective scan: ``y`` (B, S, D), or ``(y, h_S)`` with
+    ``return_state``. With ``h0=None`` it is the reference's
+    ``mamba_scan_pallas``; a decode step passes its carried state as ``h0``
+    with S = 1. The CUDA kernel is forward-only: it raises
+    ``NotImplementedError`` where autograd would need a gradient through
+    it; the plain version on CPU tensors is differentiable."""
+    ins = (Abar, Bx, C) if h0 is None else (Abar, Bx, C, h0)
+    if _on_cuda(*ins):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+            raise NotImplementedError(MS.FORWARD_ONLY)
+        y, h = MS.mamba_scan_cuda(Abar, Bx, C, h0=h0,
+                                  return_state=return_state)
+    else:
+        y, h = ref.ssm_scan_ref(Abar, Bx, C, h0, return_state=True)
+    return (y, h) if return_state else y
 
 
 def reassemble(src: torch.Tensor, idx) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels: the ground truth the CUDA
 kernels are held to (bit-exact for the reassembly gathers, within the
-stated tolerance for attention), and the path CPU tensors take."""
+stated tolerance for attention and the selective scan), and the path CPU
+tensors take."""
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -38,6 +39,27 @@ def attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def ssm_scan_ref(
+    Abar: torch.Tensor,                   # (B, S, D, N) fp32
+    Bx: torch.Tensor,                     # (B, S, D, N) fp32
+    C: torch.Tensor,                      # (B, S, N) fp32
+    h0: Optional[torch.Tensor] = None,    # (B, D, N) fp32
+    *,
+    return_state: bool = False,
+):
+    """``y_t = <h_t, C_t>``, ``h_t = Abar_t * h_{t-1} + Bx_t`` from ``h0``
+    (zeros when None), a loop over S. Returns ``y`` (B, S, D), or
+    ``(y, h_S)`` with the state after the last step."""
+    B, S, D, N = Abar.shape
+    h = Abar.new_zeros((B, D, N)) if h0 is None else h0
+    ys = []
+    for t in range(S):
+        h = Abar[:, t] * h + Bx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    y = torch.stack(ys, dim=1) if ys else Abar.new_zeros((B, 0, D))
+    return (y, h) if return_state else y
 
 
 def reassemble_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -9,15 +9,20 @@ with a ``ServeMetrics`` summary table (arrival→ingested / →first-token /
 →e2e p50/p99/p999, occupancy, sessions/sec, backpressure counters).
 
 The flags are the reference driver's plus ``--device`` (default ``cuda``;
-``cpu`` runs the plain PyTorch path). The default ``--arch`` is
-``phi4-mini-3.8b``, the family the port carries (the reference's default,
-recurrentgemma-2b, comes with its family). ``--service`` and
-``--pool-workers`` raise until the reader service is ported.
+``cpu`` runs the plain PyTorch path). ``--arch`` takes the families the
+port carries: ``phi4-mini-3.8b`` (the default; dense attention, each
+decode call through the flash-attention kernel) and ``falcon-mamba-7b``
+(attention-free; each decode call through the selective-scan kernel). The
+reference's default, recurrentgemma-2b, comes with its family.
+``--service`` and ``--pool-workers`` raise until the reader service is
+ported.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --requests 12 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --continuous --arrival-rate 50
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --requests 4 --batch 4 --prompt-len 64 --max-new 16
 """
 from __future__ import annotations
 

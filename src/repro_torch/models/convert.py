@@ -15,9 +15,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import MambaState
 from repro_torch.models.transformer import DecodeState
 
 
@@ -86,19 +87,29 @@ def to_reference(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
 def decode_state_from_reference(state, cfg: ModelConfig, *,
                                 device="cuda") -> DecodeState:
     """Reference ``DecodeState`` (NumPy leaves: ``blocks`` a tuple of
-    ``KVCache`` stacked over the blocks, ``tail`` a list of ``KVCache``,
-    ``pos`` a scalar) -> the port's, one cache per layer in schedule order.
-    Read by attribute, so the reference's NamedTuples pass as they are."""
+    per-pattern-position states stacked over the blocks, ``tail`` a list of
+    per-layer states, ``pos`` a scalar) -> the port's, one state per layer
+    in schedule order: a ``KVCache`` for an attention layer, a
+    ``MambaState`` (``h``, ``conv``) for a Mamba layer. Read by attribute,
+    so the reference's NamedTuples pass as they are."""
     dev = resolve_device(device)
     to_t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
     pattern, nb, tail = cfg.scan_split()
     pos = int(np.asarray(state.pos))
-    caches = [tuple(np.asarray(a)[bi] for a in (c.k, c.v, c.slot_pos))
-              for bi in range(nb) for c in state.blocks[:len(pattern)]]
-    caches += [tuple(np.asarray(a) for a in (c.k, c.v, c.slot_pos))
-               for c in state.tail]
+    per_layer = [(spec, state.blocks[i], bi) for bi in range(nb)
+                 for i, spec in enumerate(pattern)]
+    per_layer += [(spec, st, None) for spec, st in zip(tail, state.tail)]
     layers = []
-    for k, v, slot_pos in caches:
+    for spec, st, bi in per_layer:
+        def take(a):
+            a = np.asarray(a)
+            return a if bi is None else a[bi]
+
+        if spec.mixer == MAMBA:
+            layers.append(MambaState(h=to_t(take(st.h)),
+                                     conv=to_t(take(st.conv))))
+            continue
+        k, v, slot_pos = take(st.k), take(st.v), take(st.slot_pos)
         # The port's cache keeps position p in slot p: a wrapped ring has
         # no port counterpart yet.
         if not np.array_equal(slot_pos[:pos], np.arange(pos)):

@@ -1,4 +1,5 @@
-"""Model facade: one interface over the decoder-only stack."""
+"""Model facade: one interface over the decoder-only stack (dense
+attention blocks and attention-free Mamba-1 blocks so far)."""
 from __future__ import annotations
 
 import functools
@@ -42,7 +43,9 @@ class Model:
 
     def init_decode_state(self, params, batch_size: int, seq_budget: int,
                           frames=None):
-        """Empty KV caches on the device of ``params``."""
+        """The empty decode state on the device of ``params``: one KV cache
+        per attention layer, one zero ``MambaState`` (SSM state and conv
+        tail) per Mamba layer."""
         if frames is not None:
             raise NotImplementedError(
                 "encoder frames: encoder-decoder decode comes with the "

@@ -1,0 +1,135 @@
+"""Mamba-1 selective SSM block (falcon-mamba-7b, arXiv:2410.05355).
+
+The port's counterpart of the reference's ``models/ssm.py``. Both
+``ssm_impl`` values compute the same ``y`` through ``ops.mamba_scan``: the
+CUDA kernel on the card, the plain loop of ``kernels/ref.py`` on the CPU.
+The reference's two XLA paths differ in what they keep in memory
+("materialized" builds every ``h`` (B, S, d_inner, n); "fused" discretizes
+and reads out chunk by chunk); the kernel never writes ``h`` at all, so the
+difference has no counterpart here. The prefill forward runs one scan over
+the whole prompt; each decode step runs it with S = 1 from the carried
+state. The kernel is forward-only: training through it raises on the card.
+
+Cast points follow the reference, since bf16 parity depends on them: ``dt``
+goes through softplus in the compute dtype and then to fp32; ``Bc``, ``Cc``
+and the conv output ``xin`` are cast to fp32 where the scan's inputs are
+built.
+
+Decode keeps O(1) state per token: the conv tail (B, cw-1, d_inner) in the
+compute dtype and the SSM state (B, d_inner, n) in fp32.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import fan_in_init
+
+IMPLS = ("materialized", "fused")
+
+
+class MambaState(NamedTuple):
+    h: torch.Tensor        # (B, d_inner, n) fp32
+    conv: torch.Tensor     # (B, cw-1, d_inner), compute dtype
+
+
+def mamba_init(gen: torch.Generator, d: int, d_inner: int, state: int,
+               dt_rank: int, conv_width: int, dtype, device) -> dict:
+    """The reference's init rules: fan-in normal projections and conv,
+    zero conv bias, ``dt_bias = log(expm1(1e-2))``, S4D-real ``A_log =
+    log(1..n)`` per channel, ``D = 1``."""
+    A = torch.arange(1, state + 1, dtype=torch.float32,
+                     device=device).repeat(d_inner, 1)
+    return {
+        "in_proj": fan_in_init(gen, (d, 2 * d_inner), d, dtype, device),
+        "conv_w": fan_in_init(gen, (conv_width, d_inner), conv_width, dtype,
+                              device),
+        "conv_b": torch.zeros((d_inner,), dtype=dtype, device=device),
+        "x_proj": fan_in_init(gen, (d_inner, dt_rank + 2 * state), d_inner,
+                              dtype, device),
+        "dt_proj": fan_in_init(gen, (dt_rank, d_inner), dt_rank, dtype,
+                               device),
+        "dt_bias": torch.full((d_inner,), math.log(math.expm1(1e-2)),
+                              dtype=torch.float32, device=device).to(dtype),
+        "A_log": torch.log(A).to(dtype),
+        "D": torch.ones((d_inner,), dtype=dtype, device=device),
+        "out_proj": fan_in_init(gen, (d_inner, d), d_inner, dtype, device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv over seq: x (B, S, di), w (cw, di), b (di,).
+    A cross-correlation with cw-1 zeros on the left, as the reference's
+    ``conv_general_dilated``."""
+    cw, di = w.shape
+    xt = F.pad(x.transpose(1, 2), (cw - 1, 0))            # (B, di, S+cw-1)
+    y = F.conv1d(xt, w.t().unsqueeze(1), groups=di)       # (B, di, S)
+    return y.transpose(1, 2) + b
+
+
+def _discretize(params: dict, xin: torch.Tensor, dtype):
+    """From the conv output ``xin`` (..., di): the scan's inputs ``Abar``,
+    ``Bx`` (..., di, n) and ``Cc`` (..., n), fp32 and contiguous."""
+    n = params["A_log"].shape[1]
+    r = params["dt_proj"].shape[0]
+    proj = xin @ params["x_proj"].to(dtype)                 # (..., r+2n)
+    dt_in, Bc, Cc = torch.split(proj, [r, n, n], dim=-1)
+    dt = F.softplus(dt_in @ params["dt_proj"].to(dtype)
+                    + params["dt_bias"].to(dtype)).float()  # (..., di)
+    A = -torch.exp(params["A_log"].float())                 # (di, n)
+    Abar = torch.exp(dt[..., None] * A)
+    Bx = dt[..., None] * Bc[..., None, :].float() * xin[..., None].float()
+    return Abar, Bx, Cc.float().contiguous()
+
+
+def mamba_apply(params: dict, x: torch.Tensor, *, dtype,
+                impl: str = "materialized") -> torch.Tensor:
+    """Train/prefill forward over (B, S, d). The reference's ``ssm_chunk``
+    has no counterpart: the kernel walks the whole sequence."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown ssm_impl {impl!r} (expected one of {IMPLS})")
+    xz = x @ params["in_proj"].to(dtype)                    # (B, S, 2di)
+    xin, z = xz.chunk(2, dim=-1)
+    xin = F.silu(_causal_conv(xin, params["conv_w"].to(dtype),
+                              params["conv_b"].to(dtype)))
+    Abar, Bx, Cc = _discretize(params, xin, dtype)
+    y = ops.mamba_scan(Abar, Bx, Cc).to(dtype)
+    y = y + params["D"].to(dtype) * xin
+    y = y * F.silu(z)
+    return y @ params["out_proj"].to(dtype)
+
+
+def mamba_init_state(batch: int, d_inner: int, state: int, conv_width: int,
+                     dtype, device) -> MambaState:
+    """The state before the first token: zeros."""
+    return MambaState(
+        h=torch.zeros((batch, d_inner, state), dtype=torch.float32,
+                      device=device),
+        conv=torch.zeros((batch, conv_width - 1, d_inner), dtype=dtype,
+                         device=device),
+    )
+
+
+def mamba_decode(params: dict, x: torch.Tensor, state: MambaState, *, dtype
+                 ) -> Tuple[torch.Tensor, MambaState]:
+    """One token: x (B, 1, d) -> (out (B, 1, d), the next state)."""
+    xz = x[:, 0] @ params["in_proj"].to(dtype)              # (B, 2di)
+    xin, z = xz.chunk(2, dim=-1)
+    # conv over [state, xin]
+    win = torch.cat([state.conv, xin[:, None, :]], dim=1)   # (B, cw, di)
+    w = params["conv_w"].to(dtype)                          # (cw, di)
+    xin_c = F.silu(torch.einsum("bci,ci->bi", win, w)
+                   + params["conv_b"].to(dtype))
+    Abar, Bx, Cc = _discretize(params, xin_c, dtype)        # (B, di, n)
+    y, h = ops.mamba_scan(Abar[:, None], Bx[:, None], Cc[:, None],
+                          h0=state.h, return_state=True)
+    y = y[:, 0].to(dtype)
+    y = y + params["D"].to(dtype) * xin_c
+    y = y * F.silu(z)
+    out = (y @ params["out_proj"].to(dtype))[:, None, :]
+    return out, MambaState(h=h, conv=win[:, 1:])

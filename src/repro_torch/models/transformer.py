@@ -7,22 +7,31 @@ over them. With ``remat_policy != "none"`` each block of
 port's counterpart of the reference's per-block ``jax.checkpoint``.
 ``models/convert.py`` maps between the two layouts.
 
-Decode keeps one KV cache per layer in ``DecodeState.layers`` (schedule
-order, like the params) and the next position as a host int, so that
-slicing the valid cache prefix needs no device sync; the caches are updated
-in place (``attention_decode``).
+Decode keeps one state per layer in ``DecodeState.layers`` (schedule
+order, like the params): a KV cache for an attention layer, updated in
+place (``attention_decode``), or a ``MambaState`` for a Mamba layer. The
+next position is a host int, so that slicing the valid cache prefix needs
+no device sync.
 
-The port carries dense attention blocks (phi4-mini) so far; the other mixer
-and FFN kinds raise ``NotImplementedError`` and come with their families.
+The port carries dense attention blocks (phi4-mini) and attention-free
+Mamba-1 blocks (falcon-mamba) so far; the other mixer and FFN kinds raise
+``NotImplementedError`` and come with their families.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, DENSE, ModelConfig
+from repro_torch.configs.base import (
+    ATTN,
+    ATTN_LOCAL,
+    DENSE,
+    MAMBA,
+    NONE,
+    ModelConfig,
+)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import KVCache, attn_init, init_cache
 from repro_torch.models.layers import (
@@ -36,6 +45,13 @@ from repro_torch.models.layers import (
     rope_angles,
     softmax_xent,
     unembed_logits,
+)
+from repro_torch.models.ssm import (
+    MambaState,
+    mamba_apply,
+    mamba_decode,
+    mamba_init,
+    mamba_init_state,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -51,7 +67,8 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_spec(spec) -> None:
-    if spec.mixer not in (ATTN, ATTN_LOCAL) or spec.ffn != DENSE:
+    if not ((spec.mixer in (ATTN, ATTN_LOCAL) and spec.ffn == DENSE)
+            or (spec.mixer == MAMBA and spec.ffn == NONE)):
         raise NotImplementedError(
             f"layer kind ({spec.mixer}, {spec.ffn}) is not carried by the "
             f"port yet: it comes with its model family (ROADMAP.md, Queue A)")
@@ -65,14 +82,18 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec, device
     _check_spec(spec)
     pd = _pdtype(cfg)
     d = cfg.d_model
-    return {
-        "norm1": rmsnorm_init(d, pd, device),
-        "mixer": attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
-                           cfg.resolved_head_dim, pd, device,
-                           bias=cfg.attn_bias, qk_norm=cfg.qk_norm),
-        "norm2": rmsnorm_init(d, pd, device),
-        "ffn": mlp_init(gen, d, cfg.d_ff, cfg.act, pd, device),
-    }
+    p: Dict[str, Any] = {"norm1": rmsnorm_init(d, pd, device)}
+    if spec.mixer == MAMBA:
+        p["mixer"] = mamba_init(gen, d, cfg.d_inner, cfg.ssm_state,
+                                cfg.dt_rank, cfg.conv_width, pd, device)
+    else:
+        p["mixer"] = attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.resolved_head_dim, pd, device,
+                               bias=cfg.attn_bias, qk_norm=cfg.qk_norm)
+    if spec.ffn != NONE:
+        p["norm2"] = rmsnorm_init(d, pd, device)
+        p["ffn"] = mlp_init(gen, d, cfg.d_ff, cfg.act, pd, device)
+    return p
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, device
@@ -101,11 +122,16 @@ def apply_layer_train(params, spec, cfg: ModelConfig, x, cos, sin
     dt = _dtype(cfg)
     eps = cfg.norm_eps
     h = rmsnorm(params["norm1"], x, eps)
-    x = x + attn_mod.attention_train(
-        params["mixer"], h, cos, sin, dtype=dt, eps=eps, causal=True,
-        window=spec.window, softcap=cfg.attn_logit_softcap,
-        use_rope=cfg.use_rope, q_chunk=cfg.attn_q_chunk,
-    )
+    if spec.mixer == MAMBA:
+        x = x + mamba_apply(params["mixer"], h, dtype=dt, impl=cfg.ssm_impl)
+    else:
+        x = x + attn_mod.attention_train(
+            params["mixer"], h, cos, sin, dtype=dt, eps=eps, causal=True,
+            window=spec.window, softcap=cfg.attn_logit_softcap,
+            use_rope=cfg.use_rope, q_chunk=cfg.attn_q_chunk,
+        )
+    if spec.ffn == NONE:
+        return x
     h = rmsnorm(params["norm2"], x, eps)
     return x + mlp_apply(params["ffn"], h, cfg.act, dt)
 
@@ -141,6 +167,15 @@ def _positions(batch: Dict[str, torch.Tensor], S: int, B: int, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def _rope(cfg: ModelConfig, pos: torch.Tensor):
+    """(cos, sin) of the positions; None for an attention-free stack,
+    which has no rotary embedding to apply."""
+    if cfg.attention_free:
+        return None, None
+    return rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta,
+                       cfg.mrope_sections)
+
+
 def _input_x(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     if cfg.input_mode != "tokens":
         raise NotImplementedError(
@@ -160,9 +195,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full train forward -> (scalar loss fp32, metrics)."""
     x, B, S = _input_x(params, cfg, batch)
-    pos = _positions(batch, S, B, x.device)
-    cos, sin = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta,
-                           cfg.mrope_sections)
+    cos, sin = _rope(cfg, _positions(batch, S, B, x.device))
     x = forward_backbone(params, cfg, x, cos, sin)
     xent = softmax_xent(_logits(params, cfg, x), batch["labels"],
                         mode=cfg.xent_mode)
@@ -175,9 +208,7 @@ def forward_logits(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                    last_only: bool = True) -> torch.Tensor:
     """Prefill forward (no labels). Returns last-position logits by default."""
     x, B, S = _input_x(params, cfg, batch)
-    pos = _positions(batch, S, B, x.device)
-    cos, sin = rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta,
-                           cfg.mrope_sections)
+    cos, sin = _rope(cfg, _positions(batch, S, B, x.device))
     x = forward_backbone(params, cfg, x, cos, sin)
     if last_only:
         x = x[:, -1:]
@@ -187,9 +218,12 @@ def forward_logits(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+LayerState = Union[KVCache, MambaState]
+
+
 class DecodeState(NamedTuple):
-    layers: List[KVCache]  # one cache per layer, schedule order
-    pos: int               # next absolute position (host int)
+    layers: List[LayerState]  # one state per layer, schedule order
+    pos: int                  # next absolute position (host int)
 
 
 def _layer_capacity(cfg: ModelConfig, spec, seq_budget: int) -> int:
@@ -199,8 +233,11 @@ def _layer_capacity(cfg: ModelConfig, spec, seq_budget: int) -> int:
 
 
 def init_layer_state(cfg: ModelConfig, spec, batch: int, seq_budget: int,
-                     device) -> KVCache:
+                     device) -> LayerState:
     _check_spec(spec)
+    if spec.mixer == MAMBA:
+        return mamba_init_state(batch, cfg.d_inner, cfg.ssm_state,
+                                cfg.conv_width, _dtype(cfg), device)
     return init_cache(batch, _layer_capacity(cfg, spec, seq_budget),
                       cfg.num_kv_heads, cfg.resolved_head_dim, _dtype(cfg),
                       device)
@@ -214,17 +251,22 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_budget: int, device,
         pos=pos)
 
 
-def apply_layer_decode(params, state: KVCache, spec, cfg: ModelConfig, x,
-                       pos: int, cos, sin) -> Tuple[torch.Tensor, KVCache]:
+def apply_layer_decode(params, state: LayerState, spec, cfg: ModelConfig, x,
+                       pos: int, cos, sin) -> Tuple[torch.Tensor, LayerState]:
     dt = _dtype(cfg)
     eps = cfg.norm_eps
     h = rmsnorm(params["norm1"], x, eps)
-    m, new_state = attn_mod.attention_decode(
-        params["mixer"], h, state, pos, cos, sin, dtype=dt, eps=eps,
-        window=spec.window, softcap=cfg.attn_logit_softcap,
-        use_rope=cfg.use_rope,
-    )
+    if spec.mixer == MAMBA:
+        m, new_state = mamba_decode(params["mixer"], h, state, dtype=dt)
+    else:
+        m, new_state = attn_mod.attention_decode(
+            params["mixer"], h, state, pos, cos, sin, dtype=dt, eps=eps,
+            window=spec.window, softcap=cfg.attn_logit_softcap,
+            use_rope=cfg.use_rope,
+        )
     x = x + m
+    if spec.ffn == NONE:
+        return x, new_state
     h = rmsnorm(params["norm2"], x, eps)
     return x + mlp_apply(params["ffn"], h, cfg.act, dt), new_state
 
@@ -235,12 +277,12 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
     """One token for every sequence in the batch.
 
     batch: ``{"tokens": (B, 1)}``. Returns (logits (B, 1, V), new state);
-    the new state holds the same (updated) caches and ``pos + 1``."""
+    the new state holds the same (updated) caches, the new SSM states and
+    ``pos + 1``."""
     x, B, _ = _input_x(params, cfg, batch)
     pos = state.pos
-    pos_ids = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    cos, sin = rope_angles(pos_ids, cfg.resolved_head_dim, cfg.rope_theta,
-                           cfg.mrope_sections)
+    cos, sin = _rope(cfg, torch.full((B, 1), pos, dtype=torch.int32,
+                                     device=x.device))
     layers = []
     for lp, ls, spec in zip(params["layers"], state.layers,
                             cfg.layer_schedule()):

@@ -6,7 +6,9 @@ Imports torch and numpy only, so the file runs where JAX is not installed:
 
 Token movement is exact, so every reassembly comparison is ``torch.equal``.
 Attention is held to ``attention_ref`` at 1e-5 in float32 (another
-summation order) and 2e-2 in bfloat16 (outputs rounded to bf16).
+summation order) and 2e-2 in bfloat16 (outputs rounded to bf16); the
+selective scan to ``ssm_scan_ref`` at 1e-4, the tolerance of the
+reference's own sweep (fp32, another summation order, FMA).
 """
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reassemble as K  # noqa: E402
 
@@ -138,3 +141,67 @@ def test_cuda_flash_attention_is_deterministic_and_checks_inputs(cuda):
         FA.flash_attention_cuda(q[..., :96], k[..., :96], v[..., :96])
     with pytest.raises(ValueError, match="dtype"):
         FA.flash_attention_cuda(q.half(), k.half(), v.half())
+
+
+SCAN_CASES = [   # (B, S, D, N)
+    (1, 32, 16, 4), (2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 16, 4),  # sweep
+    (1, 1, 8192, 16),                    # falcon-mamba decode
+    (1, 64, 8192, 16),                   # a 64-token prefill
+    (3, 7, 100, 32), (2, 5, 33, 1),      # ragged channel counts, N extremes
+]
+
+
+def _scan_inputs(B, S, D, N, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    return (mk(1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, D, N))))),
+            mk(rng.standard_normal((B, S, D, N)) * 0.1),
+            mk(rng.standard_normal((B, S, N))),
+            mk(rng.standard_normal((B, D, N)) * 0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D,N", SCAN_CASES)
+def test_cuda_mamba_scan_matches_plain(cuda, B, S, D, N):
+    A, Bx, C, h0 = _scan_inputs(B, S, D, N, cuda, seed=S + D)
+    y, h = MS.mamba_scan_cuda(A, Bx, C)
+    assert h is None
+    torch.testing.assert_close(y, ref.ssm_scan_ref(A, Bx, C), atol=1e-4,
+                               rtol=1e-4)
+    y, h = MS.mamba_scan_cuda(A, Bx, C, h0=h0, return_state=True)
+    y_ref, h_ref = ref.ssm_scan_ref(A, Bx, C, h0, return_state=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_mamba_scan_counts_launches_and_is_deterministic(cuda):
+    A, Bx, C, h0 = _scan_inputs(2, 9, 64, 16, cuda)
+    MS.reset_launch_counts()
+    a = ops.mamba_scan(A, Bx, C)
+    b, h = ops.mamba_scan(A, Bx, C, h0=h0, return_state=True)
+    c, h2 = ops.mamba_scan(A, Bx, C, h0=h0, return_state=True)
+    assert MS.LAUNCHES == {"mamba_scan": 3}
+    assert torch.equal(b, c) and torch.equal(h, h2)
+    assert a.shape == (2, 9, 64) and h.shape == (2, 64, 16)
+
+
+@pytest.mark.gpu
+def test_cuda_mamba_scan_refuses_autograd_and_bad_inputs(cuda):
+    A, Bx, C, h0 = _scan_inputs(1, 4, 32, 16, cuda)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.mamba_scan(A.requires_grad_(), Bx, C)
+    with torch.no_grad():
+        ops.mamba_scan(A, Bx, C)                 # no gradient needed: runs
+    A = A.detach()
+    with pytest.raises(ValueError, match="contiguous"):
+        MS.mamba_scan_cuda(A.transpose(2, 3).contiguous().transpose(2, 3),
+                           Bx, C)
+    with pytest.raises(ValueError, match="float32"):
+        MS.mamba_scan_cuda(A.double(), Bx, C)
+    with pytest.raises(ValueError, match="state size"):
+        MS.mamba_scan_cuda(A[..., :12].contiguous(), Bx[..., :12].contiguous(),
+                           C[..., :12].contiguous())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        MS.mamba_scan_cuda(A, Bx, C.cpu())
