@@ -33,9 +33,12 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              card (fp32 at 1e-5, bf16 at 2e-2): the six sweep cases of
              tests/test_kernels.py, phi4-mini decode shapes (Sq=1, H=24,
              K=8, hd=128, Sk in 1/17/129/2048) and a 2048-token causal
-             prefill; then its time, the plain version's and
-             ``scaled_dot_product_attention``'s at the served decode shape
-             and at the prefill shape, beside the bound;
+             prefill, recurrentgemma's (Sq=1, H=10, K=1, hd=256, Sk in
+             1/17/129/2048, the last a full ring with no window) and a
+             2048-token causal prefill with window 2048; then its time, the
+             plain version's and ``scaled_dot_product_attention``'s at the
+             served decode shapes and at the prefill shapes, beside the
+             bound;
 9. scan      the selective-scan kernel against its plain version on the card
              (1e-4): the four sweep cases of tests/test_kernels.py, the
              falcon-mamba decode shape (B=1, S=1, D=8192, N=16) from a
@@ -43,7 +46,14 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              (B=8, S=2048, D=8192, N=16: 2^31 elements an input); then its
              time and the plain version's at the decode and bound shapes,
              beside the bound (no PyTorch call computes a selective scan);
-10. serve    the second main path, ``repro_torch.launch.serve``: phi4-mini
+10. lru      the RG-LRU kernel against its plain version on the card
+             (1e-5): the three sweep cases of tests/test_kernels.py, a
+             ragged case (B=3, S=37, W=50), recurrentgemma's decode shape
+             (B=1, S=1, W=2560) from a random h0, a 2100-token prefill and
+             the bound's shape (B=8, S=2048, W=2560); then its time and the
+             plain version's at the decode and bound shapes, beside the
+             bound (no PyTorch call computes the recurrence);
+11. serve    the second main path, ``repro_torch.launch.serve``: phi4-mini
              at full width with all 32 layers, random weights from seed 0,
              bf16 compute; static mode (BatchServer over one CkIO bulk read,
              4 requests, batch 4) and continuous mode (a 3-shard FileSet,
@@ -53,21 +63,32 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              must equal the sequential oracle's on the same engine, and
              replaying a prompt through decode must give the logits of the
              plain prefill forward;
-11. serve_ssm the third main path: the same for falcon-mamba-7b at full
+12. serve_ssm the third main path: the same for falcon-mamba-7b at full
              width with all 64 layers (static: 4 requests, batch 4;
              continuous: 2 requests, 4 slots), 64 prompt tokens and 16 new
              ones a request. Every decode call runs the selective scan of
              each of the 64 layers through the kernel (S=1 from the carried
              state); the prefill forward runs it once a layer over the
              prompt;
-12. profile  only with ``--profile``: two whole-window main-path steps, 16
-             B=1 decode calls of phi4-mini and 8 of falcon-mamba under
-             ``torch.profiler`` (device busy share, kernels by device time).
+13. serve_hybrid the fourth main path: the same for recurrentgemma-2b at
+             full width with all 26 layers (static: 4 requests, batch 4;
+             continuous: 3 requests, 4 slots), 128 prompt tokens and 16 new
+             ones a request. Every decode call runs the RG-LRU recurrence of
+             each of the 18 recurrent layers through its kernel (S=1 from
+             the carried state) and the attention of each of the 8
+             local-attention layers through the flash-attention kernel.
+             Then a ring-wrap check: the first 6 layers in fp32, one
+             2100-token prompt replayed through decode (the 2048-slot rings
+             wrap) against the plain prefill forward (1e-4);
+14. profile  only with ``--profile``: two whole-window main-path steps, 16
+             B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
+             recurrentgemma under ``torch.profiler`` (device busy share,
+             kernels by device time).
 
 The launch counts are zeroed just before each main-path run (phases 4-6 and
-each mode of phases 10 and 11) and read just after it. The line before the last is a
-JSON object with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+each mode of phases 11-13, and the ring-wrap replay) and read just after
+it. The line before the last is a JSON object with one entry per kernel;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -93,6 +114,7 @@ SOURCES = {
     "reassemble_tokens": "src/repro_torch/kernels/csrc/reassemble.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+    "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
 }
 REPLACES = {
     "reassemble_window": "src/repro/kernels/reassemble.py:81",
@@ -100,6 +122,7 @@ REPLACES = {
     "reassemble_tokens": "src/repro/kernels/reassemble.py:173",
     "flash_attention": "src/repro/kernels/flash_attention.py:90",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:44",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:38",
 }
 ARCH_LAYERS = 4
 B, S, MICROBATCHES, STEPS = 8, 2048, 4, 4
@@ -110,6 +133,12 @@ H, KV, HD = 24, 8, 128             # phi4-mini attention heads
 # falcon-mamba serving: prompt tokens, requests per mode; d_inner, state.
 SSM_PROMPT, SSM_STATIC_REQUESTS, SSM_CONT_REQUESTS = 64, 4, 2
 SSM_D, SSM_N = 8192, 16
+# recurrentgemma: MQA attention heads; lru_width; local window; the
+# ring-wrap check's depth (two blocks: 4 RG-LRU and 2 local layers) and
+# prompt (past the 2048-slot rings).
+RG_H, RG_KV, RG_HD = 10, 1, 256
+RG_REC, RG_LOC = 18, 8             # RG-LRU and local-attention layers
+RG_W, RG_WINDOW, WRAP_LAYERS, WRAP_PROMPT = 2560, 2048, 6, 2100
 # Logits of a prompt replayed through decode (kernel attention) against the
 # plain prefill forward: relative L2 bound by compute dtype. In bf16 each
 # path is ~2e-2 from the fp32 logits after 32 layers (a CPU run of
@@ -159,7 +188,7 @@ class Smoke:
         # of the library yardstick against the plain version, apart.
         self.err = {"reassemble_window": 0, "reassemble": 0,
                     "reassemble_tokens": 0, "flash_attention": 0, "sdpa": 0,
-                    "mamba_scan": 0}
+                    "mamba_scan": 0, "rglru_scan": 0}
         self.launches = {}
         self.main_inputs = {}      # kernel -> args captured from the main path
         self.timing = {}
@@ -447,10 +476,12 @@ class Smoke:
         main-path steps under ``torch.profiler``; (b) a PROMPT-token prompt
         replayed through decode on the 32-layer phi4-mini, then ``NEW`` B=1
         bf16 decode calls under the profiler; (c) the same for the 64-layer
-        falcon-mamba with SSM_PROMPT tokens and 8 calls. Prints the device
-        busy share and the kernels by device time of each, and writes the
-        full tables to ``profile_window.txt``, ``profile_decode.txt`` and
-        ``profile_decode_ssm.txt``."""
+        falcon-mamba with SSM_PROMPT tokens and 8 calls, and (d) for the
+        26-layer recurrentgemma with PROMPT tokens and 8 calls. Prints the
+        device busy share and the kernels by device time of each, and
+        writes the full tables to ``profile_window.txt``,
+        ``profile_decode.txt``, ``profile_decode_ssm.txt`` and
+        ``profile_decode_hybrid.txt``."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -483,6 +514,8 @@ class Smoke:
                              "profile_decode.txt")
         self._profile_decode("falcon-mamba-7b", SSM_PROMPT, 8,
                              "profile_decode_ssm.txt")
+        self._profile_decode("recurrentgemma-2b", PROMPT, 8,
+                             "profile_decode_hybrid.txt")
 
     def _profile_decode(self, arch, prompt_len, n, fname):
         """A ``prompt_len``-token prompt replayed through decode at full
@@ -728,6 +761,9 @@ class Smoke:
             (1, 2, 2, 96, 96, 16, True, 24), (2, 2, 2, 64, 64, 32, False, 0),
             *[(1, H, KV, 1, sk, HD, True, 0) for sk in (1, 17, 129, 2048)],
             (1, H, KV, 2048, 2048, HD, True, 0),
+            *[(1, RG_H, RG_KV, 1, sk, RG_HD, True, 0)
+              for sk in (1, 17, 129, RG_WINDOW)],
+            (1, RG_H, RG_KV, RG_WINDOW, RG_WINDOW, RG_HD, True, RG_WINDOW),
         ]
         for b, h, kv, sq, sk, hd, causal, window in cases:
             for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -741,25 +777,37 @@ class Smoke:
         log(f"attention: {2 * len(cases)} cases within tolerance of the plain "
             f"version; max abs err {self.err['flash_attention']}")
 
-        # Time at the served decode shape (the longest prefix the serve
-        # phase reaches) and at the prefill shape, bf16 as served.
-        for key, sq, sk in (("decode", 1, PROMPT + NEW), ("prefill", 2048, 2048)):
-            q, k, v = self._attn_inputs(rng, 1, H, KV, sq, sk, HD,
+        # Time at the served decode shapes (the longest prefix the serve
+        # phases reach; recurrentgemma's checked prefixes and full ring
+        # too) and at the prefill shapes, bf16 as served.
+        for key, h, kv, hd, sq, sk, window in (
+                ("decode", H, KV, HD, 1, PROMPT + NEW, 0),
+                ("prefill", H, KV, HD, 2048, 2048, 0),
+                *[(f"decode_hd256_sk{sk}", RG_H, RG_KV, RG_HD, 1, sk, 0)
+                  for sk in (1, 17, 129)],
+                ("decode_hd256", RG_H, RG_KV, RG_HD, 1, PROMPT + NEW, 0),
+                ("decode_hd256_ring", RG_H, RG_KV, RG_HD, 1, RG_WINDOW, 0),
+                ("prefill_hd256", RG_H, RG_KV, RG_HD, RG_WINDOW, RG_WINDOW,
+                 RG_WINDOW)):
+            q, k, v = self._attn_inputs(rng, 1, h, kv, sq, sk, hd,
                                         torch.bfloat16)
-            # Kept (query, key) pairs under the end-aligned causal mask.
+            # Kept (query, key) pairs under the end-aligned causal mask (a
+            # window as long as the sequence keeps them all).
             pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))
-            flops = 4 * H * HD * pairs
+            flops = 4 * h * hd * pairs
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
             b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             b_ops = flops / BF16_PEAK * 1e3
-            r = {"shape": f"B=1 H={H} K={KV} Sq={sq} Sk={sk} hd={HD} bf16 "
-                          f"causal", "bytes": nbytes, "flops": flops,
-                 "bound_ms": max(b_bytes, b_ops),
+            r = {"shape": f"B=1 H={h} K={kv} Sq={sq} Sk={sk} hd={hd} bf16 "
+                          f"causal window={window}", "bytes": nbytes,
+                 "flops": flops, "bound_ms": max(b_bytes, b_ops),
                  "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
-            kernel = lambda: FA.flash_attention_cuda(q, k, v)  # noqa: E731
-            plain = lambda: ref.attention_ref(q, k, v)  # noqa: E731
+            kernel = lambda: FA.flash_attention_cuda(  # noqa: E731
+                q, k, v, window=window)
+            plain = lambda: ref.attention_ref(q, k, v, window=window)  # noqa: E731
             # The yardstick: one PyTorch call for the same function (for
-            # Sq = 1 every key is kept, which is no causal mask).
+            # Sq = 1 every key is kept, which is no causal mask; a window
+            # as long as the sequence masks nothing more than causal).
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, is_causal=sq > 1, enable_gqa=True)
             self._close("sdpa", library(), plain(), 2e-2)
@@ -842,15 +890,72 @@ class Smoke:
             del A, Bx, C, h0
             torch.cuda.empty_cache()
 
-    # -- 10, 11 ----------------------------------------------------------------
+    # -- 10 --------------------------------------------------------------------
+    def lru(self):
+        import torch
+
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import rglru_scan as LRU
+
+        dev = self.dev
+        g = torch.Generator(device=dev)
+        g.manual_seed(4)
+        cases = [  # (key, B, S, W, h0)
+            *[(None, *c, False) for c in ((1, 32, 16), (2, 64, 64),
+                                          (1, 256, 32), (3, 37, 50))],
+            ("decode", 1, 1, RG_W, True),
+            (None, 1, WRAP_PROMPT, RG_W, False),
+            ("bound", B, S, RG_W, False),
+        ]
+        for key, b, s, w, with_h0 in cases:
+            a = torch.randn((b, s, w), device=dev, generator=g).sigmoid_()
+            x = torch.randn((b, s, w), device=dev, generator=g).mul_(0.1)
+            h0 = (torch.randn((b, w), device=dev, generator=g).mul_(0.5)
+                  if with_h0 else None)
+            self._close("rglru_scan", LRU.rglru_scan_cuda(a, x, h0=h0),
+                        ref.lru_scan_ref(a, x, h0), 1e-5)
+            torch.cuda.synchronize()
+            log(f"lru: B={b} S={s} W={w}{' h0' if with_h0 else ''} within "
+                f"1e-5 of the plain version; max abs err so far "
+                f"{self.err['rglru_scan']}")
+            if key is None:
+                continue
+            # a and b read once, h written once (and h0 read); one FMA an
+            # element.
+            nbytes = 4 * (3 * b * s * w + (b * w if with_h0 else 0))
+            flops = 2 * b * s * w
+            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            b_ops = flops / FP32_PEAK * 1e3
+            r = {"shape": f"B={b} S={s} W={w} fp32{' h0' if with_h0 else ''}",
+                 "bytes": nbytes, "flops": flops,
+                 "bound_ms": max(b_bytes, b_ops),
+                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                 # No PyTorch call computes this recurrence: a cumprod /
+                 # cumsum rewrite divides by a vanishing product.
+                 "library_ms": None}
+            kernel = lambda: LRU.rglru_scan_cuda(a, x, h0=h0)  # noqa: E731
+            plain = lambda: ref.lru_scan_ref(a, x, h0)  # noqa: E731
+            it, pit, warm = (200, 200, 5) if s == 1 else (20, 2, 1)
+            k1 = time_ms(kernel, it, warm)
+            p1 = time_ms(plain, pit, warm)
+            p2 = time_ms(plain, pit, warm)
+            k2 = time_ms(kernel, it, warm)
+            r["ms"], r["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+            self.timing[f"rglru_scan/{key}"] = r
+            log(f"time rglru_scan/{key}: {json.dumps(r)}")
+
+    # -- 11, 12, 13 ------------------------------------------------------------
     def _serve_arch(self, arch, *, prompt_len, new, static_requests,
-                    cont_requests, kmod, kfn, kname, want, check):
+                    cont_requests, kmod, kfn, kname, want, check,
+                    kernels=None):
         """Serve ``arch`` at full width through ``launch.serve``, static
         and continuous, with random weights from seed 0. ``kmod.kfn`` is
-        the wrapper of the kernel every layer of a decode call launches
-        (``kname`` in ``kmod.LAUNCHES``); the first call whose arguments
-        satisfy ``want`` is captured and handed to ``check`` after the run.
-        Returns the launches of both modes."""
+        the wrapper of a kernel the decode call launches (``kname`` in
+        ``kmod.LAUNCHES``); the first call whose arguments satisfy ``want``
+        is captured and handed to ``check`` after the run. ``kernels``
+        maps each kernel name to its module and its launches per decode
+        call (default: ``kname``, once a layer). Returns the launches of
+        both modes by kernel."""
         import numpy as np
         import torch
 
@@ -861,6 +966,7 @@ class Smoke:
 
         cfg = get_config(arch)
         model = build_model(cfg)
+        kernels = kernels or {kname: (kmod, cfg.num_layers)}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = model.init(0, device=self.dev)
@@ -902,23 +1008,26 @@ class Smoke:
         try:
             for mode, argv in modes.items():
                 torch.cuda.synchronize()
-                kmod.reset_launch_counts()
+                for mod, _ in kernels.values():
+                    mod.reset_launch_counts()
                 calls[0] = 0
                 t = time.perf_counter()
                 runs[mode] = L.main(argv, params=params)
                 torch.cuda.synchronize()
-                counts[mode] = (kmod.LAUNCHES[kname], calls[0],
-                                time.perf_counter() - t)
+                counts[mode] = ({k: m.LAUNCHES[k]
+                                 for k, (m, _) in kernels.items()},
+                                calls[0], time.perf_counter() - t)
         finally:
             transformer.decode_step = decode_step
             setattr(kmod, kfn, wrapper)
         # -- checks -------------------------------------------------------------
         for mode, (launches, n_calls, wall) in counts.items():
             run = runs[mode]
-            if launches != cfg.num_layers * n_calls or n_calls == 0:
-                raise AssertionError(
-                    f"serve {arch} {mode}: {kname} launched {launches} times "
-                    f"in {n_calls} decode calls of {cfg.num_layers} layers")
+            for k, (_, n) in kernels.items():
+                if launches[k] != n * n_calls or n_calls == 0:
+                    raise AssertionError(
+                        f"serve {arch} {mode}: {k} launched {launches[k]} "
+                        f"times in {n_calls} decode calls, not {n} a call")
             toks = [list(np.asarray(r.result)) for r in run.requests]
             if not (run.summary["all_completed"] and all(
                     len(t) == new and all(0 <= x < cfg.vocab_size for x in t)
@@ -929,8 +1038,9 @@ class Smoke:
                 f"{run.summary['total_s']} s = {run.summary['tok_per_s']} "
                 f"tokens/s; {n_calls} decode calls in {wall:.2f} s = "
                 f"{wall / n_calls * 1e3:.2f} ms a call (host clock, mode wall"
-                f" time over calls); {kname} launches {launches} = "
-                f"{cfg.num_layers} x {n_calls}")
+                f" time over calls); launches "
+                + ", ".join(f"{k} {launches[k]} = {n} x {n_calls}"
+                            for k, (_, n) in kernels.items()))
         cont = runs["continuous"]
         for which in ("first_token", "e2e"):
             p = cont.metrics.latency_percentiles(which)
@@ -994,7 +1104,7 @@ class Smoke:
             raise AssertionError(f"serve {arch}: peak memory {peak} B")
         del params, runs, cont, state, logits, pre, a, b
         torch.cuda.empty_cache()
-        return {kname: sum(c[0] for c in counts.values())}
+        return {k: sum(c[0][k] for c in counts.values()) for k in kernels}
 
     def serve(self):
         from repro_torch.kernels import flash_attention as FA
@@ -1043,6 +1153,101 @@ class Smoke:
             cont_requests=SSM_CONT_REQUESTS, kmod=MS, kfn="mamba_scan_cuda",
             kname="mamba_scan", want=want, check=check)
 
+    def serve_hybrid(self):
+        from repro_torch.configs.base import RGLRU
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import rglru_scan as LRU
+
+        schedule = get_config("recurrentgemma-2b").layer_schedule()
+        n_rec = sum(spec.mixer == RGLRU for spec in schedule)
+        if (n_rec, len(schedule) - n_rec) != (RG_REC, RG_LOC):
+            raise AssertionError(f"recurrentgemma-2b: {n_rec} RG-LRU layers "
+                                 f"of {len(schedule)}")
+
+        def check(scan, a, b, **kw):
+            self._close("rglru_scan", scan(a, b, **kw),
+                        ref.lru_scan_ref(a, b, kw["h0"]), 1e-5)
+            return (f"a {tuple(a.shape)} with h0: kernel within 1e-5 of the "
+                    f"plain version")
+
+        # One layer's served decode inputs past the prompt (B=1, S=1).
+        served = [0]
+
+        def want(a, b, h0=None):
+            if a.shape[:2] != (1, 1):
+                return False
+            served[0] += 1
+            return served[0] > n_rec * PROMPT
+
+        self.launches["serve_hybrid"] = self._serve_arch(
+            "recurrentgemma-2b", prompt_len=PROMPT, new=NEW,
+            static_requests=STATIC_REQUESTS, cont_requests=CONT_REQUESTS,
+            kmod=LRU, kfn="rglru_scan_cuda", kname="rglru_scan", want=want,
+            check=check, kernels={"rglru_scan": (LRU, RG_REC),
+                                  "flash_attention": (FA, RG_LOC)})
+        self._ring_wrap()
+
+    def _ring_wrap(self):
+        """The first WRAP_LAYERS layers of recurrentgemma-2b at full width
+        in fp32: one WRAP_PROMPT-token prompt replayed through decode, so
+        that every local layer's 2048-slot ring wraps, against the plain
+        prefill forward, which masks the window explicitly."""
+        import numpy as np
+        import torch
+
+        from repro_torch.configs.base import ATTN_LOCAL
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import rglru_scan as LRU
+        from repro_torch.models import build_model
+
+        cfg = get_config("recurrentgemma-2b").replace(
+            num_layers=WRAP_LAYERS, dtype="float32")
+        model = build_model(cfg)
+        params = model.init(0, device=self.dev)
+        n_att = sum(spec.mixer == ATTN_LOCAL for spec in cfg.layer_schedule())
+        prompt = torch.from_numpy(np.random.default_rng(5).integers(
+            0, cfg.vocab_size, size=(1, WRAP_PROMPT)).astype(np.int32)).to(
+                self.dev)
+        torch.cuda.synchronize()
+        FA.reset_launch_counts()
+        LRU.reset_launch_counts()
+        t = time.perf_counter()
+        with torch.no_grad():
+            state = model.init_decode_state(params, 1, WRAP_PROMPT)
+            for i in range(WRAP_PROMPT):
+                logits, state = model.decode(params, state,
+                                             {"tokens": prompt[:, i:i + 1]})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = {"rglru_scan": LRU.LAUNCHES["rglru_scan"],
+                      "flash_attention": FA.LAUNCHES["flash_attention"]}
+            pre = model.prefill_logits(params, {"tokens": prompt})
+        rings = [st.k.shape[1] for st in state.layers if hasattr(st, "k")]
+        want = {"rglru_scan": (WRAP_LAYERS - n_att) * WRAP_PROMPT,
+                "flash_attention": n_att * WRAP_PROMPT}
+        if rings != [RG_WINDOW] * n_att or counts != want:
+            raise AssertionError(f"ring wrap: rings {rings}, launches "
+                                 f"{counts} (want {want})")
+        self.launches["ring_wrap"] = counts
+        a, b = logits.float(), pre.float()
+        rel = ((a - b).norm() / b.norm()).item()
+        log(f"ring wrap: {WRAP_LAYERS} layers ({n_att} local, rings of "
+            f"{RG_WINDOW} slots), fp32, a {WRAP_PROMPT}-token prompt replayed "
+            f"through decode in {wall:.1f} s ({wall / WRAP_PROMPT * 1e3:.2f} ms"
+            f" a call, host clock); launches {json.dumps(counts)}; last "
+            f"logits vs the prefill forward: relative L2 {rel:.3e} (bound "
+            f"{PREFILL_REL_TOL['float32']}), max abs "
+            f"{(a - b).abs().max().item():.3e}, same argmax "
+            f"{bool(a.argmax() == b.argmax())}")
+        del params, state, logits, pre, a, b
+        torch.cuda.empty_cache()
+        if not rel <= PREFILL_REL_TOL["float32"]:
+            raise AssertionError(f"ring wrap: decode replay differs from "
+                                 f"prefill (relative L2 {rel})")
+
     # -- result ----------------------------------------------------------------
     def kernel_line(self):
         launches = {}
@@ -1053,7 +1258,8 @@ class Smoke:
                     "reassemble": "reassemble/main",
                     "reassemble_tokens": "reassemble_tokens/main",
                     "flash_attention": "flash_attention/decode",
-                    "mamba_scan": "mamba_scan/decode"}
+                    "mamba_scan": "mamba_scan/decode",
+                    "rglru_scan": "rglru_scan/decode"}
         out = []
         for name, key in main_key.items():
             r = self.timing[key]
@@ -1099,8 +1305,10 @@ def main() -> int:
             sm.phase("timing", sm.timing_phase)
             sm.phase("attention", sm.attention)
             sm.phase("scan", sm.scan)
+            sm.phase("lru", sm.lru)
             sm.phase("serve", sm.serve)
             sm.phase("serve_ssm", sm.serve_ssm)
+            sm.phase("serve_hybrid", sm.serve_hybrid)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)
     finally:

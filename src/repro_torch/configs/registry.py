@@ -3,7 +3,8 @@
 ``get_config(name)`` returns the exact published config; ``smoke_config``
 shrinks a config to a CPU-runnable size *of the same family* (same block
 pattern, same mixer kinds, few layers, tiny widths). The port carries the
-dense phi4-mini-3.8b so far; the other families come with their slices.
+dense phi4-mini-3.8b, the SSM falcon-mamba-7b and the hybrid
+recurrentgemma-2b so far; the other families come with their slices.
 """
 from __future__ import annotations
 
@@ -13,8 +14,10 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as _phi4
+from repro_torch.configs.recurrentgemma_2b import CONFIG as _recurrentgemma
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_phi4, _falcon_mamba)}
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in (_phi4, _falcon_mamba, _recurrentgemma)}
 
 
 def get_config(name: str) -> ModelConfig:

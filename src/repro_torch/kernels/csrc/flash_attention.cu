@@ -13,7 +13,8 @@
 //   qpos - kpos < window (window > 0); masked scores are -2e38. The running
 //   max, denominator and accumulator are fp32; a row with no kept key gives
 //   0 (the denominator is clamped to 1e-30, as in the Pallas kernel); the
-//   output is written in q's type. fp32 and bf16, hd in {16, 32, 64, 128}.
+//   output is written in q's type. fp32 and bf16, hd in {16, 32, 64, 128,
+//   256}.
 //   Any Sq and Sk: the ragged tail tile is masked, so decode (Sq = 1,
 //   Sk = pos + 1) needs no padding.
 //
@@ -25,21 +26,25 @@
 //   Design: one block of 4 warps per (batch, kv head, group of query
 //   heads, tile of query positions) walks the key axis in a loop, 32 keys
 //   a tile. The tile's keys and values are staged once in shared memory (as
-//   fp32) and serve every query row of the block — the G heads of the GQA
-//   group times the block's positions, at most 16 rows — which the Pallas
-//   version gets from its k/v index maps. Warp w owns rows w, w+4, w+8 and
-//   w+12 (round-robin, so a decode block of G = 3 rows keeps 3 warps busy
-//   rather than one) and keeps their online softmax in registers: lane j scores key j of the
-//   tile (the key tile is padded to a stride of hd+1 floats so the 32 lanes
-//   hit 32 banks), the max and the sum are butterfly reductions, and for the
-//   PV product each lane owns hd/32 output dimensions. Tiles wholly outside
+//   fp32; in dynamic shared memory at hd 256, whose 82,048 B are past the
+//   48 KB static limit, so the launcher raises that instantiation's limit
+//   once before its first launch) and serve every query row of the block —
+//   the G heads of the GQA group times the block's positions, at most 16
+//   rows — which the Pallas version gets from its k/v index maps. Warp w
+//   owns rows w, w+4, w+8 and w+12 (round-robin, so a decode block of G = 3
+//   rows keeps 3 warps busy rather than one) and keeps their online softmax
+//   in registers: lane j scores key j of the tile (the key tile is padded
+//   to a stride of hd+1 floats so the 32 lanes hit 32 banks), the max and
+//   the sum are butterfly reductions, and for the PV product each lane owns
+//   hd/32 output dimensions. Tiles wholly outside
 //   the causal/window band of the block are skipped. Every sum is taken in
 //   a fixed order (no atomics, no split over the key axis), so the result
 //   is the same on every run.
 //
 //   What it leaves for later: the products run on the CUDA cores in fp32,
 //   not on the tensor cores (wgmma), with no TMA pipelining; and at decode
-//   with B = 1 it fills only K blocks (8 of the 132 SMs for phi4-mini): a
+//   with B = 1 it fills only K blocks (8 of the 132 SMs for phi4-mini, 1
+//   for recurrentgemma's MQA, which walks a 2,048-key ring on one SM): a
 //   split over the key axis with a fixed-order combine would fill the card.
 
 #include <cuda_bf16.h>
@@ -97,13 +102,31 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Shared memory of one block: the query rows, the key tile (rows padded
+// to HD + 1 floats) and the value tile, all fp32. Static while it fits the
+// 48 KB static limit (hd <= 128), dynamic beyond it (hd 256: 82,048 B):
+// at hd 128, dynamic tiles compiled to 70 registers instead of 96 and ran
+// 12 % slower at decode on an H100.
+__host__ __device__ constexpr size_t smem_bytes(int hd) {
+  return sizeof(float) *
+         (static_cast<size_t>(kMaxRows) * hd + kTileK * (hd + 1) + kTileK * hd);
+}
+__host__ __device__ constexpr bool static_tiles(int hd) {
+  return smem_bytes(hd) <= 48 * 1024;
+}
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const Params p) {
   constexpr int DPL = HD >= 32 ? HD / 32 : 1;      // output dims per lane
-  __shared__ float q_sm[kMaxRows * HD];
-  __shared__ float k_sm[kTileK * (HD + 1)];
-  __shared__ float v_sm[kTileK * HD];
+  constexpr bool kStatic = static_tiles(HD);
+  __shared__ float q_st[kStatic ? kMaxRows * HD : 1];
+  __shared__ float k_st[kStatic ? kTileK * (HD + 1) : 1];
+  __shared__ float v_st[kStatic ? kTileK * HD : 1];
+  extern __shared__ float smem[];
+  float* q_sm = kStatic ? q_st : smem;                        // kMaxRows*HD
+  float* k_sm = kStatic ? k_st : q_sm + kMaxRows * HD;        // kTileK*(HD+1)
+  float* v_sm = kStatic ? v_st : k_sm + kTileK * (HD + 1);    // kTileK*HD
 
   const T* __restrict__ q = static_cast<const T*>(p.q);
   const T* __restrict__ k = static_cast<const T*>(p.k);
@@ -225,16 +248,31 @@ flash_kernel(const Params p) {
   }
 }
 
+template <typename T, int HD>
+cudaError_t launch_hd(const Params& p, dim3 grid, cudaStream_t st) {
+  constexpr size_t smem = static_tiles(HD) ? 0 : smem_bytes(HD);
+  if (smem > 0) {
+    // Once per instantiation (a thread-safe static), before its first
+    // launch: dynamic shared memory past 48 KB has to be asked for.
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (attr != cudaSuccess) return attr;
+  }
+  flash_kernel<T, HD><<<grid, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const Params& p, int hd, dim3 grid, cudaStream_t st) {
   switch (hd) {
-    case 16: flash_kernel<T, 16><<<grid, kThreads, 0, st>>>(p); break;
-    case 32: flash_kernel<T, 32><<<grid, kThreads, 0, st>>>(p); break;
-    case 64: flash_kernel<T, 64><<<grid, kThreads, 0, st>>>(p); break;
-    case 128: flash_kernel<T, 128><<<grid, kThreads, 0, st>>>(p); break;
+    case 16: return launch_hd<T, 16>(p, grid, st);
+    case 32: return launch_hd<T, 32>(p, grid, st);
+    case 64: return launch_hd<T, 64>(p, grid, st);
+    case 128: return launch_hd<T, 128>(p, grid, st);
+    case 256: return launch_hd<T, 256>(p, grid, st);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import reassemble as _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches, counted where the wrapper launches the kernel.

@@ -1,13 +1,14 @@
-"""Public entry points for on-device batch reassembly, attention and the
-selective scan.
+"""Public entry points for on-device batch reassembly, attention, the
+selective scan and the RG-LRU recurrence.
 
 Dispatch is by the device of the tensors: CUDA tensors go to the
 hand-written kernels in ``kernels/reassemble.py``,
-``kernels/flash_attention.py`` and ``kernels/mamba_scan.py`` (which raise
-if they cannot launch), CPU tensors to the plain PyTorch versions in
-``kernels/ref.py``. There is no fallback from one to the other. Host
-metadata (index maps from ``data/packing.py``) may be passed as NumPy
-arrays; it is checked on the host and uploaded next to the data.
+``kernels/flash_attention.py``, ``kernels/mamba_scan.py`` and
+``kernels/rglru_scan.py`` (which raise if they cannot launch), CPU
+tensors to the plain PyTorch versions in ``kernels/ref.py``. There is no
+fallback from one to the other. Host metadata (index maps from
+``data/packing.py``) may be passed as NumPy arrays; it is checked on the
+host and uploaded next to the data.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.data.packing import as_block_permutation, row_gather_index
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mamba_scan as MS
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as LRU
 from repro_torch.kernels import reassemble as K
 
 
@@ -90,6 +92,26 @@ def mamba_scan(
     else:
         y, h = ref.ssm_scan_ref(Abar, Bx, C, h0, return_state=True)
     return (y, h) if return_state else y
+
+
+def rglru_scan(
+    a: torch.Tensor,                      # (B, S, W) fp32
+    b: torch.Tensor,                      # (B, S, W) fp32
+    *,
+    h0: Optional[torch.Tensor] = None,    # (B, W) fp32
+) -> torch.Tensor:
+    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t``: every ``h``
+    (B, S, W). With ``h0=None`` it is the reference's
+    ``rglru_scan_pallas``; a decode step passes its carried state as ``h0``
+    with S = 1. The CUDA kernel is forward-only: it raises
+    ``NotImplementedError`` where autograd would need a gradient through
+    it; the plain version on CPU tensors is differentiable."""
+    ins = (a, b) if h0 is None else (a, b, h0)
+    if _on_cuda(*ins):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+            raise NotImplementedError(LRU.FORWARD_ONLY)
+        return LRU.rglru_scan_cuda(a, b, h0=h0)
+    return ref.lru_scan_ref(a, b, h0)
 
 
 def reassemble(src: torch.Tensor, idx) -> torch.Tensor:

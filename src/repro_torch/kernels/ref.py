@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the ground truth the CUDA
 kernels are held to (bit-exact for the reassembly gathers, within the
-stated tolerance for attention and the selective scan), and the path CPU
+stated tolerance for attention and the two scans), and the path CPU
 tensors take."""
 from __future__ import annotations
 
@@ -60,6 +60,22 @@ def ssm_scan_ref(
         ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
     y = torch.stack(ys, dim=1) if ys else Abar.new_zeros((B, 0, D))
     return (y, h) if return_state else y
+
+
+def lru_scan_ref(
+    a: torch.Tensor,                      # (B, S, W) fp32 decay
+    b: torch.Tensor,                      # (B, S, W) fp32 input
+    h0: Optional[torch.Tensor] = None,    # (B, W) fp32
+) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` elementwise from ``h0`` (zeros when
+    None), a loop over S. Returns every ``h`` (B, S, W)."""
+    B, S, W = a.shape
+    h = a.new_zeros((B, W)) if h0 is None else h0
+    hs = []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1) if hs else a.new_zeros((B, 0, W))
 
 
 def reassemble_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,11 @@ with a ``ServeMetrics`` summary table (arrival→ingested / →first-token /
 The flags are the reference driver's plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain PyTorch path). ``--arch`` takes the families the
 port carries: ``phi4-mini-3.8b`` (the default; dense attention, each
-decode call through the flash-attention kernel) and ``falcon-mamba-7b``
-(attention-free; each decode call through the selective-scan kernel). The
-reference's default, recurrentgemma-2b, comes with its family.
+decode call through the flash-attention kernel), ``falcon-mamba-7b``
+(attention-free; each decode call through the selective-scan kernel) and
+``recurrentgemma-2b`` (the reference's default; each decode call through
+the RG-LRU kernel in its 18 recurrent layers and the flash-attention kernel
+over a local-window ring in its 8 attention layers).
 ``--service`` and ``--pool-workers`` raise until the reader service is
 ported.
 
@@ -23,6 +25,8 @@ ported.
       --continuous --arrival-rate 50
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --requests 4 --batch 4 --prompt-len 64 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+      --requests 4 --batch 4 --prompt-len 128 --max-new 16
 """
 from __future__ import annotations
 

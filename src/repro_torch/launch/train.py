@@ -10,9 +10,10 @@ that this port does not carry yet raise; see ROADMAP.md, Queue A.
       --global-batch 8 --seq 128 --streaming
 
 The step loop is plain: an exception propagates. Checkpoints and the
-restart supervisor come with the next slice. An SSM (``--arch
-falcon-mamba-7b``) trains on the CPU only: its scan kernel is forward-only,
-so on the card the driver raises before it builds anything.
+restart supervisor come with the next slice. A stack with a recurrent
+layer (``--arch falcon-mamba-7b``, ``recurrentgemma-2b``) trains on the
+CPU only: its scan kernels are forward-only, so on the card the driver
+raises before it builds anything.
 """
 from __future__ import annotations
 
@@ -25,12 +26,12 @@ from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.base import MAMBA
+from repro_torch.configs.base import MAMBA, RGLRU
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.core import CkIO, FileOptions
 from repro_torch.data import CkIOPipeline, make_token_file
 from repro_torch.device import resolve_device
-from repro_torch.kernels.mamba_scan import FORWARD_ONLY
+from repro_torch.kernels import mamba_scan, rglru_scan
 from repro_torch.models import build_model
 from repro_torch.train import OptConfig, init_opt_state, make_train_step
 
@@ -125,9 +126,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    if (torch.device(args.device).type == "cuda"
-            and any(s.mixer == MAMBA for s in cfg.block_pattern)):
-        raise NotImplementedError(FORWARD_ONLY)
+    if torch.device(args.device).type == "cuda":
+        for mixer, kernel in ((MAMBA, mamba_scan), (RGLRU, rglru_scan)):
+            if any(s.mixer == mixer for s in cfg.block_pattern):
+                raise NotImplementedError(kernel.FORWARD_ONLY)
     dev = resolve_device(args.device)
     model = build_model(cfg)
     print(f"arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} "

@@ -7,14 +7,21 @@ the compute dtype before the PV product.
 
 Decode departs from the reference on purpose: its attention goes through
 ``ops.flash_attention`` (the hand-written kernel on CUDA tensors, the plain
-version on CPU tensors) over the valid prefix of the cache, where the
-reference runs ``_sdpa`` over the whole ring with a slot mask. While
-``pos < capacity`` the valid slots are exactly ``0..pos`` and the slot mask
-equals the kernel's end-aligned causal mask over ``k[:, :pos+1]``, so both
-compute the same function (the reference rounds the probabilities to the
-compute dtype before PV; the kernel keeps them in fp32). A ring that would
-wrap (local-window layers decoding past their window) comes with the
-gemma3 and recurrentgemma slices.
+version on CPU tensors) over the cache slots that hold positions, where the
+reference runs ``_sdpa`` over the whole ring with a slot mask. Both write
+the new token at slot ``pos % C`` of a ring of C slots. While ``pos < C``
+the valid slots are exactly ``0..pos`` and the slot mask equals the
+kernel's end-aligned causal (and window) mask over ``k[:, :pos+1]``. Once
+``pos >= C`` every slot holds one of the last C positions, and the
+reference's mask (``slot_pos <= pos`` and ``pos - slot_pos < window``)
+keeps all C of them, because a ring is never larger than its layer's
+window (``transformer._layer_capacity``) or the layer has none: the kernel
+then attends over all C slots with no window (with one query the causal
+mask keeps every key). The layer's window must not be passed on a rotated
+ring, where the kernel would mask by slot index instead of position. So
+both compute the same function (the reference rounds the probabilities to
+the compute dtype before PV; the kernel keeps them in fp32, and sums the
+keys in slot order).
 """
 from __future__ import annotations
 
@@ -30,8 +37,9 @@ NEG_INF = -2.0e38
 
 
 class KVCache(NamedTuple):
-    """Slot ``p`` holds position ``p``: the ring never wraps in the port
-    (decode raises first), so the reference's ``slot_pos`` is not kept."""
+    """A ring of C slots: slot ``s`` holds the largest position ``p <
+    pos`` with ``p % C == s``. That follows from ``pos`` alone, so the
+    reference's ``slot_pos`` is not kept."""
     k: torch.Tensor          # (B, C, K, hd)
     v: torch.Tensor          # (B, C, K, hd)
 
@@ -184,16 +192,13 @@ def attention_decode(
     use_rope: bool = True,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step of one layer. Writes the new token's k/v into slot
-    ``pos`` of ``cache`` and attends over slots ``0..pos`` through
-    ``ops.flash_attention``. The cache is updated in place (the reference
-    returns a new one): the caller's cache and the returned one are the same
-    tensors, which saves a copy of the cache per layer per token."""
+    ``pos % C`` of ``cache`` and attends through ``ops.flash_attention``
+    over slots ``0..pos`` (with the layer's window) while ``pos < C``, over
+    all C slots (no window) once the ring has wrapped. The cache is updated
+    in place (the reference returns a new one): the caller's cache and the
+    returned one are the same tensors, which saves a copy of the cache per
+    layer per token."""
     C = cache.k.shape[1]
-    if pos >= C:
-        raise NotImplementedError(
-            f"decode at position {pos} would wrap a ring of {C} slots: "
-            f"local-window decode comes with the gemma3 and recurrentgemma "
-            f"slices (ROADMAP.md, Queue A item 9)")
     if softcap > 0.0:
         raise NotImplementedError(
             "attention logit softcap in decode: the flash-attention kernel "
@@ -203,9 +208,18 @@ def attention_decode(
     if use_rope:
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
-    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
-    out = ops.flash_attention(q, cache.k[:, :pos + 1], cache.v[:, :pos + 1],
-                              causal=True, window=window)
+    slot = pos % C
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    if pos < C:
+        out = ops.flash_attention(q, cache.k[:, :pos + 1],
+                                  cache.v[:, :pos + 1], causal=True,
+                                  window=window)
+    elif 0 < window < C:
+        raise ValueError(f"a ring of {C} slots wider than its window "
+                         f"{window} cannot wrap: size local rings to the "
+                         f"window (transformer._layer_capacity)")
+    else:
+        out = ops.flash_attention(q, cache.k, cache.v, causal=True, window=0)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
     return out, cache

@@ -15,9 +15,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import MAMBA, ModelConfig
+from repro_torch.configs.base import MAMBA, RGLRU, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVCache
+from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.ssm import MambaState
 from repro_torch.models.transformer import DecodeState
 
@@ -90,8 +91,11 @@ def decode_state_from_reference(state, cfg: ModelConfig, *,
     per-pattern-position states stacked over the blocks, ``tail`` a list of
     per-layer states, ``pos`` a scalar) -> the port's, one state per layer
     in schedule order: a ``KVCache`` for an attention layer, a
-    ``MambaState`` (``h``, ``conv``) for a Mamba layer. Read by attribute,
-    so the reference's NamedTuples pass as they are."""
+    ``MambaState`` or ``RGLRUState`` (``h``, ``conv``) for a Mamba or
+    RG-LRU layer. Read by attribute, so the reference's NamedTuples pass as
+    they are. A ring (wrapped or not) converts when its ``slot_pos`` is
+    what writing position ``p`` at slot ``p % C`` leaves; any other layout
+    raises."""
     dev = resolve_device(device)
     to_t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
     pattern, nb, tail = cfg.scan_split()
@@ -105,18 +109,23 @@ def decode_state_from_reference(state, cfg: ModelConfig, *,
             a = np.asarray(a)
             return a if bi is None else a[bi]
 
-        if spec.mixer == MAMBA:
-            layers.append(MambaState(h=to_t(take(st.h)),
-                                     conv=to_t(take(st.conv))))
+        if spec.mixer in (MAMBA, RGLRU):
+            kind = MambaState if spec.mixer == MAMBA else RGLRUState
+            layers.append(kind(h=to_t(take(st.h)), conv=to_t(take(st.conv))))
             continue
         k, v, slot_pos = take(st.k), take(st.v), take(st.slot_pos)
-        # The port's cache keeps position p in slot p: a wrapped ring has
-        # no port counterpart yet.
-        if not np.array_equal(slot_pos[:pos], np.arange(pos)):
+        # The port's ring keeps no slot_pos: slot s must hold the largest
+        # position p < pos with p = s (mod C), or -1 if there is none.
+        C = slot_pos.shape[0]
+        want = (pos - 1) - (pos - 1 - np.arange(C)) % C
+        want = np.where(want >= 0, want, -1)
+        if not np.array_equal(slot_pos, want):
             raise NotImplementedError(
-                "a reference cache whose ring has wrapped: local-window "
-                "decode comes with the gemma3 and recurrentgemma slices "
-                "(ROADMAP.md, Queue A item 9)")
+                f"a reference ring whose slots, wrapped or not, do not hold "
+                f"the positions that writing position p at slot p % {C} "
+                f"leaves after {pos} tokens (slot_pos {slot_pos.tolist()}): "
+                f"the port's ring keeps no slot_pos and reads positions from "
+                f"pos alone")
         layers.append(KVCache(k=to_t(k), v=to_t(v)))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"state holds {len(layers)} layers, config "

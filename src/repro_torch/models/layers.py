@@ -75,10 +75,19 @@ def linear(params: dict, x: torch.Tensor, dtype) -> torch.Tensor:
     return y
 
 
+GLU_ACTS = ("silu", "gelu_glu")   # SwiGLU / GeGLU (gemma family)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, ``jax.nn.gelu``'s default (not torch's erf
+    form)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_init(gen, d: int, ff: int, act: str, dtype, device) -> dict:
-    if act != "silu":
+    if act not in GLU_ACTS:
         raise NotImplementedError(
-            f"act={act!r}: the port carries the SwiGLU MLP so far")
+            f"act={act!r}: the port carries the GLU MLPs {GLU_ACTS} so far")
     return {
         "gate": fan_in_init(gen, (d, ff), d, dtype, device),
         "up": fan_in_init(gen, (d, ff), d, dtype, device),
@@ -87,13 +96,27 @@ def mlp_init(gen, d: int, ff: int, act: str, dtype, device) -> dict:
 
 
 def mlp_apply(params: dict, x: torch.Tensor, act: str, dtype) -> torch.Tensor:
-    """SwiGLU: ``(silu(x W_gate) * (x W_up)) W_down``."""
-    if act != "silu":
+    """SwiGLU (``act="silu"``) or GeGLU (``"gelu_glu"``):
+    ``(act(x W_gate) * (x W_up)) W_down``."""
+    if act not in GLU_ACTS:
         raise NotImplementedError(
-            f"act={act!r}: the port carries the SwiGLU MLP so far")
+            f"act={act!r}: the port carries the GLU MLPs {GLU_ACTS} so far")
     g = x @ params["gate"].to(dtype)
     u = x @ params["up"].to(dtype)
-    return (F.silu(g) * u) @ params["down"].to(dtype)
+    nl = F.silu if act == "silu" else gelu
+    return (nl(g) * u) @ params["down"].to(dtype)
+
+
+# -- temporal conv ----------------------------------------------------------------
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """Depthwise causal conv over seq: x (B, S, c), w (cw, c), b (c,).
+    A cross-correlation with cw-1 zeros on the left, as the reference's
+    ``conv_general_dilated`` with ``feature_group_count=c`` (no flip)."""
+    cw, c = w.shape
+    xt = F.pad(x.transpose(1, 2), (cw - 1, 0))            # (B, c, S+cw-1)
+    y = F.conv1d(xt, w.t().unsqueeze(1), groups=c)        # (B, c, S)
+    return y.transpose(1, 2) + b
 
 
 # -- rotary position embeddings -----------------------------------------------------

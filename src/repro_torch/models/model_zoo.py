@@ -1,5 +1,6 @@
 """Model facade: one interface over the decoder-only stack (dense
-attention blocks and attention-free Mamba-1 blocks so far)."""
+attention blocks, attention-free Mamba-1 blocks and Griffin's RG-LRU and
+local-attention blocks so far)."""
 from __future__ import annotations
 
 import functools
@@ -44,8 +45,9 @@ class Model:
     def init_decode_state(self, params, batch_size: int, seq_budget: int,
                           frames=None):
         """The empty decode state on the device of ``params``: one KV cache
-        per attention layer, one zero ``MambaState`` (SSM state and conv
-        tail) per Mamba layer."""
+        per attention layer (a ring of the window's size for a local
+        layer), one zero ``MambaState`` or ``RGLRUState`` (recurrent state
+        and conv tail) per Mamba or RG-LRU layer."""
         if frames is not None:
             raise NotImplementedError(
                 "encoder frames: encoder-decoder decode comes with the "

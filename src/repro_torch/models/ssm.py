@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import fan_in_init
+from repro_torch.models.layers import causal_conv, fan_in_init
 
 IMPLS = ("materialized", "fused")
 
@@ -61,17 +61,6 @@ def mamba_init(gen: torch.Generator, d: int, d_inner: int, state: int,
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                 ) -> torch.Tensor:
-    """Depthwise causal conv over seq: x (B, S, di), w (cw, di), b (di,).
-    A cross-correlation with cw-1 zeros on the left, as the reference's
-    ``conv_general_dilated``."""
-    cw, di = w.shape
-    xt = F.pad(x.transpose(1, 2), (cw - 1, 0))            # (B, di, S+cw-1)
-    y = F.conv1d(xt, w.t().unsqueeze(1), groups=di)       # (B, di, S)
-    return y.transpose(1, 2) + b
-
-
 def _discretize(params: dict, xin: torch.Tensor, dtype):
     """From the conv output ``xin`` (..., di): the scan's inputs ``Abar``,
     ``Bx`` (..., di, n) and ``Cc`` (..., n), fp32 and contiguous."""
@@ -95,8 +84,8 @@ def mamba_apply(params: dict, x: torch.Tensor, *, dtype,
         raise ValueError(f"unknown ssm_impl {impl!r} (expected one of {IMPLS})")
     xz = x @ params["in_proj"].to(dtype)                    # (B, S, 2di)
     xin, z = xz.chunk(2, dim=-1)
-    xin = F.silu(_causal_conv(xin, params["conv_w"].to(dtype),
-                              params["conv_b"].to(dtype)))
+    xin = F.silu(causal_conv(xin, params["conv_w"].to(dtype),
+                             params["conv_b"].to(dtype)))
     Abar, Bx, Cc = _discretize(params, xin, dtype)
     y = ops.mamba_scan(Abar, Bx, Cc).to(dtype)
     y = y + params["D"].to(dtype) * xin

@@ -8,13 +8,15 @@ port's counterpart of the reference's per-block ``jax.checkpoint``.
 ``models/convert.py`` maps between the two layouts.
 
 Decode keeps one state per layer in ``DecodeState.layers`` (schedule
-order, like the params): a KV cache for an attention layer, updated in
-place (``attention_decode``), or a ``MambaState`` for a Mamba layer. The
-next position is a host int, so that slicing the valid cache prefix needs
-no device sync.
+order, like the params): a KV cache for an attention layer, a ring for a
+local-window layer, updated in place (``attention_decode``), a
+``MambaState`` for a Mamba layer, or an ``RGLRUState`` for an RG-LRU
+layer. The next position is a host int, so that picking the cache slots to
+attend over needs no device sync.
 
-The port carries dense attention blocks (phi4-mini) and attention-free
-Mamba-1 blocks (falcon-mamba) so far; the other mixer and FFN kinds raise
+The port carries dense attention blocks (phi4-mini), attention-free Mamba-1
+blocks (falcon-mamba) and Griffin's RG-LRU and local-attention blocks with
+GeGLU MLPs (recurrentgemma) so far; the other mixer and FFN kinds raise
 ``NotImplementedError`` and come with their families.
 """
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.configs.base import (
     DENSE,
     MAMBA,
     NONE,
+    RGLRU,
     ModelConfig,
 )
 from repro_torch.models import attention as attn_mod
@@ -53,6 +56,13 @@ from repro_torch.models.ssm import (
     mamba_init,
     mamba_init_state,
 )
+from repro_torch.models.rglru import (
+    RGLRUState,
+    rglru_apply,
+    rglru_decode,
+    rglru_init,
+    rglru_init_state,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -67,7 +77,7 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_spec(spec) -> None:
-    if not ((spec.mixer in (ATTN, ATTN_LOCAL) and spec.ffn == DENSE)
+    if not ((spec.mixer in (ATTN, ATTN_LOCAL, RGLRU) and spec.ffn == DENSE)
             or (spec.mixer == MAMBA and spec.ffn == NONE)):
         raise NotImplementedError(
             f"layer kind ({spec.mixer}, {spec.ffn}) is not carried by the "
@@ -86,6 +96,9 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec, device
     if spec.mixer == MAMBA:
         p["mixer"] = mamba_init(gen, d, cfg.d_inner, cfg.ssm_state,
                                 cfg.dt_rank, cfg.conv_width, pd, device)
+    elif spec.mixer == RGLRU:
+        p["mixer"] = rglru_init(gen, d, cfg.lru_width, cfg.conv_width, pd,
+                                device)
     else:
         p["mixer"] = attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
                                cfg.resolved_head_dim, pd, device,
@@ -124,6 +137,8 @@ def apply_layer_train(params, spec, cfg: ModelConfig, x, cos, sin
     h = rmsnorm(params["norm1"], x, eps)
     if spec.mixer == MAMBA:
         x = x + mamba_apply(params["mixer"], h, dtype=dt, impl=cfg.ssm_impl)
+    elif spec.mixer == RGLRU:
+        x = x + rglru_apply(params["mixer"], h, dtype=dt)
     else:
         x = x + attn_mod.attention_train(
             params["mixer"], h, cos, sin, dtype=dt, eps=eps, causal=True,
@@ -218,7 +233,7 @@ def forward_logits(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
-LayerState = Union[KVCache, MambaState]
+LayerState = Union[KVCache, MambaState, RGLRUState]
 
 
 class DecodeState(NamedTuple):
@@ -238,6 +253,9 @@ def init_layer_state(cfg: ModelConfig, spec, batch: int, seq_budget: int,
     if spec.mixer == MAMBA:
         return mamba_init_state(batch, cfg.d_inner, cfg.ssm_state,
                                 cfg.conv_width, _dtype(cfg), device)
+    if spec.mixer == RGLRU:
+        return rglru_init_state(batch, cfg.lru_width, cfg.conv_width,
+                                _dtype(cfg), device)
     return init_cache(batch, _layer_capacity(cfg, spec, seq_budget),
                       cfg.num_kv_heads, cfg.resolved_head_dim, _dtype(cfg),
                       device)
@@ -258,6 +276,8 @@ def apply_layer_decode(params, state: LayerState, spec, cfg: ModelConfig, x,
     h = rmsnorm(params["norm1"], x, eps)
     if spec.mixer == MAMBA:
         m, new_state = mamba_decode(params["mixer"], h, state, dtype=dt)
+    elif spec.mixer == RGLRU:
+        m, new_state = rglru_decode(params["mixer"], h, state, dtype=dt)
     else:
         m, new_state = attn_mod.attention_decode(
             params["mixer"], h, state, pos, cos, sin, dtype=dt, eps=eps,
@@ -277,8 +297,8 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
     """One token for every sequence in the batch.
 
     batch: ``{"tokens": (B, 1)}``. Returns (logits (B, 1, V), new state);
-    the new state holds the same (updated) caches, the new SSM states and
-    ``pos + 1``."""
+    the new state holds the same (updated) caches, the new recurrent states
+    and ``pos + 1``."""
     x, B, _ = _input_x(params, cfg, batch)
     pos = state.pos
     cos, sin = _rope(cfg, torch.full((B, 1), pos, dtype=torch.int32,

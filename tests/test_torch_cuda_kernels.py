@@ -8,7 +8,9 @@ Token movement is exact, so every reassembly comparison is ``torch.equal``.
 Attention is held to ``attention_ref`` at 1e-5 in float32 (another
 summation order) and 2e-2 in bfloat16 (outputs rounded to bf16); the
 selective scan to ``ssm_scan_ref`` at 1e-4, the tolerance of the
-reference's own sweep (fp32, another summation order, FMA).
+reference's own sweep (fp32, another summation order, FMA); the RG-LRU
+recurrence to ``lru_scan_ref`` at 1e-5, that of its sweep (one FMA against
+a product and a sum).
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reassemble as K  # noqa: E402
+from repro_torch.kernels import rglru_scan as LRU  # noqa: E402
 
 
 @pytest.fixture
@@ -88,6 +91,10 @@ FA_CASES = [   # (B, H, K, Sq, Sk, hd, causal, window)
     (1, 24, 8, 1, 129, 128, True, 0),
     (2, 6, 2, 37, 70, 64, True, 9),      # ragged tiles, end-aligned
     (1, 32, 1, 5, 40, 16, True, 0),      # a group wider than a block
+    (1, 10, 1, 1, 1, 256, True, 0),      # recurrentgemma decode (MQA, hd 256)
+    (1, 10, 1, 1, 129, 256, True, 0),
+    (1, 10, 1, 1, 2048, 256, True, 0),   # a full ring
+    (2, 10, 1, 70, 70, 256, True, 16),   # local-window prefill, ragged tiles
 ]
 FA_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
 
@@ -205,3 +212,84 @@ def test_cuda_mamba_scan_refuses_autograd_and_bad_inputs(cuda):
                            C[..., :12].contiguous())
     with pytest.raises(ValueError, match="one CUDA device"):
         MS.mamba_scan_cuda(A, Bx, C.cpu())
+
+
+LRU_CASES = [   # (B, S, W)
+    (1, 32, 16), (2, 64, 64), (1, 256, 32),        # the sweep
+    (3, 37, 50),                                   # ragged
+    (1, 1, 2560),                                  # recurrentgemma decode
+    (1, 2100, 2560),                               # a prompt past the window
+]
+
+
+def _lru_inputs(B, S, W, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    return (mk(1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, W))))),
+            mk(rng.standard_normal((B, S, W)) * 0.1),
+            mk(rng.standard_normal((B, W)) * 0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,W", LRU_CASES)
+def test_cuda_rglru_scan_matches_plain(cuda, B, S, W):
+    a, b, h0 = _lru_inputs(B, S, W, cuda, seed=S + W)
+    torch.testing.assert_close(LRU.rglru_scan_cuda(a, b),
+                               ref.lru_scan_ref(a, b), atol=1e-5, rtol=1e-5)
+    h = LRU.rglru_scan_cuda(a, b, h0=h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h, ref.lru_scan_ref(a, b, h0), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_scan_counts_launches_and_is_deterministic(cuda):
+    a, b, h0 = _lru_inputs(2, 9, 300, cuda)
+    LRU.reset_launch_counts()
+    x = ops.rglru_scan(a, b)
+    y = ops.rglru_scan(a, b, h0=h0)
+    z = ops.rglru_scan(a, b, h0=h0)
+    assert LRU.LAUNCHES == {"rglru_scan": 3}
+    assert torch.equal(y, z) and x.shape == (2, 9, 300)
+    # A decode step is the scan with S = 1: one FMA from h0.
+    one = ops.rglru_scan(a[:, :1].contiguous(), b[:, :1].contiguous(), h0=h0)
+    torch.testing.assert_close(one[:, 0], a[:, 0] * h0 + b[:, 0], atol=1e-6,
+                               rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_scan_refuses_autograd_and_bad_inputs(cuda):
+    a, b, h0 = _lru_inputs(1, 4, 32, cuda)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.rglru_scan(a.requires_grad_(), b)
+    with torch.no_grad():
+        ops.rglru_scan(a, b)                     # no gradient needed: runs
+    a = a.detach()
+    with pytest.raises(ValueError, match="contiguous"):
+        LRU.rglru_scan_cuda(a.transpose(1, 2).contiguous().transpose(1, 2), b)
+    with pytest.raises(ValueError, match="float32"):
+        LRU.rglru_scan_cuda(a.double(), b)
+    with pytest.raises(ValueError, match="h0"):
+        LRU.rglru_scan_cuda(a, b, h0=h0[:, :7].contiguous())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        LRU.rglru_scan_cuda(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FA_DTYPES)
+def test_cuda_flash_attention_over_a_wrapped_ring(cuda, dtype, tol):
+    # The decode call past the window: the new token at slot pos % C of a
+    # full ring, attended over all C slots with no window. The same
+    # function as the plain version over the last C positions in order.
+    rng = np.random.default_rng(9)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda).to(dtype)
+    C, pos = 64, 150
+    q, kc, vc = mk(1, 1, 10, 256), mk(1, C, 1, 256), mk(1, C, 1, 256)
+    got = ops.flash_attention(q, kc, vc, causal=True, window=0)
+    order = [(p % C) for p in range(pos - C + 1, pos + 1)]
+    want = ref.attention_ref(
+        q.transpose(1, 2), kc[:, order].transpose(1, 2),
+        vc[:, order].transpose(1, 2), causal=True, window=C).transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)

@@ -3,7 +3,7 @@
 ``repro_torch.models.convert``.
 
 The port's decode attention goes through ``ops.flash_attention`` over the
-valid cache prefix (the plain version on the CPU); the reference's runs
+cache slots that hold positions (the plain version on the CPU); the reference's runs
 ``_sdpa`` over the whole cache with a slot mask. Tolerances: float32 1e-5
 (the same function, another summation order); bfloat16 2e-2 (the reference
 rounds the probabilities to bf16 before PV, the port keeps them in fp32).
@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs.registry import get_config as jget_config  # noqa: E402
 from repro.configs.registry import smoke_config as jsmoke  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
+from repro_torch.configs.base import ATTN, DENSE, LayerSpec  # noqa: E402
 from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
@@ -117,15 +118,26 @@ def test_converted_reference_state_decodes_on(ref_params):
 
 
 def test_decode_refuses_a_wrapping_ring_and_softcap():
+    # A ring of 2 slots with no window wraps and decodes on, over the last
+    # 2 positions as the reference's ring does. A ring wider than its
+    # layer's window is refused once it would wrap (the kernel would mask
+    # the window by slot index, not by position), and so is the softcap,
+    # which the kernel does not compute.
     _, tcfg = _cfgs(dtype="float32")
     tm = build_model(tcfg)
     tp = tm.init(0, device="cpu")
     tok = {"tokens": torch.zeros((1, 1), dtype=torch.int32)}
     st = tm.init_decode_state(tp, 1, 2)
+    for _ in range(3):
+        logits, st = tm.decode(tp, st, tok)
+    assert st.pos == 3 and bool(torch.isfinite(logits).all())
+    wide = build_model(tcfg.replace(
+        block_pattern=(LayerSpec(mixer=ATTN, ffn=DENSE, window=1),)))
+    st = wide.init_decode_state(tp, 1, 2)
     for _ in range(2):
-        _, st = tm.decode(tp, st, tok)
-    with pytest.raises(NotImplementedError, match="wrap"):
-        tm.decode(tp, st, tok)
+        _, st = wide.decode(tp, st, tok)
+    with pytest.raises(ValueError, match="wrap"):
+        wide.decode(tp, st, tok)
     capped = build_model(tcfg.replace(attn_logit_softcap=30.0))
     with pytest.raises(NotImplementedError, match="softcap"):
         capped.decode(tp, capped.init_decode_state(tp, 1, 4), tok)
