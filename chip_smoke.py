@@ -764,6 +764,14 @@ class Smoke:
             *[(1, RG_H, RG_KV, 1, sk, RG_HD, True, 0)
               for sk in (1, 17, 129, RG_WINDOW)],
             (1, RG_H, RG_KV, RG_WINDOW, RG_WINDOW, RG_HD, True, RG_WINDOW),
+            # The split-key decode path: key counts at the 32-key spans'
+            # edges, a window that drops whole spans, and B=4.
+            *[(1, h_, kv_, 1, sk, hd_, True, 0) for sk in (63, 64, 65, 2047)
+              for h_, kv_, hd_ in ((H, KV, HD), (RG_H, RG_KV, RG_HD))],
+            (1, H, KV, 1, 2048, HD, True, 100),
+            (1, RG_H, RG_KV, 1, RG_WINDOW, RG_HD, True, 33),
+            (4, H, KV, 1, PROMPT + NEW, HD, True, 0),
+            (4, RG_H, RG_KV, 1, RG_WINDOW, RG_HD, True, 0),
         ]
         for b, h, kv, sq, sk, hd, causal, window in cases:
             for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -776,6 +784,26 @@ class Smoke:
         torch.cuda.synchronize()
         log(f"attention: {2 * len(cases)} cases within tolerance of the plain "
             f"version; max abs err {self.err['flash_attention']}")
+
+        # A decode row gets the same bits alone and inside a batch of 4, and
+        # on every run: the split plan depends on (Sk, hd) only.
+        for h, kv, hd, sk in ((H, KV, HD, PROMPT + NEW),
+                              (RG_H, RG_KV, RG_HD, RG_WINDOW)):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = self._attn_inputs(rng, 4, h, kv, 1, sk, hd, dtype)
+                batch = FA.flash_attention_cuda(q, k, v)
+                again = FA.flash_attention_cuda(q, k, v)
+                alone = [FA.flash_attention_cuda(q[i:i + 1], k[i:i + 1],
+                                                 v[i:i + 1]) for i in range(4)]
+                if not (torch.equal(batch, again) and all(
+                        torch.equal(batch[i:i + 1], alone[i])
+                        for i in range(4))):
+                    raise AssertionError(
+                        f"flash_attention: decode rows (H={h}, hd={hd}, "
+                        f"Sk={sk}, {dtype}) differ between B=1 and B=4 or "
+                        f"between runs")
+        log("attention: decode rows bit-identical at B=1 and B=4 and across "
+            "runs")
 
         # Time at the served decode shapes (the longest prefix the serve
         # phases reach; recurrentgemma's checked prefixes and full ring

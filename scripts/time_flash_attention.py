@@ -5,11 +5,16 @@
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 builds its ``flash_attention.cu`` into ``--build`` and prints one JSON line:
-the card's name, and the kernel's mean device time in ms (CUDA events
-behind a spin kernel, as ``chip_smoke.py`` times) at phi4-mini's served
-decode shape (B=1, H=24, K=8, hd=128, Sk=144) and 2048-token causal
-prefill, bf16. Two trees are compared on one card by running the script
-for each in turn (parent, change, change, parent) in one session.
+the card's name and power limit, and for each case the kernel's mean device
+time in ms (CUDA events behind a spin kernel, as ``chip_smoke.py`` times)
+and that of ``scaled_dot_product_attention(enable_gqa=True)`` on the same
+inputs. The cases are the shapes ``chip_smoke.py`` times, B=1, bf16:
+phi4-mini's served decode (H=24, K=8, hd=128, Sk=144) and 2048-token
+causal prefill; recurrentgemma's decode (H=10, K=1, hd=256) at Sk 1, 17,
+129, 144 and a full 2,048-slot ring, and its 2048-token prefill with
+window 2048; and the ring in fp32, as the ring-wrap replay runs it. Two
+trees are compared on one card by running the script for each in turn
+(parent, change, change, parent) in one session.
 """
 from __future__ import annotations
 
@@ -20,7 +25,19 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CASES = {"decode": (1, 144), "prefill": (2048, 2048)}   # key -> (Sq, Sk)
+# key -> (H, K, hd, Sq, Sk, window, dtype); the keys of chip_smoke.py's
+# flash_attention timings, and the fp32 ring.
+CASES = {
+    "decode": (24, 8, 128, 1, 144, 0, "bfloat16"),
+    "prefill": (24, 8, 128, 2048, 2048, 0, "bfloat16"),
+    "decode_hd256_sk1": (10, 1, 256, 1, 1, 0, "bfloat16"),
+    "decode_hd256_sk17": (10, 1, 256, 1, 17, 0, "bfloat16"),
+    "decode_hd256_sk129": (10, 1, 256, 1, 129, 0, "bfloat16"),
+    "decode_hd256": (10, 1, 256, 1, 144, 0, "bfloat16"),
+    "decode_hd256_ring": (10, 1, 256, 1, 2048, 0, "bfloat16"),
+    "prefill_hd256": (10, 1, 256, 2048, 2048, 2048, "bfloat16"),
+    "decode_hd256_ring_fp32": (10, 1, 256, 1, 2048, 0, "float32"),
+}
 
 
 def main() -> int:
@@ -33,6 +50,7 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(0, ROOT)
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
 
@@ -48,15 +66,19 @@ def main() -> int:
     g.manual_seed(0)
     out = {"src": os.path.relpath(os.path.abspath(args.src), ROOT),
            "card": card}
-    for key, (sq, sk) in CASES.items():
-        q = torch.randn((1, 24, sq, 128), device="cuda", generator=g,
-                        dtype=torch.bfloat16)
-        k = torch.randn((1, 8, sk, 128), device="cuda", generator=g,
-                        dtype=torch.bfloat16)
-        v = torch.randn((1, 8, sk, 128), device="cuda", generator=g,
-                        dtype=torch.bfloat16)
-        out[f"{key}_ms"] = time_ms(lambda: FA.flash_attention_cuda(q, k, v),
-                                   200 if sq == 1 else 20)
+    for key, (h, kv, hd, sq, sk, window, dtype) in CASES.items():
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((1, n, s, hd), device="cuda", generator=g,
+                               dtype=dt)
+                   for n, s in ((h, sq), (kv, sk), (kv, sk)))
+        it = 200 if sq == 1 else 20
+        out[f"{key}_ms"] = time_ms(
+            lambda: FA.flash_attention_cuda(q, k, v, window=window), it)
+        # Sq = 1 keeps every key (no mask); a window as long as the
+        # sequence masks nothing more than causal.
+        out[f"{key}_sdpa_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=sq > 1, enable_gqa=True), it)
     print(json.dumps(out))
     return 0
 

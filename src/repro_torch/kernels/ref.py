@@ -41,6 +41,65 @@ def attention_ref(
     return o.reshape(B, H, Sq, hd).to(q.dtype)
 
 
+def attention_split_ref(
+    q: torch.Tensor,          # (B, H, Sq, hd)
+    k: torch.Tensor,          # (B, K, Sk, hd)
+    v: torch.Tensor,          # (B, K, Sk, hd)
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """The split-key decode path written plainly: the key axis cut by
+    ``flash_attention.split_plan``, the splits that ``split_range``
+    launches each reduced to fp32 partials (max ``m``, denominator ``l``,
+    unnormalised accumulator), then merged in split order with weights
+    ``exp(m - max)``, a split whose max is the -2e38 fill weighing 0. A row
+    with no kept key gives 0 (the denominator is clamped to 1e-30), as in
+    the kernel and the Pallas kernel; ``attention_ref`` averages over the
+    fill there instead."""
+    from repro_torch.kernels.flash_attention import split_plan, split_range
+
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    span, _ = split_plan(Sk, hd)
+    first, last = split_range(Sq, Sk, span, window=window)
+    k_begin = max(0, Sk - Sq - window + 1) if window > 0 else 0
+    qf = q.reshape(B, K, G, Sq, hd).float()
+    i = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    parts = []
+    for s in range(first, last):
+        a, b = max(s * span, k_begin), min(Sk, (s + 1) * span)
+        if b <= a:
+            parts.append((qf.new_full(qf.shape[:-1], NEG_INF),
+                          qf.new_zeros(qf.shape[:-1]), torch.zeros_like(qf)))
+            continue
+        sc = torch.einsum("bkgqd,bksd->bkgqs", qf,
+                          k[:, :, a:b].float()) * (hd ** -0.5)
+        j = torch.arange(a, b, device=q.device)[None, :]
+        keep = torch.ones((Sq, b - a), dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= j <= i
+        if window > 0:
+            keep &= (i - j) < window
+        sc = sc.masked_fill(~keep, NEG_INF)
+        m = sc.amax(dim=-1)
+        base = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+        p = torch.where(keep, torch.exp(sc - base[..., None]),
+                        torch.zeros_like(sc))
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgqs,bksd->bkgqd", p, v[:, :, a:b].float())))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    den = torch.zeros_like(mx)
+    acc = torch.zeros_like(qf)
+    for m, l, a in parts:                   # split order
+        w = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), torch.exp(m - mx))
+        den = den + w * l
+        acc = acc + w[..., None] * a
+    o = acc / den.clamp_min(1e-30)[..., None]
+    return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
 def ssm_scan_ref(
     Abar: torch.Tensor,                   # (B, S, D, N) fp32
     Bx: torch.Tensor,                     # (B, S, D, N) fp32

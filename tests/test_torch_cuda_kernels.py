@@ -150,6 +150,140 @@ def test_cuda_flash_attention_is_deterministic_and_checks_inputs(cuda):
         FA.flash_attention_cuda(q.half(), k.half(), v.half())
 
 
+# -- the three paths of the redesigned kernel ----------------------------------
+
+SPLIT_HEADS = [(24, 8, 128), (10, 1, 256)]     # phi4-mini, recurrentgemma
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FA_DTYPES)
+@pytest.mark.parametrize("H,K,hd", SPLIT_HEADS)
+@pytest.mark.parametrize("Sk", [1, 63, 64, 65, 144, 2047, 2048])
+def test_cuda_split_decode_at_split_boundaries(cuda, Sk, H, K, hd, dtype, tol):
+    q, k, v = _attn_inputs(1, H, K, 1, Sk, hd, dtype, cuda, seed=Sk)
+    FA.reset_launch_counts()
+    got = FA.flash_attention_cuda(q, k, v)
+    want = ref.attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"flash_attention": 1}
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FA_DTYPES)
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,window", [
+    (1, 24, 8, 1, 2048, 128, True, 100),   # a window drops 60 of 64 splits
+    (1, 10, 1, 1, 2048, 256, True, 32),    # one split left: written directly
+    (2, 4, 1, 3, 300, 128, True, 70),      # 3 positions x 4 heads a block
+    (1, 2, 1, 4, 2, 128, True, 0),         # rows 0-1 keep no key: zeros
+    (1, 2, 2, 2, 70, 32, False, 0),        # bidirectional
+    (1, 8, 1, 2, 1000, 64, True, 0),       # 64-key spans: two tiles a split
+    (1, 32, 1, 1, 5000, 16, True, 0),      # two group chunks, long spans
+])
+def test_cuda_split_decode_matches_split_plain(cuda, B, H, K, Sq, Sk, hd,
+                                               causal, window, dtype, tol):
+    q, k, v = _attn_inputs(B, H, K, Sq, Sk, hd, dtype, cuda, seed=Sk + Sq)
+    assert FA.launch_plan(q.shape, k.shape, dtype)["path"] == "decode"
+    got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = ref.attention_split_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _odd_views(B, H, K, Sq, Sk, hd, dtype, device, how):
+    """q, k, v with a dim stride of 2 ("strided") or offset by one element
+    from a 16-byte boundary ("misaligned")."""
+    rng = np.random.default_rng(Sq + Sk)
+
+    def mk(*shape):
+        n = int(np.prod(shape))
+        if how == "strided":
+            x = rng.standard_normal((*shape[:-1], 2 * shape[-1]))
+            return torch.from_numpy(x.astype(np.float32)).to(device).to(
+                dtype)[..., ::2]
+        x = rng.standard_normal(n + 1).astype(np.float32)
+        return torch.from_numpy(x).to(device).to(dtype)[1:].view(shape)
+    return mk(B, H, Sq, hd), mk(B, K, Sk, hd), mk(B, K, Sk, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FA_DTYPES)
+@pytest.mark.parametrize("how", ["strided", "misaligned"])
+@pytest.mark.parametrize("H,K,Sq,Sk,hd,window", [
+    (24, 8, 1, 144, 128, 0),               # decode, scalar-load instantiation
+    (10, 1, 1, 2048, 256, 0),
+    (24, 8, 130, 130, 128, 0),             # prefill: tensor-core / fp32 tiles
+    (10, 1, 97, 97, 256, 40),
+])
+def test_cuda_flash_attention_takes_odd_strides(cuda, how, H, K, Sq, Sk, hd,
+                                               window, dtype, tol):
+    q, k, v = _odd_views(1, H, K, Sq, Sk, hd, dtype, cuda, how)
+    assert how != "strided" or k.stride(-1) == 2
+    assert how != "misaligned" or k.data_ptr() % 16 != 0
+    got = FA.flash_attention_cuda(q, k, v, window=window)
+    want = ref.attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,Sk,hd", [(24, 8, 144, 128), (24, 8, 2048, 128),
+                                       (10, 1, 129, 256), (10, 1, 2048, 256)])
+def test_cuda_decode_row_is_bitwise_the_same_at_any_batch(cuda, H, K, Sk, hd,
+                                                          dtype):
+    # The continuous batcher's tokens equal the sequential oracle's only if
+    # a row's bits do not depend on what else is in the batch.
+    q, k, v = _attn_inputs(4, H, K, 1, Sk, hd, dtype, cuda, seed=Sk)
+    batch = FA.flash_attention_cuda(q, k, v)
+    again = FA.flash_attention_cuda(q, k, v)
+    rows = [FA.flash_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+            for i in range(4)]
+    torch.cuda.synchronize()
+    assert torch.equal(batch, again)
+    for i in range(4):
+        assert torch.equal(batch[i:i + 1], rows[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 256])
+@pytest.mark.parametrize("H,K,hd", [(8, 2, 64), (24, 8, 128), (10, 1, 256)])
+@pytest.mark.parametrize("S", [1000, 2048])
+def test_cuda_bf16_prefill_on_tensor_cores(cuda, S, H, K, hd, window):
+    q, k, v = _attn_inputs(1, H, K, S, S, hd, torch.bfloat16, cuda, seed=S)
+    assert FA.launch_plan(q.shape, k.shape, q.dtype)["path"] == "tensor_core"
+    got = FA.flash_attention_cuda(q, k, v, window=window)
+    want = ref.attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,K,S,hd,window", [(24, 8, 300, 128, 0),
+                                             (10, 1, 257, 256, 64)])
+def test_cuda_fp32_prefill_stays_within_1e5(cuda, H, K, S, hd, window):
+    q, k, v = _attn_inputs(1, H, K, S, S, hd, torch.float32, cuda, seed=S)
+    assert FA.launch_plan(q.shape, k.shape, q.dtype)["path"] == "cuda_core"
+    got = FA.flash_attention_cuda(q, k, v, window=window)
+    want = ref.attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_counts_one_launch_a_call(cuda):
+    # A decode call that launches its combine kernel too still counts one.
+    calls = [(1, 10, 1, 1, 2048, 256, torch.bfloat16),   # splits + combine
+             (1, 24, 8, 1, 20, 128, torch.float32),      # one split
+             (1, 24, 8, 64, 64, 128, torch.bfloat16),    # tensor cores
+             (1, 24, 8, 64, 64, 128, torch.float32)]     # fp32 tiles
+    FA.reset_launch_counts()
+    for B, H, K, Sq, Sk, hd, dtype in calls:
+        FA.flash_attention_cuda(*_attn_inputs(B, H, K, Sq, Sk, hd, dtype, cuda))
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"flash_attention": len(calls)}
+
+
 SCAN_CASES = [   # (B, S, D, N)
     (1, 32, 16, 4), (2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 16, 4),  # sweep
     (1, 1, 8192, 16),                    # falcon-mamba decode

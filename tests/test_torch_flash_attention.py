@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_bhsd  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -112,3 +113,90 @@ def test_kernel_modules_build_nothing_at_import(tmp_path):
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert not build.exists()
+
+
+# -- the split-key decode path: its plain version against the oracles ------
+
+SPLIT_SKS = [1, 63, 64, 65, 144, 2047, 2048]   # around the 32-key spans
+SPLIT_HEADS = [(6, 2, 128), (4, 1, 256)]        # (H, K, hd): GQA, MQA
+
+
+def _split_vs_oracles(B, H, K, Sq, Sk, hd, causal, window, dtype, tol):
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(B, H, K, Sq, Sk, hd,
+                                               Sk + hd + Sq), dtype)
+    got = ref.attention_split_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == (B, H, Sq, hd)
+    _close(got, flash_attention_bhsd(jq, jk, jv, causal=causal, window=window,
+                                     block_q=Sq, block_k=Sk, interpret=True),
+           tol)
+    # attention_ref averages a row with no kept key over the fill; the
+    # split path gives 0 there, as the Pallas kernel does.
+    iq = np.arange(Sq)[:, None] + Sk - Sq
+    j = np.arange(Sk)[None, :]
+    kept = np.ones((Sq, Sk), bool)
+    if causal:
+        kept &= j <= iq
+    if window > 0:
+        kept &= iq - j < window
+    live = kept.any(axis=1)
+    assert not got[:, :, ~live].float().any()
+    _close(got[:, :, live],
+           ref.attention_ref(tq, tk, tv, causal=causal,
+                             window=window)[:, :, live].float(), tol)
+    return got
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,K,hd", SPLIT_HEADS)
+@pytest.mark.parametrize("Sk", SPLIT_SKS)
+def test_split_decode_matches_pallas_kernel_and_oracle(Sk, H, K, hd, dtype,
+                                                       tol):
+    _split_vs_oracles(1, H, K, 1, Sk, hd, True, 0, dtype, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,window,launched", [
+    (1, 6, 2, 1, 2048, 128, True, 100, (60, 64)),   # a window drops 60 splits
+    (2, 4, 1, 3, 300, 128, True, 70, (7, 10)),      # 3 positions x 4 heads
+    (1, 4, 1, 1, 2048, 256, True, 32, (63, 64)),    # one split left
+    (1, 4, 1, 1, 2048, 256, True, 33, (62, 64)),    # one key past it
+    (1, 2, 1, 4, 2, 128, True, 0, (0, 1)),          # rows 0-1 keep no key
+    (1, 2, 2, 2, 70, 32, False, 0, (0, 1)),         # bidirectional, one span
+    (1, 8, 1, 2, 1000, 64, True, 0, (0, 16)),       # 64-key spans at hd 64
+])
+def test_split_decode_windows_masked_rows_and_spans(B, H, K, Sq, Sk, hd,
+                                                    causal, window, launched,
+                                                    dtype, tol):
+    plan = FA.launch_plan((B, H, Sq, hd), (B, K, Sk, hd), getattr(torch, dtype),
+                          window=window)
+    assert plan["path"] == "decode"
+    assert (plan["first"], plan["last"]) == launched
+    _split_vs_oracles(B, H, K, Sq, Sk, hd, causal, window, dtype, tol)
+
+
+@pytest.mark.parametrize("Sk,hd", [(1, 128), (144, 128), (2048, 256),
+                                   (5000, 64), (100000, 16)])
+def test_split_plan_depends_on_keys_and_head_dim_only(Sk, hd):
+    plans = []
+    for B, H, K in [(1, 24, 8), (4, 24, 8), (1, 10, 1), (8, 10, 1),
+                    (3, 32, 32), (2, 16, 1)]:
+        p = FA.launch_plan((B, H, 1, hd), (B, K, Sk, hd), torch.bfloat16)
+        assert p["path"] == "decode"
+        plans.append((p["span"], p["splits"], p["first"], p["last"]))
+    assert len(set(plans)) == 1
+    span, splits, first, last = plans[0]
+    assert (span, splits) == FA.split_plan(Sk, hd)
+    assert span % FA.SPLIT_TILE == 0 and span * hd >= 4096
+    assert 1 <= splits <= FA.MAX_SPLITS and (splits - 1) * span < max(Sk, 1)
+    assert (first, last) == (0, splits)
+    if (Sk, hd) == (2048, 256):          # a full recurrentgemma ring
+        assert 32 <= splits <= 64
+
+
+@pytest.mark.parametrize("Sq,G,dtype,want", [
+    (1, 3, "bfloat16", "decode"), (1, 64, "float32", "decode"),
+    (5, 3, "bfloat16", "decode"), (6, 3, "bfloat16", "tensor_core"),
+    (2, 10, "float32", "cuda_core"), (2048, 10, "bfloat16", "tensor_core"),
+])
+def test_launcher_path_follows_shapes_and_dtype(Sq, G, dtype, want):
+    assert FA.path(Sq, G, getattr(torch, dtype)) == want
