@@ -39,20 +39,29 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              plain version's and ``scaled_dot_product_attention``'s at the
              served decode shapes and at the prefill shapes, beside the
              bound;
-9. scan      the selective-scan kernel against its plain version on the card
-             (1e-4): the four sweep cases of tests/test_kernels.py, the
-             falcon-mamba decode shape (B=1, S=1, D=8192, N=16) from a
-             random h0 (y and h_S), a 64-token prefill and the bound's shape
-             (B=8, S=2048, D=8192, N=16: 2^31 elements an input); then its
-             time and the plain version's at the decode and bound shapes,
-             beside the bound (no PyTorch call computes a selective scan);
-10. lru      the RG-LRU kernel against its plain version on the card
-             (1e-5): the three sweep cases of tests/test_kernels.py, a
-             ragged case (B=3, S=37, W=50), recurrentgemma's decode shape
-             (B=1, S=1, W=2560) from a random h0, a 2100-token prefill and
-             the bound's shape (B=8, S=2048, W=2560); then its time and the
-             plain version's at the decode and bound shapes, beside the
-             bound (no PyTorch call computes the recurrence);
+9. scan      the literal selective-scan kernel against its plain version
+             on the card (1e-4): the four sweep cases of
+             tests/test_kernels.py, the falcon-mamba decode shape (B=1, S=1,
+             D=8192, N=16) from a random h0 (y and h_S), a 64-token prefill
+             and the bound's shape (B=8, S=2048, D=8192, N=16: 2^31
+             elements an input); then the fused entry (discretization, scan
+             and epilogue) against its plain version (y at 1e-4 in fp32 and
+             2e-2 in bf16, h_S at 1e-4): the sweep shapes with odd proj
+             rows and a strided z, decode from h0 in bf16 and fp32, a
+             64-token prefill and B=8, S=2048. Each is timed beside its
+             plain version (and the fused entry beside the composition it
+             replaces) and its bound, bytes or special-function units (no
+             PyTorch call computes a selective scan);
+10. lru      the same for the RG-LRU: the literal kernel (1e-5) over the
+             three sweep cases, a ragged case (B=3, S=37, W=50),
+             recurrentgemma's decode shape (B=1, S=1, W=2560) from a random
+             h0, a 2100-token prefill and the bound's shape (B=8, S=2048,
+             W=2560); then the gated entry (gates, recurrence and output
+             product; y at 1e-5 in fp32 and 2e-2 in bf16, h_S at 1e-5) at
+             the sweep and ragged shapes, decode from h0 in bf16 and fp32,
+             the 2100-token prefill and B=8, S=2048, with xr channel-major
+             as the conv leaves it (no PyTorch call computes the
+             recurrence);
 11. serve    the second main path, ``repro_torch.launch.serve``: phi4-mini
              at full width with all 32 layers, random weights from seed 0,
              bf16 compute; static mode (BatchServer over one CkIO bulk read,
@@ -66,16 +75,18 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
 12. serve_ssm the third main path: the same for falcon-mamba-7b at full
              width with all 64 layers (static: 4 requests, batch 4;
              continuous: 2 requests, 4 slots), 64 prompt tokens and 16 new
-             ones a request. Every decode call runs the selective scan of
-             each of the 64 layers through the kernel (S=1 from the carried
-             state); the prefill forward runs it once a layer over the
-             prompt;
+             ones a request. Every decode call runs each of the 64 layers'
+             discretization, scan and epilogue through the fused kernel
+             (S=1 from the carried state), one launch a layer; the prefill
+             forward (ssm_impl "materialized") runs the literal kernel once
+             a layer over the prompt;
 13. serve_hybrid the fourth main path: the same for recurrentgemma-2b at
              full width with all 26 layers (static: 4 requests, batch 4;
              continuous: 3 requests, 4 slots), 128 prompt tokens and 16 new
-             ones a request. Every decode call runs the RG-LRU recurrence of
-             each of the 18 recurrent layers through its kernel (S=1 from
-             the carried state) and the attention of each of the 8
+             ones a request. Every decode call runs the gates, recurrence and
+             output product of each of the 18 recurrent layers through the
+             gated kernel (S=1 from the carried state), one launch a layer,
+             and the attention of each of the 8
              local-attention layers through the flash-attention kernel.
              Then a ring-wrap check: the first 6 layers in fp32, one
              2100-token prompt replayed through decode (the 2048-slot rings
@@ -83,11 +94,11 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
 14. profile  only with ``--profile``: two whole-window main-path steps, 16
              B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
              recurrentgemma under ``torch.profiler`` (device busy share,
-             kernels by device time).
+             kernels and copies a call, kernels by device time).
 
-The launch counts are zeroed just before each main-path run (phases 4-6 and
-each mode of phases 11-13, and the ring-wrap replay) and read just after
-it. The line before the last is a JSON object with one entry per kernel;
+The launch counts are zeroed just before each main-path run (phases 4-6,
+each mode of phases 11-13, the prefill forwards of phase 12's replay check,
+and the ring-wrap replay) and read just after it. The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -108,6 +119,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_PEAK = 989e12                 # dense bf16 FLOP/s, same source
 FP32_PEAK = 67e12                  # fp32 FLOP/s outside the tensor cores
+MUFU_PER_SM_CLOCK = 16             # special-function results an SM a clock
 SOURCES = {
     "reassemble_window": "src/repro_torch/kernels/csrc/reassemble.cu",
     "reassemble": "src/repro_torch/kernels/csrc/reassemble.cu",
@@ -115,6 +127,8 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "mamba_scan_fused": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+    "rglru_scan_gated": "src/repro_torch/kernels/csrc/rglru_scan.cu",
 }
 REPLACES = {
     "reassemble_window": "src/repro/kernels/reassemble.py:81",
@@ -123,6 +137,16 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:90",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:44",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:38",
+    "mamba_scan_fused": "src/repro/kernels/mamba_scan.py:44",
+    "rglru_scan_gated": "src/repro/kernels/rglru_scan.py:38",
+}
+# What the two fused entries take in beside the Pallas function.
+FUSES = {
+    "mamba_scan_fused": "the discretization of src/repro/models/ssm.py:95 "
+                        "(_fused_chunk_scan) and the skip and gate of "
+                        "ssm.py:180-181",
+    "rglru_scan_gated": "the gates of src/repro/models/rglru.py:52 (_gates) "
+                        "and the output product of rglru.py:90",
 }
 ARCH_LAYERS = 4
 B, S, MICROBATCHES, STEPS = 8, 2048, 4, 4
@@ -153,6 +177,17 @@ def log(*a) -> None:
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def alternate(fns: dict, it: int, pit: int, warm: int) -> dict:
+    """Mean device time of each callable, timed in turns (each of
+    ``fns``, then the same in reverse) and averaged; ``kernel`` runs
+    ``it`` times a turn, the others ``pit``."""
+    order = list(fns) + list(fns)[::-1]
+    got = {k: [] for k in fns}
+    for k in order:
+        got[k].append(time_ms(fns[k], it if k == "kernel" else pit, warm))
+    return {k: sum(v) / len(v) for k, v in got.items()}
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -188,7 +223,8 @@ class Smoke:
         # of the library yardstick against the plain version, apart.
         self.err = {"reassemble_window": 0, "reassemble": 0,
                     "reassemble_tokens": 0, "flash_attention": 0, "sdpa": 0,
-                    "mamba_scan": 0, "rglru_scan": 0}
+                    "mamba_scan": 0, "rglru_scan": 0,
+                    "mamba_scan_fused": 0, "rglru_scan_gated": 0}
         self.launches = {}
         self.main_inputs = {}      # kernel -> args captured from the main path
         self.timing = {}
@@ -218,6 +254,17 @@ class Smoke:
         self.card_line = out.stdout.strip().splitlines()[0]
         log(self.card_line)
         t = self.torch
+        # The special-function units' peak: results an SM a clock at the
+        # card's highest SM clock, on every SM.
+        clk = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True)
+        self.sm_count = t.cuda.get_device_properties(0).multi_processor_count
+        self.sm_clock_hz = float(clk.stdout.strip().splitlines()[0]) * 1e6
+        log(f"{self.sm_count} SMs, max SM clock {self.sm_clock_hz / 1e6:.0f} "
+            f"MHz: {MUFU_PER_SM_CLOCK * self.sm_count * self.sm_clock_hz:.4e}"
+            f" special-function results/s")
         log(f"torch {t.__version__} cuda {t.version.cuda} device "
             f"{t.cuda.get_device_name(0)} count {t.cuda.device_count()}")
 
@@ -561,9 +608,11 @@ class Smoke:
              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
              and e.self_device_time_total > 0), reverse=True)
         busy = sum(r[0] for r in rows) / 1e6
+        launches = sum(r[2] for r in rows)
         log(f"profile: {n} {unit}s, {wall * 1e3:.1f} ms wall under the "
             f"profiler (host clock), device busy {busy * 1e3:.1f} ms = "
-            f"{busy / wall:.3f} of wall")
+            f"{busy / wall:.3f} of wall; {launches / n:.1f} kernels and "
+            f"copies a {unit}")
         for dev_us, key, count in rows[:15]:
             log(f"profile: {dev_us / n / 1e3:9.3f} ms/{unit} {count // n:6d} "
                 f"calls/{unit} {dev_us / 1e6 / busy:6.3f} {key[:90]}")
@@ -713,12 +762,9 @@ class Smoke:
             it = 20 if big_case else 200
             r = {"shape": c["shape"], "bound_ms": bound_ms(c["nbytes"]),
                  "bytes": c["nbytes"]}
-            # kernel, plain, plain, kernel: alternate within one call
-            k1 = time_ms(c["kernel"], it)
-            p1 = time_ms(c["plain"], it)
-            p2 = time_ms(c["plain"], it)
-            k2 = time_ms(c["kernel"], it)
-            r["ms"], r["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+            times = alternate({"kernel": c["kernel"], "plain": c["plain"]},
+                              it, it, 5)
+            r["ms"], r["plain_ms"] = times["kernel"], times["plain"]
             r["library_ms"] = (time_ms(c["library"], it) if c["library"]
                                else None)
             self.timing[key] = r
@@ -840,9 +886,8 @@ class Smoke:
                 q, k, v, is_causal=sq > 1, enable_gqa=True)
             self._close("sdpa", library(), plain(), 2e-2)
             it = 200 if sq == 1 else 20
-            k1, p1, p2, k2 = (time_ms(kernel, it), time_ms(plain, it),
-                              time_ms(plain, it), time_ms(kernel, it))
-            r["ms"], r["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+            times = alternate({"kernel": kernel, "plain": plain}, it, it, 5)
+            r["ms"], r["plain_ms"] = times["kernel"], times["plain"]
             r["library_ms"] = time_ms(library, it)
             self.timing[f"flash_attention/{key}"] = r
             log(f"time flash_attention/{key}: {json.dumps(r)}")
@@ -907,15 +952,120 @@ class Smoke:
                     A, Bx, C, h0=h0, return_state=with_h0)
                 plain = lambda: ref.ssm_scan_ref(  # noqa: E731
                     A, Bx, C, h0, return_state=with_h0)
-                it, pit, warm = (200, 200, 5) if s == 1 else (5, 2, 1)
-                k1 = time_ms(kernel, it, warm)
-                p1 = time_ms(plain, pit, warm)
-                p2 = time_ms(plain, pit, warm)
-                k2 = time_ms(kernel, it, warm)
-                r["ms"], r["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+                times = alternate({"kernel": kernel, "plain": plain},
+                                  *((200, 200, 5) if s == 1 else (5, 2, 1)))
+                r["ms"], r["plain_ms"] = times["kernel"], times["plain"]
                 self.timing[f"mamba_scan/{key}"] = r
                 log(f"time mamba_scan/{key}: {json.dumps(r)}")
             del A, Bx, C, h0
+            torch.cuda.empty_cache()
+        self._scan_fused()
+
+    def _two_sided(self, nbytes, mufu_ops):
+        """The bound of a fused entry: the larger of its bytes over the
+        memory rate and its special-function results (ex2, lg2, rcp,
+        rsqrt) over their peak, 16 an SM a clock ("operations")."""
+        b_bytes = bound_ms(nbytes)
+        b_mufu = mufu_ops / (MUFU_PER_SM_CLOCK * self.sm_count
+                             * self.sm_clock_hz) * 1e3
+        return {"bytes": nbytes, "mufu_ops": mufu_ops, "bytes_ms": b_bytes,
+                "mufu_ms": b_mufu, "bound_ms": max(b_bytes, b_mufu),
+                "bound_by": "bytes" if b_bytes >= b_mufu else "operations"}
+
+    def _scan_fused(self):
+        """The fused entry against its plain version: the sweep shapes with
+        proj rows of odd length (no 16-byte alignment) and a strided z, the
+        decode shape from a random h0 in bf16 and fp32, a 64-token prefill
+        and B=8, S=2048; then its time, the plain version's and that of the
+        composition it replaces (the discretization ops, the literal
+        kernel, the skip and gate ops), beside the two-sided bound."""
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import mamba_scan as MS
+        from repro_torch.kernels import ref
+        from repro_torch.models import ssm
+
+        dev = self.dev
+        g = torch.Generator(device=dev)
+        g.manual_seed(6)
+
+        def inputs(b, s, d, n, r, dtype, with_h0, channel_major=False):
+            rnd = lambda *shape: torch.randn(  # noqa: E731
+                shape, device=dev, generator=g)
+            A = torch.arange(1, n + 1, device=dev, dtype=torch.float32)
+            return dict(
+                xin=(F.silu(rnd(b, d, s)).transpose(1, 2) if channel_major
+                     else F.silu(rnd(b, s, d))).to(dtype),
+                dt_pre=rnd(b, s, d).mul_(0.5).to(dtype),
+                dt_bias=rnd(d).mul_(0.1).add_(math.log(math.expm1(1e-2))),
+                A_log=torch.log(A).repeat(d, 1), proj=rnd(b, s, r + 2 * n)
+                .to(dtype), Dskip=torch.ones(d, device=dev),
+                z=rnd(b, s, 2 * d).to(dtype)[..., d:],
+                h0=rnd(b, d, n).mul_(0.5) if with_h0 else None)
+
+        bf16, fp32 = torch.bfloat16, torch.float32
+        # (key, B, S, D, N, r, dtype, h0, xin channel-major as the conv
+        # leaves it); the last two take the kernel's 16-byte path.
+        cases = [
+            *[(None, *c, dt, False, False) for c in (
+                (1, 32, 16, 4, 3), (2, 64, 32, 8, 5), (1, 128, 64, 16, 1),
+                (2, 96, 16, 4, 7)) for dt in (fp32, bf16)],
+            ("decode", 1, 1, SSM_D, SSM_N, 256, bf16, True, False),
+            (None, 1, 1, SSM_D, SSM_N, 256, fp32, True, False),
+            (None, 1, SSM_PROMPT, SSM_D, SSM_N, 256, bf16, False, True),
+            ("bound", B, S, SSM_D, SSM_N, 256, bf16, False, False),
+        ]
+        for key, b, s, d, n, r, dtype, with_h0, cmajor in cases:
+            t = inputs(b, s, d, n, r, dtype, with_h0, cmajor)
+            h0 = t.pop("h0")
+            args = tuple(t.values())
+            tol = 1e-4 if dtype == fp32 else 2e-2
+            y, h = MS.mamba_scan_fused_cuda(*args, h0=h0, return_state=True)
+            y_ref, h_ref = ref.mamba_scan_fused_ref(*args, h0,
+                                                    return_state=True)
+            self._close("mamba_scan_fused", y, y_ref, tol)
+            self._close("mamba_scan_fused", h, h_ref, 1e-4)
+            del y, h, y_ref, h_ref
+            torch.cuda.synchronize()
+            log(f"scan fused: B={b} S={s} D={d} N={n} r={r} {dtype}"
+                f"{' h0' if with_h0 else ''}"
+                f"{' xin channel-major' if cmajor else ''}: y within {tol}, "
+                f"h_S within "
+                f"1e-4 of the plain version; max abs err so far "
+                f"{self.err['mamba_scan_fused']}")
+            if key is None:
+                continue
+            e = t["xin"].element_size()
+            nbytes = (e * (4 * b * s * d + 2 * n * b * s) + 4 * (2 * d + d * n)
+                      + (8 * b * d * n if with_h0 else 0))
+            r_ = {"shape": f"B={b} S={s} D={d} N={n} r={r} {dtype}"
+                           f"{' h0 h_S' if with_h0 else ''}",
+                  **self._two_sided(nbytes, b * s * d * n + 4 * b * s * d
+                                    + d * n),
+                  "library_ms": None}   # no PyTorch call is a selective scan
+
+            def composed():
+                Abar, Bx, Cc = ssm.discretize(
+                    t["dt_pre"], t["dt_bias"], t["A_log"], t["proj"],
+                    t["xin"])
+                y, _ = MS.mamba_scan_cuda(Abar, Bx, Cc, h0=h0,
+                                          return_state=with_h0)
+                y = y.to(dtype) + t["Dskip"].to(dtype) * t["xin"]
+                return y * F.silu(t["z"])
+
+            times = alternate({
+                "kernel": lambda: MS.mamba_scan_fused_cuda(
+                    *args, h0=h0, return_state=with_h0),
+                "plain": lambda: ref.mamba_scan_fused_ref(
+                    *args, h0, return_state=with_h0),
+                "composed": composed},
+                *((200, 200, 5) if s == 1 else (20, 2, 1)))
+            r_["ms"], r_["plain_ms"] = times["kernel"], times["plain"]
+            r_["composed_ms"] = times["composed"]
+            self.timing[f"mamba_scan_fused/{key}"] = r_
+            log(f"time mamba_scan_fused/{key}: {json.dumps(r_)}")
+            del t, args, h0
             torch.cuda.empty_cache()
 
     # -- 10 --------------------------------------------------------------------
@@ -963,27 +1113,118 @@ class Smoke:
                  "library_ms": None}
             kernel = lambda: LRU.rglru_scan_cuda(a, x, h0=h0)  # noqa: E731
             plain = lambda: ref.lru_scan_ref(a, x, h0)  # noqa: E731
-            it, pit, warm = (200, 200, 5) if s == 1 else (20, 2, 1)
-            k1 = time_ms(kernel, it, warm)
-            p1 = time_ms(plain, pit, warm)
-            p2 = time_ms(plain, pit, warm)
-            k2 = time_ms(kernel, it, warm)
-            r["ms"], r["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+            times = alternate({"kernel": kernel, "plain": plain},
+                              *((200, 200, 5) if s == 1 else (20, 2, 1)))
+            r["ms"], r["plain_ms"] = times["kernel"], times["plain"]
             self.timing[f"rglru_scan/{key}"] = r
             log(f"time rglru_scan/{key}: {json.dumps(r)}")
+        self._lru_gated()
+
+    def _lru_gated(self):
+        """The gated entry against its plain version: the sweep shapes, a
+        ragged one, the decode shape from a random h0 in bf16 and fp32, a
+        2100-token prefill and B=8, S=2048, xr channel-major as the conv
+        leaves it; then its time, the plain version's and that of the
+        composition it replaces (the gate ops, the literal kernel, the
+        output product), beside the two-sided bound."""
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import rglru_scan as LRU
+
+        dev = self.dev
+        g = torch.Generator(device=dev)
+        g.manual_seed(7)
+
+        def inputs(b, s, w, dtype, with_h0):
+            rnd = lambda *shape: torch.randn(  # noqa: E731
+                shape, device=dev, generator=g)
+            lam = torch.log(torch.expm1(-torch.log(torch.linspace(
+                0.9, 0.999, w, device=dev)) / 8.0))
+            return dict(
+                r_pre=rnd(b, s, w), i_pre=rnd(b, s, w),
+                b_r=rnd(w).mul_(0.1), b_i=rnd(w).mul_(0.1), lam=lam,
+                xr=rnd(b, w, s).to(dtype).transpose(1, 2),
+                gate=F.gelu(rnd(b, s, w), approximate="tanh").to(dtype),
+                h0=rnd(b, w).mul_(0.5) if with_h0 else None)
+
+        bf16, fp32 = torch.bfloat16, torch.float32
+        cases = [  # (key, B, S, W, dtype, h0)
+            *[(None, *c, dt, False) for c in (
+                (1, 32, 16), (2, 64, 64), (1, 256, 32), (3, 37, 50))
+              for dt in (fp32, bf16)],
+            ("decode", 1, 1, RG_W, bf16, True),
+            (None, 1, 1, RG_W, fp32, True),
+            (None, 1, WRAP_PROMPT, RG_W, bf16, False),
+            ("bound", B, S, RG_W, bf16, False),
+        ]
+        for key, b, s, w, dtype, with_h0 in cases:
+            t = inputs(b, s, w, dtype, with_h0)
+            h0 = t.pop("h0")
+            args = tuple(t.values())
+            tol = 1e-5 if dtype == fp32 else 2e-2
+            y, h = LRU.rglru_scan_gated_cuda(*args, h0=h0, return_state=True)
+            y_ref, h_ref = ref.rglru_scan_gated_ref(*args, h0,
+                                                    return_state=True)
+            self._close("rglru_scan_gated", y, y_ref, tol)
+            self._close("rglru_scan_gated", h, h_ref, 1e-5)
+            torch.cuda.synchronize()
+            log(f"lru gated: B={b} S={s} W={w} {dtype}"
+                f"{' h0' if with_h0 else ''}: y within {tol}, h_S within "
+                f"1e-5 of the plain version; max abs err so far "
+                f"{self.err['rglru_scan_gated']}")
+            if key is None:
+                continue
+            e = t["xr"].element_size()
+            nbytes = ((8 + 3 * e) * b * s * w + 12 * w
+                      + (8 * b * w if with_h0 else 0))
+            r_ = {"shape": f"B={b} S={s} W={w} {dtype}"
+                           f"{' h0 h_S' if with_h0 else ''}",
+                  # two sigmoids (exp, rcp), exp(log_a), exp(2 log_a), sqrt
+                  **self._two_sided(nbytes, 7 * b * s * w + 2 * w),
+                  # No PyTorch call computes the recurrence.
+                  "library_ms": None}
+
+            def composed():
+                xf = t["xr"].float()
+                r = torch.sigmoid(t["r_pre"] + t["b_r"])
+                i = torch.sigmoid(t["i_pre"] + t["b_i"])
+                log_a = -8.0 * F.softplus(t["lam"]) * r
+                beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                              min=1e-12))
+                hh = LRU.rglru_scan_cuda(torch.exp(log_a).contiguous(),
+                                         (beta * i * xf).contiguous(), h0=h0)
+                return hh.to(dtype) * t["gate"]
+
+            times = alternate({
+                "kernel": lambda: LRU.rglru_scan_gated_cuda(
+                    *args, h0=h0, return_state=with_h0),
+                "plain": lambda: ref.rglru_scan_gated_ref(
+                    *args, h0, return_state=with_h0),
+                "composed": composed},
+                *((200, 200, 5) if s == 1 else (20, 2, 1)))
+            r_["ms"], r_["plain_ms"] = times["kernel"], times["plain"]
+            r_["composed_ms"] = times["composed"]
+            self.timing[f"rglru_scan_gated/{key}"] = r_
+            log(f"time rglru_scan_gated/{key}: {json.dumps(r_)}")
+            del t, args, h0
+            torch.cuda.empty_cache()
 
     # -- 11, 12, 13 ------------------------------------------------------------
     def _serve_arch(self, arch, *, prompt_len, new, static_requests,
                     cont_requests, kmod, kfn, kname, want, check,
-                    kernels=None):
+                    kernels=None, prefill=None):
         """Serve ``arch`` at full width through ``launch.serve``, static
         and continuous, with random weights from seed 0. ``kmod.kfn`` is
         the wrapper of a kernel the decode call launches (``kname`` in
         ``kmod.LAUNCHES``); the first call whose arguments satisfy ``want``
         is captured and handed to ``check`` after the run. ``kernels``
         maps each kernel name to its module and its launches per decode
-        call (default: ``kname``, once a layer). Returns the launches of
-        both modes by kernel."""
+        call (default: ``kname``, once a layer). ``prefill`` maps a kernel
+        name to its module and its launches per prefill forward, counted
+        over the decode-replay check's two prefill forwards. Returns the
+        launches of both modes (and of those forwards) by kernel."""
         import numpy as np
         import torch
 
@@ -1090,6 +1331,8 @@ class Smoke:
         # bf16 as served and in fp32, then the time of a synchronized B=1
         # decode call past the prompt (bf16).
         prompt = torch.from_numpy(prompts[0].astype(np.int32)).to(self.dev)[None]
+        prefill = prefill or {}
+        pre_counts = {k: 0 for k in prefill}
         for dtype, tol in PREFILL_REL_TOL.items():
             m = build_model(cfg.replace(dtype=dtype))
             with torch.no_grad():
@@ -1097,7 +1340,13 @@ class Smoke:
                 for t in range(prompt_len):
                     logits, state = m.decode(params, state,
                                              {"tokens": prompt[:, t:t + 1]})
+                torch.cuda.synchronize()
+                for mod, _ in prefill.values():
+                    mod.reset_launch_counts()
                 pre = m.prefill_logits(params, {"tokens": prompt})
+                torch.cuda.synchronize()
+                for k, (mod, _) in prefill.items():
+                    pre_counts[k] += mod.LAUNCHES[k]
             a, b = logits.float(), pre.float()
             rel = ((a - b).norm() / b.norm()).item()
             log(f"serve {arch}: {dtype} decode-replay logits vs prefill "
@@ -1126,13 +1375,24 @@ class Smoke:
                 f" a stream; it reads the {4 * n_params / 1e9:.2f} GB of "
                 f"fp32 weights -> >= {4 * n_params / HBM_BYTES_PER_S * 1e3:.2f}"
                 f" ms at 3.35 TB/s")
+        for k, (_, n) in prefill.items():
+            n_fwd = len(PREFILL_REL_TOL)
+            if pre_counts[k] != n * n_fwd:
+                raise AssertionError(f"serve {arch}: {k} launched "
+                                     f"{pre_counts[k]} times in {n_fwd} "
+                                     f"prefill forwards, not {n} each")
+            log(f"serve {arch}: prefill forwards launched {k} "
+                f"{pre_counts[k]} = {n} x {n_fwd}")
         peak = torch.cuda.max_memory_allocated()
         log(f"serve {arch}: max_memory_allocated {peak / 2**30:.2f} GiB")
         if peak >= 80e9:
             raise AssertionError(f"serve {arch}: peak memory {peak} B")
         del params, runs, cont, state, logits, pre, a, b
         torch.cuda.empty_cache()
-        return {k: sum(c[0][k] for c in counts.values()) for k in kernels}
+        total = {k: sum(c[0][k] for c in counts.values()) for k in kernels}
+        for k, v in pre_counts.items():
+            total[k] = total.get(k, 0) + v
+        return total
 
     def serve(self):
         from repro_torch.kernels import flash_attention as FA
@@ -1157,29 +1417,36 @@ class Smoke:
         from repro_torch.kernels import mamba_scan as MS
         from repro_torch.kernels import ref
 
-        def check(scan, A, Bx, C, **kw):
-            y, h = scan(A, Bx, C, **kw)
-            y_ref, h_ref = ref.ssm_scan_ref(A, Bx, C, kw["h0"],
-                                            return_state=True)
-            self._close("mamba_scan", y, y_ref, 1e-4)
-            self._close("mamba_scan", h, h_ref, 1e-4)
-            return (f"Abar {tuple(A.shape)} with h0: kernel within 1e-4 of "
-                    f"the plain version (y and h_S)")
+        def check(scan, *args, **kw):
+            y, h = scan(*args, **kw)
+            y_ref, h_ref = ref.mamba_scan_fused_ref(*args, kw["h0"],
+                                                    return_state=True)
+            self._close("mamba_scan_fused", y, y_ref, 2e-2)
+            self._close("mamba_scan_fused", h, h_ref, 1e-4)
+            return (f"xin {tuple(args[0].shape)} {args[0].dtype} with h0: "
+                    f"kernel within 2e-2 (y) and 1e-4 (h_S) of the plain "
+                    f"version")
 
         # One layer's served decode inputs past the prompt (B=1, S=1).
         served = [0]
 
-        def want(A, Bx, C, h0=None, **kw):
-            if A.shape[:2] != (1, 1):
+        def want(xin, *a, **kw):
+            if xin.shape[:2] != (1, 1):
                 return False
             served[0] += 1
             return served[0] > 64 * SSM_PROMPT
 
+        # A decode call runs the fused kernel once a layer and the literal
+        # one never; the prefill forward ("materialized", the config's
+        # ssm_impl) runs the literal kernel once a layer.
         self.launches["serve_ssm"] = self._serve_arch(
             "falcon-mamba-7b", prompt_len=SSM_PROMPT, new=NEW,
             static_requests=SSM_STATIC_REQUESTS,
-            cont_requests=SSM_CONT_REQUESTS, kmod=MS, kfn="mamba_scan_cuda",
-            kname="mamba_scan", want=want, check=check)
+            cont_requests=SSM_CONT_REQUESTS, kmod=MS,
+            kfn="mamba_scan_fused_cuda", kname="mamba_scan_fused", want=want,
+            check=check,
+            kernels={"mamba_scan_fused": (MS, 64), "mamba_scan": (MS, 0)},
+            prefill={"mamba_scan": (MS, 64)})
 
     def serve_hybrid(self):
         from repro_torch.configs.base import RGLRU
@@ -1194,17 +1461,21 @@ class Smoke:
             raise AssertionError(f"recurrentgemma-2b: {n_rec} RG-LRU layers "
                                  f"of {len(schedule)}")
 
-        def check(scan, a, b, **kw):
-            self._close("rglru_scan", scan(a, b, **kw),
-                        ref.lru_scan_ref(a, b, kw["h0"]), 1e-5)
-            return (f"a {tuple(a.shape)} with h0: kernel within 1e-5 of the "
-                    f"plain version")
+        def check(scan, *args, **kw):
+            y, h = scan(*args, **kw)
+            y_ref, h_ref = ref.rglru_scan_gated_ref(*args, kw["h0"],
+                                                    return_state=True)
+            self._close("rglru_scan_gated", y, y_ref, 2e-2)
+            self._close("rglru_scan_gated", h, h_ref, 1e-5)
+            return (f"xr {tuple(args[5].shape)} {args[5].dtype} with h0: "
+                    f"kernel within 2e-2 (y) and 1e-5 (h_S) of the plain "
+                    f"version")
 
         # One layer's served decode inputs past the prompt (B=1, S=1).
         served = [0]
 
-        def want(a, b, h0=None):
-            if a.shape[:2] != (1, 1):
+        def want(r_pre, *a, **kw):
+            if r_pre.shape[:2] != (1, 1):
                 return False
             served[0] += 1
             return served[0] > n_rec * PROMPT
@@ -1212,9 +1483,11 @@ class Smoke:
         self.launches["serve_hybrid"] = self._serve_arch(
             "recurrentgemma-2b", prompt_len=PROMPT, new=NEW,
             static_requests=STATIC_REQUESTS, cont_requests=CONT_REQUESTS,
-            kmod=LRU, kfn="rglru_scan_cuda", kname="rglru_scan", want=want,
-            check=check, kernels={"rglru_scan": (LRU, RG_REC),
-                                  "flash_attention": (FA, RG_LOC)})
+            kmod=LRU, kfn="rglru_scan_gated_cuda", kname="rglru_scan_gated",
+            want=want, check=check,
+            kernels={"rglru_scan_gated": (LRU, RG_REC),
+                     "rglru_scan": (LRU, 0),
+                     "flash_attention": (FA, RG_LOC)})
         self._ring_wrap()
 
     def _ring_wrap(self):
@@ -1250,12 +1523,13 @@ class Smoke:
                                              {"tokens": prompt[:, i:i + 1]})
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            counts = {"rglru_scan": LRU.LAUNCHES["rglru_scan"],
+            counts = {"rglru_scan_gated": LRU.LAUNCHES["rglru_scan_gated"],
+                      "rglru_scan": LRU.LAUNCHES["rglru_scan"],
                       "flash_attention": FA.LAUNCHES["flash_attention"]}
             pre = model.prefill_logits(params, {"tokens": prompt})
         rings = [st.k.shape[1] for st in state.layers if hasattr(st, "k")]
-        want = {"rglru_scan": (WRAP_LAYERS - n_att) * WRAP_PROMPT,
-                "flash_attention": n_att * WRAP_PROMPT}
+        want = {"rglru_scan_gated": (WRAP_LAYERS - n_att) * WRAP_PROMPT,
+                "rglru_scan": 0, "flash_attention": n_att * WRAP_PROMPT}
         if rings != [RG_WINDOW] * n_att or counts != want:
             raise AssertionError(f"ring wrap: rings {rings}, launches "
                                  f"{counts} (want {want})")
@@ -1287,7 +1561,9 @@ class Smoke:
                     "reassemble_tokens": "reassemble_tokens/main",
                     "flash_attention": "flash_attention/decode",
                     "mamba_scan": "mamba_scan/decode",
-                    "rglru_scan": "rglru_scan/decode"}
+                    "rglru_scan": "rglru_scan/decode",
+                    "mamba_scan_fused": "mamba_scan_fused/decode",
+                    "rglru_scan_gated": "rglru_scan_gated/decode"}
         out = []
         for name, key in main_key.items():
             r = self.timing[key]
@@ -1298,6 +1574,7 @@ class Smoke:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r.get("bound_by", "bytes"),
                 "library_ms": r["library_ms"],
+                **({"fuses": FUSES[name]} if name in FUSES else {}),
             })
         return {"kernels": out}
 

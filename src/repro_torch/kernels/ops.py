@@ -1,5 +1,6 @@
 """Public entry points for on-device batch reassembly, attention, the
-selective scan and the RG-LRU recurrence.
+selective scan and the RG-LRU recurrence (each literal, as the reference's
+Pallas function, and fused with the layer's elementwise work around it).
 
 Dispatch is by the device of the tensors: CUDA tensors go to the
 hand-written kernels in ``kernels/reassemble.py``,
@@ -33,6 +34,13 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"kernel inputs on unsupported or mixed devices: "
                      f"{sorted(kinds)}")
+
+
+def _forward_only(ins, msg: str) -> None:
+    """Raise ``msg`` where autograd would need a gradient through a
+    forward-only kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        raise NotImplementedError(msg)
 
 
 def _index(idx, device: torch.device, upper: int | None = None) -> torch.Tensor:
@@ -85,8 +93,7 @@ def mamba_scan(
     it; the plain version on CPU tensors is differentiable."""
     ins = (Abar, Bx, C) if h0 is None else (Abar, Bx, C, h0)
     if _on_cuda(*ins):
-        if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-            raise NotImplementedError(MS.FORWARD_ONLY)
+        _forward_only(ins, MS.FORWARD_ONLY)
         y, h = MS.mamba_scan_cuda(Abar, Bx, C, h0=h0,
                                   return_state=return_state)
     else:
@@ -108,10 +115,75 @@ def rglru_scan(
     it; the plain version on CPU tensors is differentiable."""
     ins = (a, b) if h0 is None else (a, b, h0)
     if _on_cuda(*ins):
-        if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-            raise NotImplementedError(LRU.FORWARD_ONLY)
+        _forward_only(ins, LRU.FORWARD_ONLY)
         return LRU.rglru_scan_cuda(a, b, h0=h0)
     return ref.lru_scan_ref(a, b, h0)
+
+
+def mamba_scan_fused(
+    xin: torch.Tensor,                    # (B, S, D) compute dtype
+    dt_pre: torch.Tensor,                 # (B, S, D) compute dtype
+    dt_bias: torch.Tensor,                # (D,) fp32
+    A_log: torch.Tensor,                  # (D, N) fp32
+    proj: torch.Tensor,                   # (B, S, r+2N) compute dtype
+    Dskip: torch.Tensor,                  # (D,) fp32
+    z: torch.Tensor,                      # (B, S, D) compute dtype
+    *,
+    h0: Optional[torch.Tensor] = None,    # (B, D, N) fp32
+    return_state: bool = False,
+):
+    """A Mamba-1 layer from the conv output to the gated output, ``y``
+    (B, S, D) in the compute dtype, or ``(y, h_S)`` with ``return_state``:
+    ``dt = softplus(dt_pre + dt_bias)``, ``Abar = exp(dt A)``, ``Bx = dt Bc
+    xin``, the selective scan read out with ``Cc``, then ``(y + D xin) *
+    silu(z)``; ``Bc``/``Cc`` are the last 2N columns of ``proj``. The
+    reference's ``_fused_chunk_scan`` plus its skip and gate. Views (``z``
+    of ``xz``, ``proj``'s columns) are read through their strides. The CUDA
+    kernel is forward-only, as ``mamba_scan``."""
+    ins = [xin, dt_pre, dt_bias, A_log, proj, Dskip, z]
+    if h0 is not None:
+        ins.append(h0)
+    if _on_cuda(*ins):
+        _forward_only(ins, MS.FORWARD_ONLY)
+        y, h = MS.mamba_scan_fused_cuda(xin, dt_pre, dt_bias, A_log, proj,
+                                        Dskip, z, h0=h0,
+                                        return_state=return_state)
+    else:
+        y, h = ref.mamba_scan_fused_ref(xin, dt_pre, dt_bias, A_log, proj,
+                                        Dskip, z, h0, return_state=True)
+    return (y, h) if return_state else y
+
+
+def rglru_scan_gated(
+    r_pre: torch.Tensor,                  # (B, S, W) fp32
+    i_pre: torch.Tensor,                  # (B, S, W) fp32
+    b_r: torch.Tensor,                    # (W,) fp32
+    b_i: torch.Tensor,                    # (W,) fp32
+    lam: torch.Tensor,                    # (W,) fp32
+    xr: torch.Tensor,                     # (B, S, W) compute dtype
+    gate: torch.Tensor,                   # (B, S, W) compute dtype
+    *,
+    h0: Optional[torch.Tensor] = None,    # (B, W) fp32
+    return_state: bool = False,
+):
+    """An RG-LRU layer from the two gate products to the gated output:
+    ``y = h.to(dtype) * gate`` (B, S, W), or ``(y, h_S)`` with
+    ``return_state``, where ``h`` is the recurrence with ``a = exp(-8
+    softplus(lam) sigmoid(r_pre + b_r))`` and input ``sqrt(1 - a^2)
+    sigmoid(i_pre + b_i) xr``. ``xr`` and ``gate`` are read through their
+    strides. The CUDA kernel is forward-only, as ``rglru_scan``."""
+    ins = [r_pre, i_pre, b_r, b_i, lam, xr, gate]
+    if h0 is not None:
+        ins.append(h0)
+    if _on_cuda(*ins):
+        _forward_only(ins, LRU.FORWARD_ONLY)
+        y, h = LRU.rglru_scan_gated_cuda(r_pre, i_pre, b_r, b_i, lam, xr,
+                                         gate, h0=h0,
+                                         return_state=return_state)
+    else:
+        y, h = ref.rglru_scan_gated_ref(r_pre, i_pre, b_r, b_i, lam, xr,
+                                        gate, h0, return_state=True)
+    return (y, h) if return_state else y
 
 
 def reassemble(src: torch.Tensor, idx) -> torch.Tensor:

@@ -78,9 +78,12 @@ def build(*sources: Path, verbose: bool = False) -> List[Path]:
     paths in the order of ``sources``."""
     sources = tuple(sources) or tuple(sorted(CSRC.glob("*.cu")))
     outs = [_library_path(s) for s in sources]
+    # A source is stale when it or a shared header is newer than its library.
+    headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")), default=0.0)
     jobs = []
     for src, out in zip(sources, outs):
-        if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+        if out.exists() and out.stat().st_mtime >= max(src.stat().st_mtime,
+                                                       headers):
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

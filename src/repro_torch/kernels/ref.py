@@ -7,6 +7,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.0e38
 
@@ -135,6 +136,76 @@ def lru_scan_ref(
         h = a[:, t] * h + b[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1) if hs else a.new_zeros((B, 0, W))
+
+
+def mamba_scan_fused_ref(
+    xin: torch.Tensor,                    # (B, S, D) compute dtype
+    dt_pre: torch.Tensor,                 # (B, S, D) compute dtype
+    dt_bias: torch.Tensor,                # (D,) fp32
+    A_log: torch.Tensor,                  # (D, N) fp32
+    proj: torch.Tensor,                   # (B, S, r+2N) compute dtype
+    Dskip: torch.Tensor,                  # (D,) fp32
+    z: torch.Tensor,                      # (B, S, D) compute dtype
+    h0: Optional[torch.Tensor] = None,    # (B, D, N) fp32
+    *,
+    return_state: bool = False,
+):
+    """A Mamba-1 layer's discretization, selective scan and output
+    epilogue: ``(ssm_scan(Abar, Bx, Cc) + D * xin) * silu(z)`` in the
+    compute dtype of ``xin``, with torch's rounding at every op. Returns
+    ``y`` (B, S, D), or ``(y, h_S)`` with the fp32 state after the last
+    step. ``Bc``, ``Cc`` are the last 2N columns of the ``x_proj`` output
+    ``proj``; ``dt`` goes through softplus in the compute dtype, then to
+    fp32."""
+    dtype = xin.dtype
+    n = A_log.shape[1]
+    r = proj.shape[-1] - 2 * n
+    Bc, Cc = proj[..., r:r + n], proj[..., r + n:]
+    dt = F.softplus(dt_pre + dt_bias.to(dtype)).float()     # (B, S, D)
+    A = -torch.exp(A_log.float())                           # (D, N)
+    Abar = torch.exp(dt[..., None] * A)
+    Bx = dt[..., None] * Bc[..., None, :].float() * xin[..., None].float()
+    y, h = ssm_scan_ref(Abar, Bx, Cc.float(), h0, return_state=True)
+    y = y.to(dtype)
+    y = y + Dskip.to(dtype) * xin
+    y = y * F.silu(z)
+    return (y, h) if return_state else y
+
+
+RGLRU_C = 8.0
+
+
+def rglru_scan_gated_ref(
+    r_pre: torch.Tensor,                  # (B, S, W) fp32
+    i_pre: torch.Tensor,                  # (B, S, W) fp32
+    b_r: torch.Tensor,                    # (W,) fp32
+    b_i: torch.Tensor,                    # (W,) fp32
+    lam: torch.Tensor,                    # (W,) fp32
+    xr: torch.Tensor,                     # (B, S, W) compute dtype
+    gate: torch.Tensor,                   # (B, S, W) compute dtype
+    h0: Optional[torch.Tensor] = None,    # (B, W) fp32
+    *,
+    return_state: bool = False,
+):
+    """An RG-LRU layer's gates, recurrence and output product: ``r =
+    sigmoid(r_pre + b_r)``, ``i = sigmoid(i_pre + b_i)``, ``a =
+    exp(-8 softplus(lam) r)``, ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) i_t
+    xr_t`` in fp32, ``y = h.to(dtype) * gate``. Returns ``y`` (B, S, W),
+    or ``(y, h_S)`` with the fp32 state after the last step."""
+    xf = xr.float()
+    r = torch.sigmoid(r_pre + b_r)
+    i = torch.sigmoid(i_pre + b_i)
+    log_a = -RGLRU_C * F.softplus(lam) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    h = lru_scan_ref(a, beta * i * xf, h0)
+    y = h.to(xr.dtype) * gate
+    if not return_state:
+        return y
+    if h.shape[1]:
+        return y, h[:, -1]
+    return y, (h0 if h0 is not None else
+               xr.new_zeros((xr.shape[0], xr.shape[2]), dtype=torch.float32))
 
 
 def reassemble_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

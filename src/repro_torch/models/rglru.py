@@ -8,12 +8,14 @@ The port's counterpart of the reference's ``models/rglru.py``. Block: x ->
     a_t = exp(-c * softplus(lam) * r_t)                          (c = 8)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t).
 
-The recurrence runs through ``ops.rglru_scan``: the CUDA kernel on the
-card, the plain loop of ``kernels/ref.py`` on the CPU. The prefill forward
-runs it once over the whole sequence (the reference runs an associative
-scan there: the same function, summed in another order); each decode step
-runs it with S = 1 from the carried state. The kernel is forward-only:
-training through it raises on the card.
+The two gate products stay fp32 GEMMs. The gates, the recurrence and the
+output product ``h.to(dtype) * gate`` run through ``ops.rglru_scan_gated``:
+one CUDA kernel launch a layer on the card, the plain version of
+``kernels/ref.py`` on the CPU. The prefill forward runs it once over the
+whole sequence (the reference runs an associative scan there: the same
+function, summed in another order); each decode step runs it with S = 1
+from the carried state. The kernel is forward-only: training through it
+raises on the card.
 
 Cast points follow the reference, since bf16 parity depends on them: the
 branch inputs and the conv output are in the compute dtype, the gates and
@@ -27,7 +29,6 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import causal_conv, fan_in_init, gelu
@@ -61,27 +62,24 @@ def rglru_init(gen: torch.Generator, d: int, w: int, conv_width: int, dtype,
     }
 
 
-def _gates(params: dict, xr: torch.Tensor
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(a, gated input) in fp32, contiguous; ``xr`` is the conv output
-    (..., w)."""
+def _recurrence(params: dict, xr: torch.Tensor, gate: torch.Tensor,
+                h0=None):
+    """The gate products stay fp32 GEMMs; the gates, the recurrence and
+    ``h.to(dtype) * gate`` are one ``ops.rglru_scan_gated`` call over
+    (B, S, w) inputs. Returns ``(y, h_S)``."""
     xf = xr.float()
-    r = torch.sigmoid(xf @ params["w_r"].float() + params["b_r"].float())
-    i = torch.sigmoid(xf @ params["w_i"].float() + params["b_i"].float())
-    log_a = -_C * F.softplus(params["lam"].float()) * r
-    a = torch.exp(log_a)
-    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    return a.contiguous(), (beta * i * xf).contiguous()
+    return ops.rglru_scan_gated(
+        xf @ params["w_r"].float(), xf @ params["w_i"].float(),
+        params["b_r"].float(), params["b_i"].float(), params["lam"].float(),
+        xr, gate, h0=h0, return_state=True)
 
 
 def rglru_apply(params: dict, x: torch.Tensor, *, dtype) -> torch.Tensor:
     """Train/prefill forward: x (B, S, d) -> (B, S, d)."""
     xr = x @ params["wx"].to(dtype)
     xr = causal_conv(xr, params["conv_w"].to(dtype), params["conv_b"].to(dtype))
-    a, bx = _gates(params, xr)
-    h = ops.rglru_scan(a, bx)
     gate = gelu(x @ params["wy"].to(dtype))
-    y = h.to(dtype) * gate
+    y, _ = _recurrence(params, xr, gate)
     return y @ params["wo"].to(dtype)
 
 
@@ -102,9 +100,7 @@ def rglru_decode(params: dict, x: torch.Tensor, state: RGLRUState, *, dtype
     win = torch.cat([state.conv, xr[:, None]], dim=1)         # (B, cw, w)
     xr_c = (torch.einsum("bcw,cw->bw", win, params["conv_w"].to(dtype))
             + params["conv_b"].to(dtype))
-    a, bx = _gates(params, xr_c)
-    h = ops.rglru_scan(a[:, None], bx[:, None], h0=state.h)[:, 0]
     gate = gelu(x[:, 0] @ params["wy"].to(dtype))
-    y = h.to(dtype) * gate
-    out = (y @ params["wo"].to(dtype))[:, None]
+    y, h = _recurrence(params, xr_c[:, None], gate[:, None], h0=state.h)
+    out = y @ params["wo"].to(dtype)                          # (B, 1, d)
     return out, RGLRUState(h=h, conv=win[:, 1:])

@@ -1,19 +1,21 @@
 """Mamba-1 selective SSM block (falcon-mamba-7b, arXiv:2410.05355).
 
-The port's counterpart of the reference's ``models/ssm.py``. Both
-``ssm_impl`` values compute the same ``y`` through ``ops.mamba_scan``: the
-CUDA kernel on the card, the plain loop of ``kernels/ref.py`` on the CPU.
-The reference's two XLA paths differ in what they keep in memory
-("materialized" builds every ``h`` (B, S, d_inner, n); "fused" discretizes
-and reads out chunk by chunk); the kernel never writes ``h`` at all, so the
-difference has no counterpart here. The prefill forward runs one scan over
-the whole prompt; each decode step runs it with S = 1 from the carried
-state. The kernel is forward-only: training through it raises on the card.
+The port's counterpart of the reference's ``models/ssm.py``, with its two
+``ssm_impl`` values. "materialized" builds ``Abar`` and ``Bx`` (B, S,
+d_inner, n) in device memory and runs the literal selective scan
+(``ops.mamba_scan``, the counterpart of ``mamba_scan_pallas``), then the
+skip and gate epilogue as separate ops. "fused", like the reference's
+``_fused_chunk_scan``, discretizes inside the scan: ``ops.mamba_scan_fused``
+takes the conv output, the ``dt_proj`` product and the ``x_proj`` output
+and returns the layer's gated output in one kernel launch on the card
+(the plain version of ``kernels/ref.py`` on the CPU). Every decode step
+runs the fused entry with S = 1 from the carried state. The kernels are
+forward-only: training through them raises on the card.
 
 Cast points follow the reference, since bf16 parity depends on them: ``dt``
 goes through softplus in the compute dtype and then to fp32; ``Bc``, ``Cc``
 and the conv output ``xin`` are cast to fp32 where the scan's inputs are
-built.
+built; the scan's output is rounded to the compute dtype before the skip.
 
 Decode keeps O(1) state per token: the conv tail (B, cw-1, d_inner) in the
 compute dtype and the SSM state (B, d_inner, n) in fp32.
@@ -61,35 +63,62 @@ def mamba_init(gen: torch.Generator, d: int, d_inner: int, state: int,
     }
 
 
-def _discretize(params: dict, xin: torch.Tensor, dtype):
-    """From the conv output ``xin`` (..., di): the scan's inputs ``Abar``,
-    ``Bx`` (..., di, n) and ``Cc`` (..., n), fp32 and contiguous."""
+def _projections(params: dict, xin: torch.Tensor, dtype):
+    """From the conv output ``xin`` (..., di): the ``x_proj`` output
+    ``proj`` (..., r+2n), whose last 2n columns are ``Bc`` and ``Cc``, and
+    the ``dt_proj`` product ``dt_pre`` (..., di) before its bias."""
     n = params["A_log"].shape[1]
     r = params["dt_proj"].shape[0]
     proj = xin @ params["x_proj"].to(dtype)                 # (..., r+2n)
-    dt_in, Bc, Cc = torch.split(proj, [r, n, n], dim=-1)
-    dt = F.softplus(dt_in @ params["dt_proj"].to(dtype)
-                    + params["dt_bias"].to(dtype)).float()  # (..., di)
-    A = -torch.exp(params["A_log"].float())                 # (di, n)
+    dt_in = torch.split(proj, [r, n, n], dim=-1)[0]
+    return proj, dt_in @ params["dt_proj"].to(dtype)
+
+
+def discretize(dt_pre: torch.Tensor, dt_bias: torch.Tensor,
+               A_log: torch.Tensor, proj: torch.Tensor, xin: torch.Tensor):
+    """The literal scan's inputs ``Abar``, ``Bx`` (..., di, n) and ``Cc``
+    (..., n), fp32 and contiguous, from the ``dt_proj`` product before its
+    bias, the ``x_proj`` output (``Bc``, ``Cc`` its last 2n columns) and
+    the conv output ``xin``."""
+    dtype = xin.dtype
+    n = A_log.shape[1]
+    r = proj.shape[-1] - 2 * n
+    Bc, Cc = proj[..., r:r + n], proj[..., r + n:]
+    dt = F.softplus(dt_pre + dt_bias.to(dtype)).float()     # (..., di)
+    A = -torch.exp(A_log.float())                           # (di, n)
     Abar = torch.exp(dt[..., None] * A)
     Bx = dt[..., None] * Bc[..., None, :].float() * xin[..., None].float()
     return Abar, Bx, Cc.float().contiguous()
 
 
+def _fused_scan(params: dict, xin, z, dtype, h0=None):
+    """Discretization, scan and epilogue in one ``ops.mamba_scan_fused``
+    call over (B, S, di) inputs; returns ``(y, h_S)``."""
+    proj, dt_pre = _projections(params, xin, dtype)
+    return ops.mamba_scan_fused(
+        xin, dt_pre, params["dt_bias"].float(), params["A_log"].float(), proj,
+        params["D"].float(), z, h0=h0, return_state=True)
+
+
 def mamba_apply(params: dict, x: torch.Tensor, *, dtype,
                 impl: str = "materialized") -> torch.Tensor:
     """Train/prefill forward over (B, S, d). The reference's ``ssm_chunk``
-    has no counterpart: the kernel walks the whole sequence."""
+    has no counterpart: the kernels walk the whole sequence."""
     if impl not in IMPLS:
         raise ValueError(f"unknown ssm_impl {impl!r} (expected one of {IMPLS})")
     xz = x @ params["in_proj"].to(dtype)                    # (B, S, 2di)
     xin, z = xz.chunk(2, dim=-1)
     xin = F.silu(causal_conv(xin, params["conv_w"].to(dtype),
                              params["conv_b"].to(dtype)))
-    Abar, Bx, Cc = _discretize(params, xin, dtype)
-    y = ops.mamba_scan(Abar, Bx, Cc).to(dtype)
-    y = y + params["D"].to(dtype) * xin
-    y = y * F.silu(z)
+    if impl == "fused":
+        y, _ = _fused_scan(params, xin, z, dtype)
+    else:
+        proj, dt_pre = _projections(params, xin, dtype)
+        Abar, Bx, Cc = discretize(dt_pre, params["dt_bias"],
+                                  params["A_log"], proj, xin)
+        y = ops.mamba_scan(Abar, Bx, Cc).to(dtype)
+        y = y + params["D"].to(dtype) * xin
+        y = y * F.silu(z)
     return y @ params["out_proj"].to(dtype)
 
 
@@ -114,11 +143,7 @@ def mamba_decode(params: dict, x: torch.Tensor, state: MambaState, *, dtype
     w = params["conv_w"].to(dtype)                          # (cw, di)
     xin_c = F.silu(torch.einsum("bci,ci->bi", win, w)
                    + params["conv_b"].to(dtype))
-    Abar, Bx, Cc = _discretize(params, xin_c, dtype)        # (B, di, n)
-    y, h = ops.mamba_scan(Abar[:, None], Bx[:, None], Cc[:, None],
-                          h0=state.h, return_state=True)
-    y = y[:, 0].to(dtype)
-    y = y + params["D"].to(dtype) * xin_c
-    y = y * F.silu(z)
-    out = (y @ params["out_proj"].to(dtype))[:, None, :]
+    y, h = _fused_scan(params, xin_c[:, None], z[:, None], dtype,
+                       h0=state.h)
+    out = y @ params["out_proj"].to(dtype)                  # (B, 1, d)
     return out, MambaState(h=h, conv=win[:, 1:])

@@ -10,18 +10,24 @@ summation order) and 2e-2 in bfloat16 (outputs rounded to bf16); the
 selective scan to ``ssm_scan_ref`` at 1e-4, the tolerance of the
 reference's own sweep (fp32, another summation order, FMA); the RG-LRU
 recurrence to ``lru_scan_ref`` at 1e-5, that of its sweep (one FMA against
-a product and a sum).
+a product and a sum, and a chunked carry). The fused entries are held to
+their plain versions at the same fp32 tolerances (``y`` and the final
+state) and, in bfloat16, ``y`` at 2e-2 (one bf16 step of the output); the
+bf16 softplus and silu inside the Mamba kernel are held bit for bit to
+torch's over all 65,536 inputs.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reassemble as K  # noqa: E402
 from repro_torch.kernels import rglru_scan as LRU  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 
 
 @pytest.fixture
@@ -323,7 +329,7 @@ def test_cuda_mamba_scan_counts_launches_and_is_deterministic(cuda):
     a = ops.mamba_scan(A, Bx, C)
     b, h = ops.mamba_scan(A, Bx, C, h0=h0, return_state=True)
     c, h2 = ops.mamba_scan(A, Bx, C, h0=h0, return_state=True)
-    assert MS.LAUNCHES == {"mamba_scan": 3}
+    assert MS.LAUNCHES == {"mamba_scan": 3, "mamba_scan_fused": 0}
     assert torch.equal(b, c) and torch.equal(h, h2)
     assert a.shape == (2, 9, 64) and h.shape == (2, 64, 16)
 
@@ -383,7 +389,7 @@ def test_cuda_rglru_scan_counts_launches_and_is_deterministic(cuda):
     x = ops.rglru_scan(a, b)
     y = ops.rglru_scan(a, b, h0=h0)
     z = ops.rglru_scan(a, b, h0=h0)
-    assert LRU.LAUNCHES == {"rglru_scan": 3}
+    assert LRU.LAUNCHES == {"rglru_scan": 3, "rglru_scan_gated": 0}
     assert torch.equal(y, z) and x.shape == (2, 9, 300)
     # A decode step is the scan with S = 1: one FMA from h0.
     one = ops.rglru_scan(a[:, :1].contiguous(), b[:, :1].contiguous(), h0=h0)
@@ -427,3 +433,244 @@ def test_cuda_flash_attention_over_a_wrapped_ring(cuda, dtype, tol):
         vc[:, order].transpose(1, 2), causal=True, window=C).transpose(1, 2)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# -- the fused entries -----------------------------------------------------------
+FUSED_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+FUSED_CASES = [   # (B, S, D, N, r)
+    (2, 37, 100, 16, 3),       # ragged D, proj rows not 16-byte aligned
+    (1, 1, 8192, 16, 256),     # falcon-mamba decode (proj row 288 values)
+    (1, 64, 8192, 16, 256),    # a 64-token prefill
+    (3, 70, 33, 4, 5), (2, 9, 40, 32, 7), (2, 5, 64, 1, 0),
+    # 16-byte runs with a last tile cut short: N = 8, 16 and 32
+    (2, 72, 128, 8, 8), (2, 45, 256, 16, 256), (1, 100, 64, 32, 16),
+]
+
+
+def _fused_inputs(B, S, D, N, r, dtype, device, seed=0, channel_major=False):
+    """xin (channel-major when asked, the conv's layout), z a view of an
+    (B, S, 2D) product, proj rows of r + 2N values; fp32 parameters."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    xin = (f(B, D, S).transpose(1, 2) if channel_major else f(B, S, D))
+    t = {"xin": xin.to(dtype), "dt_pre": (f(B, S, D) * 0.5).to(dtype),
+         "dt_bias": np.log(np.expm1(1e-2)) + f(D) * 0.1,
+         "A_log": torch.log(torch.arange(1, N + 1, device=device,
+                                         dtype=torch.float32)).repeat(D, 1)
+         + f(D, N) * 0.1,
+         "proj": f(B, S, r + 2 * N).to(dtype), "Dskip": 1.0 + f(D) * 0.1,
+         "z": f(B, S, 2 * D).to(dtype)[..., D:], "h0": f(B, D, N) * 0.5}
+    return t
+
+
+def _fargs(t):
+    return (t["xin"], t["dt_pre"], t["dt_bias"], t["A_log"], t["proj"],
+            t["Dskip"], t["z"])
+
+
+def _within(got, want, tol):
+    """|got - want| <= tol + tol * |want| in fp32 (chip_smoke's rule)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    assert bool(((g - w).abs() <= tol + tol * w.abs()).all()), (
+        (g - w).abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FUSED_DTYPES)
+@pytest.mark.parametrize("B,S,D,N,r", FUSED_CASES)
+def test_cuda_mamba_scan_fused_matches_plain(cuda, B, S, D, N, r, dtype, tol):
+    for channel_major in (False, True):
+        t = _fused_inputs(B, S, D, N, r, dtype, cuda, seed=S + D,
+                          channel_major=channel_major)
+        y, h = MS.mamba_scan_fused_cuda(*_fargs(t), return_state=True)
+        y_ref, h_ref = ref.mamba_scan_fused_ref(*_fargs(t), return_state=True)
+        _within(y, y_ref, tol)
+        _within(h, h_ref, 1e-4)
+        y, h = MS.mamba_scan_fused_cuda(*_fargs(t), h0=t["h0"],
+                                        return_state=True)
+        y_ref, h_ref = ref.mamba_scan_fused_ref(*_fargs(t), t["h0"],
+                                                return_state=True)
+        torch.cuda.synchronize()
+        _within(y, y_ref, tol)
+        _within(h, h_ref, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D,N,r", [(2, 72, 128, 8, 8), (1, 64, 8192, 16, 256),
+                                       (2, 96, 64, 32, 16)])
+def test_cuda_mamba_scan_fused_16_byte_path_gives_the_scalar_bits(
+        cuda, B, S, D, N, r, dtype):
+    # Aligned views take fused_kernel's 16-byte path (cp.async rows of
+    # Bc/Cc, vector loads of dt_pre, z and xin along d or along t); the
+    # same values with proj rows one value longer take the scalar path.
+    for channel_major in (False, True):
+        t = _fused_inputs(B, S, D, N, r, dtype, cuda, seed=7,
+                          channel_major=channel_major)
+        padded = torch.zeros((B, S, r + 2 * N + 1), dtype=dtype, device=cuda)
+        padded[..., :r + 2 * N] = t["proj"]
+        args = list(_fargs(t))
+        y, h = MS.mamba_scan_fused_cuda(*args, h0=t["h0"], return_state=True)
+        args[4] = padded[..., :r + 2 * N]
+        y2, h2 = MS.mamba_scan_fused_cuda(*args, h0=t["h0"],
+                                          return_state=True)
+        assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_decode_rows_are_bitwise_the_same_at_any_batch(cuda, dtype):
+    t = _fused_inputs(4, 1, 8192, 16, 256, dtype, cuda, seed=1)
+    y, h = MS.mamba_scan_fused_cuda(*_fargs(t), h0=t["h0"], return_state=True)
+    y2, h2 = MS.mamba_scan_fused_cuda(*_fargs(t), h0=t["h0"],
+                                      return_state=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    for i in range(4):
+        row = {k: (v[i:i + 1] if v.dim() == 3 and k != "A_log" else v)
+               for k, v in t.items()}
+        yi, hi = MS.mamba_scan_fused_cuda(*_fargs(row), h0=row["h0"],
+                                          return_state=True)
+        assert torch.equal(yi, y[i:i + 1]) and torch.equal(hi, h[i:i + 1])
+    g = _gated_inputs(4, 1, 2560, dtype, cuda, seed=1)
+    y, h = LRU.rglru_scan_gated_cuda(*_gargs(g), h0=g["h0"], return_state=True)
+    y2, h2 = LRU.rglru_scan_gated_cuda(*_gargs(g), h0=g["h0"],
+                                       return_state=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    for i in range(4):
+        row = {k: (v[i:i + 1] if v.dim() > 1 else v) for k, v in g.items()}
+        yi, hi = LRU.rglru_scan_gated_cuda(*_gargs(row), h0=row["h0"],
+                                           return_state=True)
+        assert torch.equal(yi, y[i:i + 1]) and torch.equal(hi, h[i:i + 1])
+
+
+def _gated_inputs(B, S, W, dtype, device, seed=0, channel_major=False):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    xr = f(B, W, S).transpose(1, 2) if channel_major else f(B, S, W)
+    lam = torch.log(torch.expm1(-torch.log(torch.linspace(
+        0.9, 0.999, W, device=device)) / 8.0))
+    return {"r_pre": f(B, S, W), "i_pre": f(B, S, W), "b_r": f(W) * 0.1,
+            "b_i": f(W) * 0.1, "lam": lam, "xr": xr.to(dtype),
+            "gate": f(B, S, W).to(dtype), "h0": f(B, W) * 0.5}
+
+
+def _gargs(g):
+    return (g["r_pre"], g["i_pre"], g["b_r"], g["b_i"], g["lam"], g["xr"],
+            g["gate"])
+
+
+GATED_CASES = [(3, 37, 50), (1, 1, 2560), (1, 2100, 2560), (2, 129, 64),
+               (2, 300, 33)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,W", GATED_CASES)
+def test_cuda_rglru_scan_gated_matches_plain(cuda, B, S, W, dtype, tol):
+    for channel_major in (False, True):
+        g = _gated_inputs(B, S, W, dtype, cuda, seed=S + W,
+                          channel_major=channel_major)
+        for h0 in (None, g["h0"]):
+            y, h = LRU.rglru_scan_gated_cuda(*_gargs(g), h0=h0,
+                                             return_state=True)
+            y_ref, h_ref = ref.rglru_scan_gated_ref(*_gargs(g), h0,
+                                                    return_state=True)
+            torch.cuda.synchronize()
+            _within(y, y_ref, tol)
+            _within(h, h_ref, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [7, 8, 9, 127, 128, 129, 255, 257])
+def test_cuda_rglru_scan_across_chunk_and_segment_edges(cuda, S):
+    a, b, h0 = _lru_inputs(2, S, 96, cuda, seed=S)
+    for init in (None, h0):
+        h = LRU.rglru_scan_cuda(a, b, h0=init)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(h, ref.lru_scan_ref(a, b, init), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_entries_count_one_launch_a_call(cuda):
+    t = _fused_inputs(2, 9, 64, 16, 4, torch.bfloat16, cuda)
+    g = _gated_inputs(2, 9, 64, torch.bfloat16, cuda)
+    MS.reset_launch_counts()
+    LRU.reset_launch_counts()
+    ops.mamba_scan_fused(*_fargs(t))
+    ops.mamba_scan_fused(*_fargs(t), h0=t["h0"], return_state=True)
+    ops.rglru_scan_gated(*_gargs(g), h0=g["h0"])
+    assert MS.LAUNCHES == {"mamba_scan": 0, "mamba_scan_fused": 2}
+    assert LRU.LAUNCHES == {"rglru_scan": 0, "rglru_scan_gated": 1}
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.mamba_scan_fused(t["xin"].requires_grad_(), *_fargs(t)[1:])
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.rglru_scan_gated(g["r_pre"].requires_grad_(), *_gargs(g)[1:])
+    assert MS.LAUNCHES["mamba_scan_fused"] == 2
+    assert LRU.LAUNCHES["rglru_scan_gated"] == 1
+
+
+def _all_bf16(device):
+    return torch.arange(-32768, 32768, dtype=torch.int32, device=device).to(
+        torch.int16).view(torch.bfloat16).reshape(1, 1, -1)
+
+
+def _bits_differ(got, want):
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    return int((~((got == want) | both_nan)).sum())
+
+
+@pytest.mark.gpu
+def test_cuda_fused_softplus_and_silu_round_as_torch_does(cuda):
+    # Every bf16 value as dt_pre with zero bias, Bc = xin = 1, h0 = 0: the
+    # final state of each channel is the kernel's bf16 dt. Then every value
+    # as z with Bc = 0 and D = xin = 1: y is the kernel's bf16 silu(z).
+    v = _all_bf16(cuda)
+    D = v.shape[-1]
+    one = torch.ones_like(v)
+    zero = torch.zeros_like(v)
+    f0 = torch.zeros(D, device=cuda)
+    proj1 = torch.ones((1, 1, 2), dtype=torch.bfloat16, device=cuda)
+    A_log = torch.zeros((D, 1), device=cuda)
+    _, h = MS.mamba_scan_fused_cuda(one, v, f0, A_log, proj1, f0, zero,
+                                    return_state=True)
+    softplus = _bits_differ(h[0, :, 0], F.softplus(v[0, 0]).float())
+    y, _ = MS.mamba_scan_fused_cuda(one, zero, f0, A_log, torch.zeros_like(
+        proj1), torch.ones(D, device=cuda), v)
+    silu = _bits_differ(y[0, 0].float(), F.silu(v[0, 0]).float())
+    print(f"bf16 inputs where the kernel differs from torch: softplus "
+          f"{softplus}, silu {silu}")
+    assert (softplus, silu) == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_decode_steps_give_the_unfused_layers_bits(cuda, dtype):
+    # One decode step of each fused entry against the layer it replaces on
+    # the card (torch ops around the literal kernel), bit for bit: the
+    # fused kernels round where torch rounds, with torch's exp, softplus,
+    # silu, sigmoid and sqrt, and sum in the literal kernels' order.
+    t = _fused_inputs(2, 1, 8192, 16, 256, dtype, cuda, seed=4)
+    y, h = MS.mamba_scan_fused_cuda(*_fargs(t), h0=t["h0"], return_state=True)
+    Abar, Bx, Cc = ssm.discretize(t["dt_pre"], t["dt_bias"], t["A_log"],
+                                  t["proj"], t["xin"])
+    y_ref, h_ref = MS.mamba_scan_cuda(Abar, Bx, Cc, h0=t["h0"],
+                                      return_state=True)
+    y_ref = (y_ref.to(dtype) + t["Dskip"].to(dtype) * t["xin"]) * F.silu(t["z"])
+    assert torch.equal(y, y_ref) and torch.equal(h, h_ref)
+    g = _gated_inputs(2, 1, 2560, dtype, cuda, seed=4)
+    y, h = LRU.rglru_scan_gated_cuda(*_gargs(g), h0=g["h0"], return_state=True)
+    r = torch.sigmoid(g["r_pre"] + g["b_r"])
+    i = torch.sigmoid(g["i_pre"] + g["b_i"])
+    log_a = -8.0 * F.softplus(g["lam"]) * r
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    h_ref = LRU.rglru_scan_cuda(torch.exp(log_a).contiguous(),
+                                (beta * i * g["xr"].float()).contiguous(),
+                                h0=g["h0"])
+    torch.cuda.synchronize()
+    assert torch.equal(h, h_ref[:, -1])
+    assert torch.equal(y, h_ref.to(dtype) * g["gate"])
