@@ -10,9 +10,14 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              nvcc per source, all started together);
 3. kernels   every reassembly kernel against its plain PyTorch version on the
              card, bit-equal, over aligned/unaligned window offsets,
-             remainder windows, 1- and many-chunk tables, block gathers in
-             f32/bf16/int32 (2-D and 3-D, with repeats) and token gathers with
-             pads;
+             remainder windows, 1- and many-chunk tables, tables of 127,
+             128 and 129 chunks (the by-value cap and one past it, which
+             must upload its table), chunk edges inside a 4-token group and
+             inside a warp's span, chunk bases off 16 bytes, every row
+             misalignment, S not a multiple of 4, B = 1; block gathers in
+             f32/bf16/int32 (2-D and 3-D, with repeats); token gathers over
+             random maps and maps of splinter runs, with pads in column 0,
+             column S and at warp and tile edges, and indices that clip;
 4. window    the main path, whole-window device ingest: a uint32 synthetic
              corpus -> ``CkIOPipeline(streaming=False).get_batch_device`` ->
              the microbatched AdamW step of phi4-mini-3.8b at full width
@@ -21,14 +26,17 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              weights from a seed; global batch 8, seq 2048, 4 microbatches,
              4 steps;
 5. streamed  the same with ``streaming=True``; batches must be bit-equal to
-             phase 4's;
+             phase 4's. In both, the window kernel launches once a step and
+             its wrapper uploads no chunk table (the tables go by value);
 6. arrival   ``ops.device_ingest`` over arrival-ordered stagings of the
              corpus's step windows, as a CkIO session delivered them (block
              permutation and token-map layouts): the entry point that reaches
              the block and token gather kernels;
 7. timing    each kernel, its plain version and, where one exists, a single
              PyTorch call for the same function, at the main-path shapes and
-             at a 64 MiB window, beside the bytes bound (3.35 TB/s);
+             at a 64 MiB window (whole, and in 4,098 chunks of 16 KiB; token
+             maps random and arrival-ordered), beside the bytes bound (3.35
+             TB/s) and, for token maps, the 32-byte-sector floor;
 8. attention the flash-attention kernel against its plain version on the
              card (fp32 at 1e-5, bf16 at 2e-2): the six sweep cases of
              tests/test_kernels.py, phi4-mini decode shapes (Sq=1, H=24,
@@ -179,29 +187,33 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def alternate(fns: dict, it: int, pit: int, warm: int) -> dict:
+def alternate(fns: dict, it: int, pit: int, warm: int,
+              spin_cycles: int = 50_000_000) -> dict:
     """Mean device time of each callable, timed in turns (each of
     ``fns``, then the same in reverse) and averaged; ``kernel`` runs
     ``it`` times a turn, the others ``pit``."""
     order = list(fns) + list(fns)[::-1]
     got = {k: [] for k in fns}
     for k in order:
-        got[k].append(time_ms(fns[k], it if k == "kernel" else pit, warm))
+        got[k].append(time_ms(fns[k], it if k == "kernel" else pit, warm,
+                              spin_cycles))
     return {k: sum(v) / len(v) for k, v in got.items()}
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def time_ms(fn, iters: int = 50, warmup: int = 5,
+            spin_cycles: int = 50_000_000) -> float:
     """Mean device time of ``fn()`` over ``iters`` back-to-back calls, from
-    CUDA events around the whole run. A ~25 ms spin kernel queued first lets
-    the host enqueue the calls ahead of the device, so that a call's host
-    cost (Python, ctypes, allocation) is not timed as device time, as long
-    as all ``iters`` calls are enqueued within the spin."""
+    CUDA events around the whole run. A spin kernel queued first (~25 ms at
+    the default ``spin_cycles``) lets the host enqueue the calls ahead of
+    the device, so that a call's host cost (Python, ctypes, allocation) is
+    not timed as device time, as long as all ``iters`` calls are enqueued
+    within the spin."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(spin_cycles)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -210,6 +222,52 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def split_chunks(lin, chunk_tokens: int) -> list:
+    """``lin`` cut every ``chunk_tokens`` tokens into separate allocations,
+    as a window's splinters arrive when it is streamed."""
+    return [c.clone() for c in lin.split(chunk_tokens)]
+
+
+def skewed_chunks(lin, cuts) -> list:
+    """``lin`` cut at ``cuts`` into separate allocations, the odd ones
+    views one token into their buffer, so that their base is off a
+    16-byte boundary."""
+    import torch
+
+    out = []
+    for i, c in enumerate(torch.tensor_split(lin, cuts)):
+        buf = torch.empty(c.numel() + i % 2, dtype=c.dtype, device=c.device)
+        buf[i % 2:] = c
+        out.append(buf[i % 2:])
+    return out
+
+
+def arrival_row_idx(rng, b: int, s: int, splinter_tokens: int):
+    """The token map (``(b, s+1)`` int32) of a window of ``b`` rows of
+    ``s+1`` tokens staged in ``splinter_tokens`` pieces in a shuffled
+    arrival order, from ``data.packing.token_gather_from_pieces`` and
+    ``row_gather_index``: runs of contiguous staged positions."""
+    import numpy as np
+
+    from repro_torch.data.packing import row_gather_index, token_gather_from_pieces
+
+    n = b * (s + 1)
+    pieces = [(4 * o, 4 * min(splinter_tokens, n - o))
+              for o in range(0, n, splinter_tokens)]
+    pieces = [pieces[i] for i in rng.permutation(len(pieces))]
+    g = token_gather_from_pieces(pieces, 0, 4)
+    return np.ascontiguousarray(row_gather_index(g, global_batch=b, seq_len=s))
+
+
+def tokens_sector_floor_bytes(row_idx) -> int:
+    """Bytes a token gather moves when each gathered 4-byte token costs a
+    32-byte sector (a random map): the index rows, one sector per gathered
+    (row, column) entry, the two outputs. A floor for a random map, not
+    the bound (which counts each distinct token once)."""
+    b, s1 = row_idx.shape
+    return 4 * row_idx.numel() + 32 * int((row_idx >= 0).sum()) + 8 * b * (s1 - 1)
 
 
 class Smoke:
@@ -339,6 +397,43 @@ class Smoke:
                 self._same("reassemble", K.reassemble_cuda(src, idx),
                            ref.reassemble_ref(src, idx))
                 n += 1
+        # window edges: tables at the by-value cap (one over it takes the
+        # device table), chunk edges inside a 4-token group and inside a
+        # warp's span with skewed chunk bases, every row misalignment h,
+        # S not a multiple of 4, B = 1, remainders and pads
+        for extra in (-1, 0, 1):
+            nch = K.max_param_chunks() + extra
+            b, s, w0 = 3, 509, 5
+            L = w0 + b * (s + 1) + 2
+            lin = torch.from_numpy(rng.integers(0, 1 << 30, size=L)
+                                   .astype(np.int32)).to(dev)
+            cuts = np.sort(rng.choice(np.arange(1, L), size=nch - 1,
+                                      replace=False)).tolist()
+            K.reset_launch_counts()
+            kw = dict(global_batch=b, seq_len=s, window_tok_off=w0, pad_id=4)
+            chunks = skewed_chunks(lin, cuts)
+            self._same("reassemble_window",
+                       K.reassemble_window_cuda(chunks, **kw),
+                       ref.window_chunks_ref(chunks, **kw))
+            if K.TABLE_UPLOADS != (1 if extra > 0 else 0):
+                raise AssertionError(f"{nch} chunks: {K.TABLE_UPLOADS} "
+                                     f"table uploads")
+            n += 1
+        for h in range(4):
+            for s, b in ((2048, 5), (2051, 3), (127, 1)):
+                w0 = 8 + h
+                L = w0 + b * (s + 1) - s // 2
+                lin = torch.from_numpy(rng.integers(0, 1 << 30, size=L)
+                                       .astype(np.int32)).to(dev)
+                for step in (37, 130, L):
+                    chunks = skewed_chunks(lin, list(range(step, L, step)))
+                    for valid in (None, w0 + (s + 1) + 3):
+                        kw = dict(global_batch=b, seq_len=s, window_tok_off=w0,
+                                  valid_limit=valid, pad_id=9)
+                        self._same("reassemble_window",
+                                   K.reassemble_window_cuda(chunks, **kw),
+                                   ref.window_chunks_ref(chunks, **kw))
+                        n += 1
         # token gather: -1 pads, indices past the buffer clip
         for case in range(12):
             b = int(rng.integers(1, 9))
@@ -352,6 +447,26 @@ class Smoke:
                        K.reassemble_tokens_cuda(staged, row_idx, pad_id=3),
                        ref.tokens_gather_ref(staged, row_idx, pad_id=3))
             n += 1
+        # token maps of splinter runs and random ones, pads in column 0,
+        # column S and at warp (128-column) and tile (1024-column) edges,
+        # indices past L, S not a multiple of 4, B = 1
+        for b, s in ((1, 1), (1, 6), (3, 128), (4, 129), (8, 2048),
+                     (2, 2051)):
+            L = b * (s + 1) + 11
+            staged = torch.from_numpy(rng.integers(0, 200064, size=L)
+                                      .astype(np.int32)).to(dev)
+            for runs in (True, False):
+                row_idx = (arrival_row_idx(rng, b, s, 37) if runs else
+                           rng.integers(0, L, size=(b, s + 1)).astype(np.int32))
+                for col in (0, 127, 128, 1023, 1024, 1025, s):
+                    if col <= s:
+                        row_idx[:, col] = -1
+                row_idx[:, 1::7] += L
+                row_idx = torch.from_numpy(row_idx).to(dev)
+                self._same("reassemble_tokens",
+                           K.reassemble_tokens_cuda(staged, row_idx, pad_id=3),
+                           ref.tokens_gather_ref(staged, row_idx, pad_id=3))
+                n += 1
         torch.cuda.synchronize()
         log(f"{n} kernel cases bit-equal to the plain versions; max abs err "
             f"{json.dumps(self.err)}")
@@ -443,6 +558,7 @@ class Smoke:
             K.reassemble_window_cuda = orig
             pipe.close()
         counts = dict(K.LAUNCHES)
+        uploads = K.TABLE_UPLOADS
         self.launches[mode] = counts
         peak = torch.cuda.max_memory_allocated()
         ingest = pipe.ingest.summary()
@@ -478,6 +594,10 @@ class Smoke:
         if counts["reassemble_window"] < STEPS:
             raise AssertionError(f"{mode}: reassemble_window launched "
                                  f"{counts['reassemble_window']} < {STEPS}")
+        if uploads != 0:
+            raise AssertionError(f"{mode}: the window wrapper uploaded "
+                                 f"{uploads} chunk tables (0 expected: the "
+                                 f"main path's tables go by value)")
         self.batches[mode] = batches
         steady = t_steps[1:] or t_steps
         step_s = sum(steady) / len(steady)
@@ -503,7 +623,8 @@ class Smoke:
         if streaming:
             log(f"streamed: stream {json.dumps(pipe.stream.summary())}")
         log(f"{mode}: max_memory_allocated {peak / 2**30:.2f} GiB")
-        log(f"{mode}: launches {json.dumps(counts)}")
+        log(f"{mode}: launches {json.dumps(counts)}, chunk-table uploads "
+            f"{uploads}")
 
     def streamed(self):
         self.main_path(streaming=True)
@@ -734,6 +855,7 @@ class Smoke:
                 plain=lambda: ref.tokens_gather_ref(staged, row_idx),
                 library=None,
                 nbytes=4 * row_idx.numel() + 4 * n_read + 2 * 4 * b * (s1 - 1),
+                sector_floor_bytes=tokens_sector_floor_bytes(row_idx),
                 shape=f"L={staged.numel()} B={b} S={s1 - 1}")
 
         cases = {}
@@ -751,19 +873,34 @@ class Smoke:
                                .astype(np.int32)).to(dev)
         cases["reassemble_window/64MiB"] = window_case(
             [big], dict(global_batch=bb, seq_len=S))
+        # The same window in 16 KiB splinters (4,098 chunks): past the
+        # by-value cap, the device-table instance. Building its table takes
+        # milliseconds of host time a call, so it is timed behind a longer
+        # spin.
+        cases["reassemble_window/64MiB_16KiB_chunks"] = window_case(
+            split_chunks(big, 4096), dict(global_batch=bb, seq_len=S))
         nb, T = big.numel() // 2049, 2049
         perm = torch.from_numpy(rng.permutation(nb).astype(np.int32)).to(dev)
         cases["reassemble/64MiB"] = block_case(big[:nb * T].reshape(nb, T), perm)
         g = torch.from_numpy(rng.permutation(big.numel()).astype(np.int32)).to(dev)
-        cases["reassemble_tokens/64MiB"] = tokens_case(
+        cases["reassemble_tokens/64MiB_random"] = tokens_case(
             big, g.reshape(bb, S + 1))
+        # The map CkIO hands the kernel: 16 KiB splinters in a shuffled
+        # arrival order (runs of 4,096 contiguous staged tokens).
+        cases["reassemble_tokens/64MiB_arrival"] = tokens_case(
+            big, torch.from_numpy(arrival_row_idx(rng, bb, S, 4096)).to(dev))
         for key, c in cases.items():
-            big_case = key.endswith("64MiB")
-            it = 20 if big_case else 200
+            many = key.endswith("_chunks")
+            it = 10 if many else 20 if "64MiB" in key else 200
             r = {"shape": c["shape"], "bound_ms": bound_ms(c["nbytes"]),
                  "bytes": c["nbytes"]}
+            if "sector_floor_bytes" in c:
+                r["sector_floor_ms"] = bound_ms(c["sector_floor_bytes"])
+            K.reset_launch_counts()
             times = alternate({"kernel": c["kernel"], "plain": c["plain"]},
-                              it, it, 5)
+                              it, it, 5,
+                              800_000_000 if many else 50_000_000)
+            r["table_uploads_per_call"] = K.TABLE_UPLOADS / (2 * it + 10)
             r["ms"], r["plain_ms"] = times["kernel"], times["plain"]
             r["library_ms"] = (time_ms(c["library"], it) if c["library"]
                                else None)

@@ -9,7 +9,10 @@ The builder here serves every kernel module of the package
 (``kernels/flash_attention.py`` too). Each wrapper checks device, dtype,
 shape and contiguity, allocates the outputs with ``torch.empty``, launches
 on the current stream, raises if the launcher reports a CUDA error, and
-adds one to its entry in :data:`LAUNCHES`.
+adds one to its entry in :data:`LAUNCHES`. The window wrapper passes a
+chunk table of up to :func:`max_param_chunks` entries by value and
+uploads a longer one (:func:`window_table` decides; :data:`TABLE_UPLOADS`
+counts the uploads).
 
 What each kernel replaces, what bounds it and how its design meets the
 bound is noted at the top of the CUDA source. The plain PyTorch versions
@@ -19,13 +22,15 @@ between the two by the device of the tensors it is given.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -44,9 +49,22 @@ _lock = threading.Lock()
 _libs: Dict[Path, ctypes.CDLL] = {}
 
 
+# Chunk tables the window wrapper uploaded (tables too long to pass by
+# value); the main path's tables make none.
+TABLE_UPLOADS = 0
+
+
+class WindowTable(NamedTuple):
+    by_value: bool           # in the launch's parameters, or uploaded
+    table: np.ndarray        # int64: the pointers, then the prefix offsets
+    total: int               # tokens in the chunks
+
+
 def reset_launch_counts() -> None:
+    global TABLE_UPLOADS
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    TABLE_UPLOADS = 0
 
 
 def build_dir() -> Path:
@@ -120,11 +138,12 @@ def load_library(source: Path, bind: Callable[[ctypes.CDLL], None]
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ckio_reassemble_window.argtypes = [P, P, I, L, P, P, I, I, L, I, P]
+    lib.ckio_reassemble_window.argtypes = [P, I, I, L, P, P, I, I, L, I, P]
     lib.ckio_reassemble.argtypes = [P, P, P, L, L, I, P]
     lib.ckio_reassemble_tokens.argtypes = [P, L, P, P, P, L, I, I, P]
+    lib.ckio_window_param_chunks.argtypes = []
     for fn in (lib.ckio_reassemble_window, lib.ckio_reassemble,
-               lib.ckio_reassemble_tokens):
+               lib.ckio_reassemble_tokens, lib.ckio_window_param_chunks):
         fn.restype = ctypes.c_int
 
 
@@ -152,6 +171,31 @@ def _require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+@functools.cache
+def max_param_chunks() -> int:
+    """The longest chunk table the window kernel takes by value
+    (``kMaxParamChunks``, read from the built library)."""
+    return _library().ckio_window_param_chunks()
+
+
+def window_table(ptrs: Sequence[int], sizes: Sequence[int], cap: int
+                 ) -> WindowTable:
+    """Where a window kernel's chunk table goes, and its bytes.
+
+    ``ptrs`` are the chunks' device addresses and ``sizes`` their token
+    counts, in file order. ``table`` is the ``n`` pointers, then the
+    ``n + 1`` prefix token offsets. A table of at most ``cap`` chunks goes
+    in the kernel's parameters (the launcher copies it there); a longer
+    one is uploaded and read from device memory."""
+    n = len(ptrs)
+    if n != len(sizes) or n == 0:
+        raise ValueError(f"window_table: {n} pointers, {len(sizes)} sizes")
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.asarray(sizes, dtype=np.int64), out=starts[1:])
+    table = np.concatenate([np.asarray(ptrs, dtype=np.int64), starts])
+    return WindowTable(n <= cap, table, int(starts[-1]))
+
+
 def reassemble_window_cuda(
     chunks: Sequence[torch.Tensor],
     *,
@@ -163,38 +207,42 @@ def reassemble_window_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """File-order int32 chunks (concatenated, the window's token buffer) ->
     batch-major ``(inputs, labels)`` of shape ``(B, S)``. The chunks are
-    read in place through a device pointer table; nothing is concatenated."""
+    read in place through a pointer table; nothing is concatenated. A table
+    of up to :func:`max_param_chunks` chunks is passed by value; a longer
+    one is uploaded (counted in :data:`TABLE_UPLOADS`)."""
+    global TABLE_UPLOADS
     chunks = list(chunks)
     if not chunks:
         raise ValueError("reassemble_window: no chunks")
+    B, S, w0 = int(global_batch), int(seq_len), int(window_tok_off)
+    if B < 0 or S < 1 or w0 < 0:
+        raise ValueError(f"reassemble_window: bad shape B={B} S={S} "
+                         f"window_tok_off={w0}")
     dev = _require_cuda("reassemble_window", *chunks)
     for c in chunks:
         if c.dtype != torch.int32 or c.dim() != 1:
             raise ValueError("reassemble_window: chunks must be 1-D int32")
-    B, S = int(global_batch), int(seq_len)
-    if B < 0 or S < 1 or B > 65535:
-        raise ValueError(f"reassemble_window: bad shape B={B} S={S}")
     inputs = torch.empty((B, S), dtype=torch.int32, device=dev)
     labels = torch.empty((B, S), dtype=torch.int32, device=dev)
     if B == 0:
         return inputs, labels
-    starts: List[int] = [0]
-    for c in chunks:
-        starts.append(starts[-1] + c.numel())
-    total = starts[-1]
-    limit = B * (S + 1) + window_tok_off if valid_limit is None else valid_limit
-    limit = min(limit, total)
-    # Chunk pointer table + prefix token offsets, uploaded per call from
-    # page-locked memory, so the copy is queued on the stream and does not
-    # wait for the work already there (PyTorch's host allocator keeps the
-    # pinned block until the copy has run).
-    table = torch.tensor([c.data_ptr() for c in chunks] + starts,
-                         dtype=torch.int64).pin_memory().to(dev,
-                                                            non_blocking=True)
+    tab = window_table([c.data_ptr() for c in chunks],
+                       [c.numel() for c in chunks], max_param_chunks())
+    limit = B * (S + 1) + w0 if valid_limit is None else valid_limit
+    limit = min(limit, tab.total)
+    if not tab.by_value:
+        # Uploaded from page-locked memory, so the copy is queued on the
+        # stream and does not wait for the work already there (PyTorch's
+        # host allocator keeps the pinned block until the copy has run).
+        table = torch.from_numpy(tab.table).pin_memory().to(
+            dev, non_blocking=True)
+        TABLE_UPLOADS += 1
+        ptr, on_device = table.data_ptr(), 1
+    else:
+        ptr, on_device = tab.table.ctypes.data, 0
     rc = _library().ckio_reassemble_window(
-        table.data_ptr(), table.data_ptr() + 8 * len(chunks), len(chunks),
-        limit, inputs.data_ptr(), labels.data_ptr(), B, S,
-        int(window_tok_off), int(pad_id), stream_of(inputs))
+        ptr, on_device, len(chunks), limit, inputs.data_ptr(),
+        labels.data_ptr(), B, S, w0, int(pad_id), stream_of(inputs))
     check_rc(rc, "reassemble_window")
     LAUNCHES["reassemble_window"] += 1
     return inputs, labels

@@ -86,6 +86,183 @@ def test_cuda_ops_count_one_launch_each(cuda):
                           "reassemble_tokens": 1}
 
 
+def _chunks_at(lin, cuts, dev, skew=0):
+    """``lin`` cut at ``cuts`` into separate allocations; with ``skew`` the
+    odd chunks are views ``skew`` tokens into their buffer, so that their
+    base is off a 16-byte boundary."""
+    out = []
+    for i, c in enumerate(torch.tensor_split(lin, cuts)):
+        s = skew if i % 2 else 0
+        buf = torch.empty(c.numel() + s, dtype=torch.int32, device=dev)
+        buf[s:] = c.to(dev)
+        out.append(buf[s:])
+    return out
+
+
+def _window_equal(chunks, **kw):
+    got = K.reassemble_window_cuda(chunks, **kw)
+    want = ref.window_chunks_ref(chunks, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+def test_cuda_window_table_at_the_by_value_cap(cuda, extra):
+    """kMaxParamChunks - 1, kMaxParamChunks and kMaxParamChunks + 1
+    chunks: the first two go by value and upload nothing, the last takes
+    the device-table instance of the kernel."""
+    n = K.max_param_chunks() + extra
+    rng = np.random.default_rng(800 + extra)
+    B, S = 3, 509
+    L = B * (S + 1) + 7
+    lin = torch.from_numpy(rng.integers(0, 1 << 30, size=L).astype(np.int32))
+    cuts = np.sort(rng.choice(np.arange(1, L), size=n - 1, replace=False))
+    chunks = _chunks_at(lin, cuts.tolist(), cuda, skew=1)
+    K.reset_launch_counts()
+    _window_equal(chunks, global_batch=B, seq_len=S, window_tok_off=5,
+                  pad_id=4)
+    assert K.LAUNCHES["reassemble_window"] == 1
+    assert K.TABLE_UPLOADS == (1 if extra > 0 else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [0, 1, 2, 3])
+@pytest.mark.parametrize("S", [2048, 2051, 127])
+def test_cuda_window_row_misalignment_and_chunk_edges(cuda, h, S):
+    """Every row misalignment h (the window's offset mod 4; rows after the
+    first shift by (S+1) mod 4 each), chunk edges inside a 4-token group
+    and inside a warp's span (every 37 and 130 tokens), skewed chunk bases,
+    a remainder window and pads past the valid limit."""
+    rng = np.random.default_rng(810 + h + S)
+    B = 5
+    w0 = 8 + h
+    L = w0 + B * (S + 1) - S // 2            # the last row runs off the end
+    lin = torch.from_numpy(rng.integers(0, 1 << 30, size=L).astype(np.int32))
+    for step, skew in ((37, 1), (130, 2), (L, 0)):
+        cuts = list(range(step, L, step))
+        chunks = _chunks_at(lin, cuts, cuda, skew=skew)
+        for valid in (None, w0 + 2 * (S + 1) + 3):
+            _window_equal(chunks, global_batch=B, seq_len=S,
+                          window_tok_off=w0, valid_limit=valid, pad_id=9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(1, 1), (1, 5), (1, 2048), (8, 2048),
+                                 (3, 4097), (513, 2048)])
+def test_cuda_window_shapes_and_no_upload_on_the_main_path(cuda, B, S):
+    """B = 1, S not a multiple of 4, the main path's window (one chunk and
+    four), and a window past 2^20 columns."""
+    rng = np.random.default_rng(820 + B + S)
+    L = B * (S + 1)
+    lin = torch.from_numpy(rng.integers(0, 1 << 30, size=L).astype(np.int32))
+    K.reset_launch_counts()
+    for cuts in ([], [L // 4, L // 2, 3 * L // 4]):
+        _window_equal(_chunks_at(lin, cuts, cuda), global_batch=B, seq_len=S)
+    assert K.LAUNCHES["reassemble_window"] == 2
+    assert K.TABLE_UPLOADS == 0
+
+
+@pytest.mark.gpu
+def test_cuda_window_many_small_chunks_past_the_cap(cuda):
+    """A large window over 16 KiB chunks (1,025 of them), as a large
+    window of small splinters arrives: the device-table instance."""
+    rng = np.random.default_rng(830)
+    B, S = 512, 2048
+    L = B * (S + 1)
+    lin = torch.from_numpy(rng.integers(0, 1 << 30, size=L).astype(np.int32))
+    chunks = _chunks_at(lin, list(range(4096, L, 4096)), cuda)
+    assert len(chunks) > K.max_param_chunks()
+    K.reset_launch_counts()
+    _window_equal(chunks, global_batch=B, seq_len=S, valid_limit=L - 100,
+                  pad_id=1)
+    assert K.TABLE_UPLOADS == 1
+
+
+@pytest.mark.gpu
+def test_cuda_window_by_value_cap_is_128(cuda):
+    assert K.max_param_chunks() == 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [3, 4, 5])
+def test_cuda_window_rows_past_the_grid(cuda, S):
+    """B = 65,537 rows, two more than the grid's y extent: the rows past
+    it are taken by the kernel's row loop (S = 4 with 16-byte stores,
+    3 and 5 with scalar ones), in one chunk and in 16 KiB chunks."""
+    rng = np.random.default_rng(850 + S)
+    B = 65537
+    L = B * (S + 1) + 2
+    lin = torch.from_numpy(rng.integers(0, 1 << 30, size=L).astype(np.int32))
+    for cuts in ([], list(range(4096, L, 4096))):
+        _window_equal(_chunks_at(lin, cuts, cuda), global_batch=B, seq_len=S,
+                      window_tok_off=1, valid_limit=L - 3, pad_id=6)
+
+
+def _tokens_equal(staged, row_idx, pad_id=3):
+    got = K.reassemble_tokens_cuda(staged, row_idx, pad_id=pad_id)
+    want = ref.tokens_gather_ref(staged, row_idx, pad_id=pad_id)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(1, 1), (1, 6), (2, 127), (3, 128),
+                                 (4, 129), (8, 2048), (2, 2051), (600, 2048)])
+@pytest.mark.parametrize("kind", ["runs", "random"])
+def test_cuda_token_gather_runs_random_pads_and_clips(cuda, B, S, kind):
+    """Arrival-ordered maps (runs of contiguous staged positions) and
+    random ones, pads in column 0, column S and at warp (128-column) and
+    tile (1,024-column) edges, indices past L that clip; B = 1 and S not a
+    multiple of 4."""
+    rng = np.random.default_rng(840 + B + S)
+    n = B * (S + 1)
+    L = n + 11
+    staged = torch.from_numpy(rng.integers(0, 200064, size=L).astype(
+        np.int32)).to(cuda)
+    if kind == "runs":
+        run = 37
+        starts = rng.permutation(L // run) * run
+        flat = (starts[:, None] + np.arange(run)[None, :]).reshape(-1)
+        flat = np.resize(flat, n)
+    else:
+        flat = rng.integers(0, L, size=n)
+    row_idx = flat.reshape(B, S + 1).astype(np.int32)
+    row_idx[:, 0] = -1
+    row_idx[:, S] = -1
+    for col in (127, 128, 1023, 1024, 1025):
+        if col <= S:
+            row_idx[:, col] = -1
+    row_idx[:, 1::7] += L                  # past the buffer: clip to L - 1
+    _tokens_equal(staged, torch.from_numpy(row_idx).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [3, 4, 5])
+def test_cuda_token_gather_rows_past_the_grid(cuda, S):
+    """B = 65,537 rows, two more than the grid's y extent, on a random map
+    with pads and clipped indices."""
+    rng = np.random.default_rng(860 + S)
+    B = 65537
+    L = B * (S + 1)
+    staged = torch.from_numpy(rng.integers(0, 200064, size=L).astype(
+        np.int32)).to(cuda)
+    row_idx = rng.integers(-1, L + 5, size=(B, S + 1)).astype(np.int32)
+    _tokens_equal(staged, torch.from_numpy(row_idx).to(cuda))
+
+
+@pytest.mark.gpu
+def test_cuda_token_gather_counts_one_launch(cuda):
+    staged = torch.arange(100, dtype=torch.int32, device=cuda)
+    row_idx = torch.arange(33, dtype=torch.int32, device=cuda).reshape(3, 11)
+    K.reset_launch_counts()
+    _tokens_equal(staged, row_idx)
+    assert K.LAUNCHES["reassemble_tokens"] == 1
+    assert K.TABLE_UPLOADS == 0
+
+
 FA_CASES = [   # (B, H, K, Sq, Sk, hd, causal, window)
     (1, 2, 2, 64, 64, 32, True, 0),      # the six cases of
     (2, 4, 2, 128, 128, 64, True, 0),    # tests/test_kernels.py's sweep
