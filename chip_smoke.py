@@ -28,16 +28,39 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
 5. streamed  the same with ``streaming=True``; batches must be bit-equal to
              phase 4's. In both, the window kernel launches once a step and
              its wrapper uploads no chunk table (the tables go by value);
-6. arrival   ``ops.device_ingest`` over arrival-ordered stagings of the
+6. resume    the supervised main path: phi4-mini at full width with 2 layers
+             (a checkpoint of params, both moments and the step is 9.79
+             GB), 4 whole-window steps under the train driver's
+             ``make_supervisor`` (checkpoints of the reference layout,
+             stacked on the host, every 2 steps into ``build/``); a node
+             fault strikes inside the fourth step, after the optimizer has
+             written the params in place, and the supervisor reads step 2
+             through a CkIO session into the live tensors and replays
+             steps 3-4. One failure, one restore, 6 window-kernel launches
+             (4 steps and 2 replays), no table upload, and losses and final
+             params bit-equal to an unbroken run of the same steps; save
+             (host snapshot, write) and restore times, the restore
+             session's bytes and readers, peak host and device memory are
+             printed. Then the driver itself (``launch.train.main
+             --layers 2 --resume``) resumes from that run's step-2 file:
+             its two losses and the params of its step-4 file must be the
+             unbroken run's, with 2 window-kernel launches. It needs about
+             30 GB of disk (two 9.79 GB files and the one being written);
+7. compress  one main-path step at 4 layers with each gradient compression
+             ("bf16", "int8_ef"): finite loss and grad norm, the int8
+             residual at most half a scale, 20 rounds of error feedback on
+             the step's own grads within max |g| of 20 g (the reference's
+             bound), peak device memory;
+8. arrival   ``ops.device_ingest`` over arrival-ordered stagings of the
              corpus's step windows, as a CkIO session delivered them (block
              permutation and token-map layouts): the entry point that reaches
              the block and token gather kernels;
-7. timing    each kernel, its plain version and, where one exists, a single
+9. timing    each kernel, its plain version and, where one exists, a single
              PyTorch call for the same function, at the main-path shapes and
              at a 64 MiB window (whole, and in 4,098 chunks of 16 KiB; token
              maps random and arrival-ordered), beside the bytes bound (3.35
              TB/s) and, for token maps, the 32-byte-sector floor;
-8. attention the flash-attention kernel against its plain version on the
+10. attention the flash-attention kernel against its plain version on the
              card (fp32 at 1e-5, bf16 at 2e-2): the six sweep cases of
              tests/test_kernels.py, phi4-mini decode shapes (Sq=1, H=24,
              K=8, hd=128, Sk in 1/17/129/2048) and a 2048-token causal
@@ -47,7 +70,7 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              plain version's and ``scaled_dot_product_attention``'s at the
              served decode shapes and at the prefill shapes, beside the
              bound;
-9. scan      the literal selective-scan kernel against its plain version
+11. scan     the literal selective-scan kernel against its plain version
              on the card (1e-4): the four sweep cases of
              tests/test_kernels.py, the falcon-mamba decode shape (B=1, S=1,
              D=8192, N=16) from a random h0 (y and h_S), a 64-token prefill
@@ -60,7 +83,7 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              plain version (and the fused entry beside the composition it
              replaces) and its bound, bytes or special-function units (no
              PyTorch call computes a selective scan);
-10. lru      the same for the RG-LRU: the literal kernel (1e-5) over the
+12. lru      the same for the RG-LRU: the literal kernel (1e-5) over the
              three sweep cases, a ragged case (B=3, S=37, W=50),
              recurrentgemma's decode shape (B=1, S=1, W=2560) from a random
              h0, a 2100-token prefill and the bound's shape (B=8, S=2048,
@@ -70,7 +93,7 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              the 2100-token prefill and B=8, S=2048, with xr channel-major
              as the conv leaves it (no PyTorch call computes the
              recurrence);
-11. serve    the second main path, ``repro_torch.launch.serve``: phi4-mini
+13. serve    the second main path, ``repro_torch.launch.serve``: phi4-mini
              at full width with all 32 layers, random weights from seed 0,
              bf16 compute; static mode (BatchServer over one CkIO bulk read,
              4 requests, batch 4) and continuous mode (a 3-shard FileSet,
@@ -80,7 +103,7 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              must equal the sequential oracle's on the same engine, and
              replaying a prompt through decode must give the logits of the
              plain prefill forward;
-12. serve_ssm the third main path: the same for falcon-mamba-7b at full
+14. serve_ssm the third main path: the same for falcon-mamba-7b at full
              width with all 64 layers (static: 4 requests, batch 4;
              continuous: 2 requests, 4 slots), 64 prompt tokens and 16 new
              ones a request. Every decode call runs each of the 64 layers'
@@ -88,7 +111,7 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              (S=1 from the carried state), one launch a layer; the prefill
              forward (ssm_impl "materialized") runs the literal kernel once
              a layer over the prompt;
-13. serve_hybrid the fourth main path: the same for recurrentgemma-2b at
+15. serve_hybrid the fourth main path: the same for recurrentgemma-2b at
              full width with all 26 layers (static: 4 requests, batch 4;
              continuous: 3 requests, 4 slots), 128 prompt tokens and 16 new
              ones a request. Every decode call runs the gates, recurrence and
@@ -99,13 +122,13 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              Then a ring-wrap check: the first 6 layers in fp32, one
              2100-token prompt replayed through decode (the 2048-slot rings
              wrap) against the plain prefill forward (1e-4);
-14. profile  only with ``--profile``: two whole-window main-path steps, 16
+16. profile  only with ``--profile``: two whole-window main-path steps, 16
              B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
              recurrentgemma under ``torch.profiler`` (device busy share,
              kernels and copies a call, kernels by device time).
 
-The launch counts are zeroed just before each main-path run (phases 4-6,
-each mode of phases 11-13, the prefill forwards of phase 12's replay check,
+The launch counts are zeroed just before each main-path run (phases 4-8,
+each mode of phases 13-15, the prefill forwards of phase 14's replay check,
 and the ring-wrap replay) and read just after it. The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -158,6 +181,10 @@ FUSES = {
 }
 ARCH_LAYERS = 4
 B, S, MICROBATCHES, STEPS = 8, 2048, 4, 4
+# The supervised run: layers (a checkpoint of params, both moments and the
+# step is 9.79 GB at 2 layers, 12.2 GB at 4), checkpoint interval, and the
+# step index inside which the injected fault strikes.
+RESUME_LAYERS, RESUME_EVERY, RESUME_FAULT = 2, 2, 3
 # Serving: prompt and new tokens per request, requests per mode, slots.
 PROMPT, NEW, STATIC_REQUESTS, CONT_REQUESTS, SLOTS = 128, 16, 4, 3, 4
 ARRIVAL_RATE = 1.0                 # Poisson arrivals, requests/s
@@ -483,19 +510,19 @@ class Smoke:
                             seed=0)
         return cfg, path
 
-    def _trainer(self):
+    def _trainer(self, layers: int = ARCH_LAYERS, compression=None):
         """The main path's model, state and step: phi4-mini at full width
-        with ``ARCH_LAYERS`` layers, random weights from seed 0."""
+        with ``layers`` layers, random weights from seed 0."""
         from repro_torch.models import build_model
         from repro_torch.train import OptConfig, init_opt_state, make_train_step
 
         cfg, path = self._corpus()
-        cfg = cfg.replace(num_layers=ARCH_LAYERS)
+        cfg = cfg.replace(num_layers=layers)
         model = build_model(cfg)
         params = model.init(0, device=self.dev)
         step_fn = make_train_step(
             model, OptConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=STEPS),
-            num_microbatches=MICROBATCHES)
+            num_microbatches=MICROBATCHES, compression=compression)
         return cfg, path, model, params, init_opt_state(params), step_fn
 
     def _pipeline(self, path, streaming: bool):
@@ -519,7 +546,7 @@ class Smoke:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mode = "streamed" if streaming else "window"
-        # Capture the window kernel's main-path inputs for phase 7.
+        # Capture the window kernel's main-path inputs for phase 9.
         orig = K.reassemble_window_cuda
 
         def capture(chunks, **kw):
@@ -638,6 +665,293 @@ class Smoke:
                                          "whole-window ones")
             log("streamed batches bit-equal to the whole-window batches")
 
+    # -- 6, 7 ------------------------------------------------------------------
+    def _unbroken(self):
+        """``STEPS`` whole-window steps of the ``RESUME_LAYERS``-layer model
+        in a plain loop: the losses, the final params on the host and the
+        peak device memory."""
+        import torch
+
+        from repro_torch.train import leaves
+
+        _, path, _, params, opt, step_fn = self._trainer(RESUME_LAYERS)
+        pipe = self._pipeline(path, streaming=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        try:
+            for step in range(STEPS):
+                x, y = pipe.get_batch_device(step)
+                params, opt, m = step_fn(params, opt, {"tokens": x, "labels": y})
+                losses.append(float(m["loss"]))
+        finally:
+            pipe.close()
+        final = [t.cpu() for t in leaves(params)]
+        peak = torch.cuda.max_memory_allocated()
+        del params, opt
+        torch.cuda.empty_cache()
+        return losses, final, peak
+
+    def resume(self):
+        """The supervised main path: ``STEPS`` steps of the
+        ``RESUME_LAYERS``-layer model under the driver's
+        ``make_supervisor``, checkpoints every ``RESUME_EVERY`` steps, and
+        a node fault inside step index ``RESUME_FAULT`` after the optimizer
+        has written the params in place. The restore reads the step-2 file
+        through a CkIO session into the live tensors and replays steps
+        2-3; the losses and final params must have the bits of an unbroken
+        run. Then the driver's own ``--resume`` from the step-2 file."""
+        import resource
+
+        import torch
+
+        from repro_torch.kernels import reassemble as K
+        from repro_torch.launch.train import make_supervisor
+        from repro_torch.train import FaultInjected, leaves
+        from repro_torch.train import checkpoint as CK
+
+        ckdir = os.path.join(self.tmp, "ckpts")
+        free = shutil.disk_usage(self.tmp).free
+        log(f"resume: {free / 1e9:.1f} GB free under the checkout's build/")
+        want_losses, want_params, plain_peak = self._unbroken()
+        cfg, path, _, params, opt, step_fn = self._trainer(RESUME_LAYERS)
+        pipe = self._pipeline(path, streaming=False)
+        live = [t.data_ptr() for t in leaves(params)]
+        left = [1]
+
+        def supervised_step(state, batch):
+            p, o, m = step_fn(state["params"], state["opt"], batch)
+            if left[0] and o["step"] == RESUME_FAULT + 1:
+                left[0] = 0
+                raise FaultInjected("node died after the optimizer wrote "
+                                    f"step {o['step']} in place")
+            return {"params": p, "opt": o}, m
+
+        sup = make_supervisor(supervised_step, cfg, ckdir,
+                              ckpt_every=RESUME_EVERY, keep=2)
+        ck = sup.ckpt
+        reads = []
+        restore_arrays = CK.restore_arrays
+
+        def recorded(*a, **kw):
+            out = restore_arrays(*a, **kw)
+            reads.append(out[1]["read"])
+            return out
+
+        losses = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        K.reset_launch_counts()
+        CK.restore_arrays = recorded
+        t0 = time.perf_counter()
+        try:
+            state = sup.run(
+                {"params": params, "opt": opt},
+                lambda step: dict(zip(("tokens", "labels"),
+                                      pipe.get_batch_device(step))),
+                STEPS, on_metrics=lambda step, m: losses.setdefault(
+                    step, []).append(float(m["loss"])))
+        finally:
+            CK.restore_arrays = restore_arrays
+            ck.shutdown()
+            pipe.close()
+        wall = time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)
+        uploads = K.TABLE_UPLOADS
+        self.launches["resume"] = counts
+        peak = torch.cuda.max_memory_allocated()
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        in_place = [t.data_ptr() for t in leaves(state["params"])] == live
+        got_params = [t.cpu() for t in leaves(state["params"])]
+        del params, opt, state
+        torch.cuda.empty_cache()
+        st = sup.stats
+        log(f"resume: {RESUME_LAYERS} layers, {STEPS} steps in {wall:.2f} s "
+            f"(host clock); failures {st.failures}, restores {st.restores}, "
+            f"steps run {st.steps_run}, stragglers {st.straggler_steps}; "
+            f"launches {json.dumps(counts)}, chunk-table uploads {uploads}")
+        for r in ck.records:
+            log(f"resume: save step {r['step']}: {r['bytes']} B, host snapshot "
+                f"{r['snapshot_s']:.3f} s ({r['bytes'] / r['snapshot_s'] / 1e9:.2f}"
+                f" GB/s), write {r['write_s']:.3f} s "
+                f"({r['bytes'] / r['write_s'] / 1e9:.2f} GB/s, fsync included); "
+                f"{self.card_line}")
+        for r, t in zip(reads, st.restore_times):
+            log(f"resume: restore {r['bytes']} B through a CkIO session of "
+                f"{r['readers']} readers in {r['seconds']:.3f} s "
+                f"({r['bytes'] / r['seconds'] / 1e9:.2f} GB/s); the whole "
+                f"restore to the device {t:.3f} s; {self.card_line}")
+        log(f"resume: max_memory_allocated {peak / 2**30:.2f} GiB (the "
+            f"unbroken plain loop's {plain_peak / 2**30:.2f} GiB); peak host "
+            f"RSS {rss / 2**20:.2f} GiB (before the phase {rss0 / 2**20:.2f} "
+            f"GiB); {self.card_line}")
+        # -- checks -------------------------------------------------------------
+        if (st.failures, st.restores, st.reader_failures) != (1, 1, 0):
+            raise AssertionError(f"resume: stats {st}")
+        if not in_place:
+            raise AssertionError("resume: the restore did not write the "
+                                 "live params in place")
+        if st.steps_run != STEPS + 1 or len(reads) != 1:
+            raise AssertionError(f"resume: {st.steps_run} steps run, "
+                                 f"{len(reads)} restores read")
+        # steps 1-2 ran once; 3 and 4 (indices 2-3) ran again after the
+        # restore of step 2, step 4's first run ending in the fault
+        if counts["reassemble_window"] != STEPS + 2 or uploads != 0:
+            raise AssertionError(f"resume: window launches {counts}, "
+                                 f"uploads {uploads} (want {STEPS + 2}, 0)")
+        want = {i + 1: [v] * (2 if i + 1 == RESUME_FAULT else 1)
+                for i, v in enumerate(want_losses)}
+        if losses != want:
+            raise AssertionError(f"resume: losses {losses} differ from the "
+                                 f"unbroken run's {want}")
+        same = all(torch.equal(a, b) for a, b in zip(got_params, want_params))
+        if not same or len(got_params) != len(want_params):
+            raise AssertionError("resume: final params differ from the "
+                                 "unbroken run's")
+        log(f"resume: losses {want_losses} and final params "
+            f"({len(got_params)} tensors) bit-equal to the unbroken run")
+        self._driver_resume(cfg, path, ckdir, want_losses, want_params)
+
+    def _driver_resume(self, cfg, path, ckdir, want_losses, want_params):
+        """``launch.train.main --resume`` at full width from the step-2
+        file of the supervised run (its step-4 file removed): the driver's
+        two steps must give the unbroken run's losses 3-4, and its step-4
+        file the unbroken run's final params."""
+        import contextlib
+        import io
+
+        import torch
+
+        from repro_torch.kernels import reassemble as K
+        from repro_torch.launch.train import main as train_main
+        from repro_torch.models.convert import train_state_from_reference
+        from repro_torch.train import leaves
+        from repro_torch.train import checkpoint as CK
+
+        last = os.path.join(ckdir, f"step_{STEPS:08d}.ckpt")
+        os.remove(last)
+        argv = ["--arch", "phi4-mini-3.8b", "--layers", str(RESUME_LAYERS),
+                "--steps", str(STEPS), "--global-batch", str(B),
+                "--seq", str(S), "--microbatches", str(MICROBATCHES),
+                "--lr", "1e-3", "--num-readers", "4", "--num-consumers", "16",
+                "--device-ingest", "--data", path, "--ckpt-dir", ckdir,
+                "--ckpt-every", str(RESUME_EVERY), "--resume"]
+        out = io.StringIO()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            summary = train_main(argv)
+        wall = time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)
+        uploads = K.TABLE_UPLOADS
+        self.launches["resume_driver"] = counts
+        for line in out.getvalue().splitlines()[:3]:
+            log(f"resume driver: {line}")
+        log(f"resume driver: {' '.join(argv)}; {wall:.2f} s (host clock); "
+            f"steps {summary['steps']}, failures {summary['failures']}, "
+            f"losses {summary['first_loss']} {summary['final_loss']}; "
+            f"launches {json.dumps(counts)}, chunk-table uploads {uploads}")
+        tree, step = CK.restore_tree(last)
+        got = leaves(train_state_from_reference(tree, cfg,
+                                                device="cpu")["params"])
+        if (summary["steps"], summary["failures"], step) != (
+                STEPS - RESUME_EVERY, 0, STEPS):
+            raise AssertionError(f"resume driver: summary {summary}, "
+                                 f"last file of step {step}")
+        if counts["reassemble_window"] != STEPS - RESUME_EVERY or uploads:
+            raise AssertionError(f"resume driver: window launches {counts}, "
+                                 f"uploads {uploads}")
+        if [summary["first_loss"], summary["final_loss"]] != want_losses[
+                RESUME_EVERY:]:
+            raise AssertionError(f"resume driver: losses {summary} differ "
+                                 f"from the unbroken run's {want_losses}")
+        if len(got) != len(want_params) or not all(
+                torch.equal(a, b) for a, b in zip(got, want_params)):
+            raise AssertionError("resume driver: the params of its step-"
+                                 f"{STEPS} file differ from the unbroken run's")
+        log(f"resume driver: losses {want_losses[RESUME_EVERY:]} and the "
+            f"params of its step-{STEPS} file bit-equal to the unbroken run")
+
+    def compress(self):
+        """One main-path step at ``ARCH_LAYERS`` layers with each gradient
+        compression, whole-window ingest. With int8 the grads the step
+        compresses are captured: its residual must be at most half a scale,
+        and 20 rounds of error feedback on them must track 20 times the
+        grads to within max |g| (the reference's bound)."""
+        import torch
+
+        from repro_torch.kernels import reassemble as K
+        from repro_torch.train import grad_compress, leaves
+
+        K.reset_launch_counts()
+        for compression in ("bf16", "int8_ef"):
+            cfg, path, _, params, opt, step_fn = self._trainer(
+                compression=compression)
+            pipe = self._pipeline(path, streaming=False)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            seen = []
+            ef_compress = grad_compress.ef_compress
+
+            def capture(grads, ef, groups=None):
+                seen.append((grads, groups))
+                return ef_compress(grads, ef, groups)
+
+            grad_compress.ef_compress = capture
+            try:
+                x, y = pipe.get_batch_device(0)
+                batch = {"tokens": x, "labels": y}
+                if compression == "int8_ef":
+                    ef = grad_compress.init_ef_state(leaves(params))
+                    params, opt, m, ef = step_fn(params, opt, batch, ef)
+                else:
+                    params, opt, m = step_fn(params, opt, batch)
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            finally:
+                grad_compress.ef_compress = ef_compress
+                pipe.close()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"compress {compression}: loss {loss:.6f}, grad norm "
+                f"{gnorm:.6f}, max_memory_allocated {peak / 2**30:.2f} GiB; "
+                f"{self.card_line}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"compress {compression}: loss {loss}, "
+                                     f"grad norm {gnorm}")
+            if compression == "int8_ef":
+                (grads, groups), = seen
+                worst, worst_ef = 0.0, 0.0
+                for group in groups:
+                    amax = max(grads[i].abs().max().item() for i in group)
+                    r = max(ef[i].abs().max().item() for i in group)
+                    worst_ef = max(worst_ef, r / (amax / 127.0))
+                    g = [grads[i] for i in group]
+                    res = grad_compress.init_ef_state(g)
+                    applied = [torch.zeros_like(t) for t in g]
+                    for _ in range(20):
+                        _, deq, res = ef_compress(g, res, [range(len(g))])
+                        for a, d in zip(applied, deq):
+                            a.add_(d)
+                    err = max((a - 20 * t).abs().max().item()
+                              for a, t in zip(applied, g))
+                    worst = max(worst, err / amax)
+                    del g, res, applied
+                log(f"compress int8_ef: {len(groups)} scale groups; residual "
+                    f"at most {worst_ef:.6f} of a scale; after 20 rounds of "
+                    f"error feedback the applied sum is within {worst:.6f} of "
+                    f"max |g| of 20 g")
+                if worst_ef > 0.5 * (1 + 1e-5) or not worst < 1.0:
+                    raise AssertionError(f"compress int8_ef: residual "
+                                         f"{worst_ef} scales, EF error "
+                                         f"{worst} of max |g|")
+                del grads, ef, seen
+            del params, opt
+            torch.cuda.empty_cache()
+        counts = dict(K.LAUNCHES)
+        self.launches["compress"] = counts
+        if counts["reassemble_window"] != 2:
+            raise AssertionError(f"compress: window launches {counts}")
+
     # -- optional: where a main-path step's device time goes -----------------
     def profile(self):
         """``--profile``: (a) one warm-up step, then two whole-window
@@ -743,7 +1057,7 @@ class Smoke:
             f.write(prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=60))
 
-    # -- 6 ---------------------------------------------------------------------
+    # -- 8 ---------------------------------------------------------------------
     def arrival(self):
         import numpy as np
         import torch
@@ -814,7 +1128,7 @@ class Smoke:
             if counts[name] < 1:
                 raise AssertionError(f"arrival: {name} never launched")
 
-    # -- 7 ---------------------------------------------------------------------
+    # -- 9 ---------------------------------------------------------------------
     def timing_phase(self):
         import numpy as np
         import torch
@@ -907,7 +1221,7 @@ class Smoke:
             self.timing[key] = r
             log(f"time {key}: {json.dumps(r)}")
 
-    # -- 8 ---------------------------------------------------------------------
+    # -- 10 --------------------------------------------------------------------
     def _close(self, name, got, want, tol) -> None:
         """``got`` within ``tol`` of ``want`` (|g - w| <= tol + tol*|w|, the
         test of np.testing.assert_allclose), in the output dtype."""
@@ -1031,7 +1345,7 @@ class Smoke:
         log(f"attention: scaled_dot_product_attention within 2e-2 of the "
             f"plain version; max abs err {self.err['sdpa']}")
 
-    # -- 9 ---------------------------------------------------------------------
+    # -- 11 --------------------------------------------------------------------
     def scan(self):
         import torch
 
@@ -1205,7 +1519,7 @@ class Smoke:
             del t, args, h0
             torch.cuda.empty_cache()
 
-    # -- 10 --------------------------------------------------------------------
+    # -- 12 --------------------------------------------------------------------
     def lru(self):
         import torch
 
@@ -1348,7 +1662,7 @@ class Smoke:
             del t, args, h0
             torch.cuda.empty_cache()
 
-    # -- 11, 12, 13 ------------------------------------------------------------
+    # -- 13, 14, 15 ------------------------------------------------------------
     def _serve_arch(self, arch, *, prompt_len, new, static_requests,
                     cont_requests, kmod, kfn, kname, want, check,
                     kernels=None, prefill=None):
@@ -1743,6 +2057,8 @@ def main() -> int:
             sm.phase("kernels", sm.kernels)
             sm.phase("window", lambda: sm.main_path(streaming=False))
             sm.phase("streamed", sm.streamed)
+            sm.phase("resume", sm.resume)
+            sm.phase("compress", sm.compress)
             sm.phase("arrival", sm.arrival)
             sm.phase("timing", sm.timing_phase)
             sm.phase("attention", sm.attention)

@@ -42,6 +42,16 @@ class FileOptions:
     prefault_arena: bool = False
     # Fault-injection hook for PosixFile.pread_into (short reads / OSErrors).
     io_fault: object = None
+    # Hooks of reader worker processes and their event rings (a crash, a
+    # torn slot): they act only in the process backend, which the port
+    # does not carry yet, so setting either raises.
+    worker_fault: object = None
+    ring_fault: object = None
+    # A seeded core.faults.FaultPlan, expanded into io_fault and
+    # delay_model (a hook set explicitly wins). Its worker and ring hooks
+    # act only in reader worker processes: on the thread backend they do
+    # not act, as in the reference.
+    fault_plan: Optional[object] = None
     direct_io: bool = False
     # In-flight reads per reader: 0/1 = the blocking per-splinter loop.
     queue_depth: int = 0
@@ -66,12 +76,20 @@ class FileOptions:
         if self.adaptive_splinters or self.adaptive_queue:
             raise _later("adaptive_splinters / adaptive_queue",
                          "direct I/O and async submit")
+        if self.worker_fault is not None or self.ring_fault is not None:
+            raise _later("worker_fault / ring_fault",
+                         "process backend and service")
+        delay_model = self.delay_model
+        io_fault = self.io_fault
+        if self.fault_plan is not None:
+            delay_model = delay_model or self.fault_plan.delay_model()
+            io_fault = io_fault or self.fault_plan.io_fault()
         return ReaderOptions(
             splinter_bytes=self.splinter_bytes,
             work_stealing=self.work_stealing,
             max_io_threads=self.max_io_threads,
-            io_fault=self.io_fault,
-            delay_model=self.delay_model,  # type: ignore[arg-type]
+            io_fault=io_fault,
+            delay_model=delay_model,  # type: ignore[arg-type]
             network=self.network,
             piece_timing_every=self.piece_timing_every,
             prefault_arena=self.prefault_arena,

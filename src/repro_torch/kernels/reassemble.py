@@ -8,11 +8,11 @@ and loaded with ``ctypes``: no PyTorch headers, so a build takes seconds.
 The builder here serves every kernel module of the package
 (``kernels/flash_attention.py`` too). Each wrapper checks device, dtype,
 shape and contiguity, allocates the outputs with ``torch.empty``, launches
-on the current stream, raises if the launcher reports a CUDA error, and
-adds one to its entry in :data:`LAUNCHES`. The window wrapper passes a
-chunk table of up to :func:`max_param_chunks` entries by value and
-uploads a longer one (:func:`window_table` decides; :data:`TABLE_UPLOADS`
-counts the uploads).
+on the current stream, raises :class:`KernelError` if the launcher
+reports a CUDA error (as a failed build does), and adds one to its entry
+in :data:`LAUNCHES`. The window wrapper passes a chunk table of up to
+:func:`max_param_chunks` entries by value and uploads a longer one
+(:func:`window_table` decides; :data:`TABLE_UPLOADS` counts the uploads).
 
 What each kernel replaces, what bounds it and how its design meets the
 bound is noted at the top of the CUDA source. The plain PyTorch versions
@@ -49,6 +49,12 @@ _lock = threading.Lock()
 _libs: Dict[Path, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port failed to build or to launch. Not a transient
+    fault: the train supervisor lets it propagate instead of restoring and
+    replaying the step."""
+
+
 # Chunk tables the window wrapper uploaded (tables too long to pass by
 # value); the main path's tables make none.
 TABLE_UPLOADS = 0
@@ -81,7 +87,7 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+    raise KernelError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
                        "toolkit is needed to build the port's kernels")
 
 
@@ -119,7 +125,7 @@ def build(*sources: Path, verbose: bool = False) -> List[Path]:
             print(err, end="")
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return outs
 
 
@@ -153,7 +159,7 @@ def _library():
 
 def check_rc(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+        raise KernelError(f"{name}: CUDA error {rc} at launch")
 
 
 def stream_of(t: torch.Tensor) -> int:

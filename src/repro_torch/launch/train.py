@@ -1,19 +1,24 @@
-"""End-to-end training driver: CkIO input pipeline + microbatched train loop.
+"""End-to-end training driver: CkIO input pipeline + supervised train loop.
 
 Synthetic corpus -> CkIO read sessions -> double-buffered batches (host
 path, or device ingest with on-device reassembly) -> microbatched AdamW
-step on one device. The flags are the reference driver's plus ``--device``
-(default ``cuda``; ``cpu`` runs the plain PyTorch path). Flags for parts
-that this port does not carry yet raise; see ROADMAP.md, Queue A.
+step on one device -> async packed checkpoints -> restart supervisor. The
+flags are the reference driver's plus ``--device`` (default ``cuda``;
+``cpu`` runs the plain PyTorch path) and ``--layers`` (the config's width
+at a cut depth). Flags for parts that this port does not carry yet raise;
+see ROADMAP.md, Queue A.
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 6 \
-      --global-batch 8 --seq 128 --streaming
+      --global-batch 8 --seq 128 --streaming --ckpt-every 2
 
-The step loop is plain: an exception propagates. Checkpoints and the
-restart supervisor come with the next slice. A stack with a recurrent
-layer (``--arch falcon-mamba-7b``, ``recurrentgemma-2b``) trains on the
-CPU only: its scan kernels are forward-only, so on the card the driver
-raises before it builds anything.
+Checkpoints hold the train state in the reference's layout
+(``models.convert.train_state_to_reference``, stacked on the host), so
+either package resumes from the other's; ``--resume`` continues from the
+latest one in ``--ckpt-dir``. A restore writes the file's values into the
+live state in place (``make_supervisor``). A stack with a recurrent layer
+(``--arch falcon-mamba-7b``, ``recurrentgemma-2b``) trains on the CPU
+only: its scan kernels are forward-only, so on the card the driver raises
+before it builds anything.
 """
 from __future__ import annotations
 
@@ -26,21 +31,25 @@ from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.base import MAMBA, RGLRU
+from repro_torch.configs.base import MAMBA, RGLRU, ModelConfig
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.core import CkIO, FileOptions
 from repro_torch.data import CkIOPipeline, make_token_file
 from repro_torch.device import resolve_device
 from repro_torch.kernels import mamba_scan, rglru_scan
 from repro_torch.models import build_model
-from repro_torch.train import OptConfig, init_opt_state, make_train_step
+from repro_torch.models.convert import train_state_from_reference, train_state_to_reference
+from repro_torch.train import (
+    AsyncCheckpointer,
+    OptConfig,
+    StepSupervisor,
+    init_opt_state,
+    make_train_step,
+    restore_tree,
+)
 
 # flag -> (value that means "not set", slice that brings it)
 _LATER = {
-    "resume": (False, "supervisor and checkpoint"),
-    "ckpt_dir": (None, "supervisor and checkpoint"),
-    "ckpt_every": (None, "supervisor and checkpoint"),
-    "compression": (None, "compression"),
     "topology": (None, "NUMA"),
     "numa_pin": (False, "NUMA"),
     "service": (False, "process backend and service"),
@@ -58,6 +67,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="phi4-mini-3.8b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers (its"
+                         " width is kept)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -89,11 +101,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-workers", type=int, default=4)
     ap.add_argument("--pool-workers", type=int, default=4)
     ap.add_argument("--queue-depth", type=int, default=0)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(),
+                                         "repro_torch_ckpts"))
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt-dir")
+    ap.add_argument("--compression", default=None, choices=[None, "bf16"],
+                    help="round the grads through bf16 before the optimizer"
+                         " (what a bf16 DP all-reduce would carry)")
     # Flags of the reference driver whose parts come with later slices.
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=None)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--compression", default=None, choices=[None, "bf16"])
     ap.add_argument("--topology", default=None)
     ap.add_argument("--numa-pin", action="store_true")
     ap.add_argument("--service", action="store_true")
@@ -118,6 +135,30 @@ def _reject_unported(args) -> None:
                                   "with the FileSet slice (ROADMAP.md, Queue A)")
 
 
+def make_supervisor(step_fn, cfg: ModelConfig, ckpt_dir: str, *,
+                    ckpt_every: int, keep: int = 3) -> StepSupervisor:
+    """``step_fn`` (``(state, batch) -> (state, metrics)`` on a
+    ``{"params", "opt"}`` state) under the restart supervisor: async
+    checkpoints of the state in the reference's layout, stacked on the host,
+    every ``ckpt_every`` steps in ``ckpt_dir`` (the newest ``keep`` kept),
+    and restores written into the live state in place."""
+    return StepSupervisor(
+        step_fn, AsyncCheckpointer(ckpt_dir, keep=keep), ckpt_every=ckpt_every,
+        to_tree=lambda st: train_state_to_reference(st, cfg),
+        from_tree=lambda tree, st: train_state_from_reference(tree, cfg,
+                                                              into=st))
+
+
+def resume(sup: StepSupervisor, state):
+    """``(state, step)`` from the newest checkpoint of ``sup``, or
+    ``(state, 0)`` when there is none."""
+    path = sup.ckpt.latest()
+    if path is None:
+        return state, 0
+    tree, step = restore_tree(path)
+    return sup.from_tree(tree, state), step
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = _parser().parse_args(argv)
     _reject_unported(args)
@@ -126,6 +167,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
     if torch.device(args.device).type == "cuda":
         for mixer, kernel in ((MAMBA, mamba_scan), (RGLRU, rglru_scan)):
             if any(s.mixer == mixer for s in cfg.block_pattern):
@@ -160,7 +203,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     opt_cfg = OptConfig(peak_lr=args.lr, warmup_steps=max(2, args.steps // 10),
                         decay_steps=args.steps)
     train_step = make_train_step(model, opt_cfg,
-                                 num_microbatches=args.microbatches)
+                                 num_microbatches=args.microbatches,
+                                 compression=args.compression)
+
+    def step_fn(state, batch):
+        p, o, metrics = train_step(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, metrics
 
     def batch_for(step: int):
         if args.device_ingest:
@@ -171,22 +219,35 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             x, y = pipe.to_device(*pipe.get_batch(step % pipe.num_steps))
         return {"tokens": x, "labels": y}
 
+    sup = make_supervisor(step_fn, cfg, args.ckpt_dir,
+                          ckpt_every=args.ckpt_every)
+    ck = sup.ckpt
+    state = {"params": params, "opt": opt}
+    start = 0
     log = []
     t0 = time.time()
+
+    def on_metrics(step, m):
+        loss = float(m["loss"])
+        log.append({"step": step, "loss": loss})
+        if step % 10 == 0 or step == args.steps:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"({(time.time()-t0)/max(step-start,1):.2f}s/step)")
+
     try:
-        for step in range(1, args.steps + 1):
-            params, opt, m = train_step(params, opt, batch_for(step - 1))
-            loss = float(m["loss"])
-            log.append({"step": step, "loss": loss})
-            if step % 10 == 0 or step == args.steps:
-                print(f"step {step:5d} loss {loss:.4f} "
-                      f"({(time.time()-t0)/step:.2f}s/step)")
+        if args.resume and ck.latest():
+            state, start = resume(sup, state)
+            print(f"resumed from step {start}")
+        state = sup.run(state, batch_for, args.steps, start_step=start,
+                        on_metrics=on_metrics)
     finally:
+        ck.shutdown()
         pipe.close()
     summary = {
         "final_loss": log[-1]["loss"] if log else None,
         "first_loss": log[0]["loss"] if log else None,
-        "steps": len(log),
+        "steps": sup.stats.steps_run,
+        "failures": sup.stats.failures,
         "device": str(dev),
         "ingest": pipe.ingest.summary(),
         "stream": pipe.stream.summary() if args.streaming else None,

@@ -1,9 +1,9 @@
 """AdamW + warmup-cosine schedule, from scratch (no ``torch.optim``).
 
 Moments are fp32 trees mirroring the params. Unlike the reference's pure
-functions, ``adamw_update`` updates params and moments **in place** (under
-``torch.no_grad``): at full width a second copy of the fp32 params and both
-moments would cost another 12 GB of device memory per step.
+functions, ``adamw_update`` updates params, moments and master weights **in
+place** (under ``torch.no_grad``): at full width a second copy of the fp32
+params and both moments would cost another 12 GB of device memory per step.
 """
 from __future__ import annotations
 
@@ -47,17 +47,26 @@ def lr_at(cfg: OptConfig, step: int) -> float:
     return cfg.peak_lr * cos
 
 
-def _zeros_like_tree(tree: Any) -> Any:
+def _map_tree(fn, tree: Any) -> Any:
     if isinstance(tree, torch.Tensor):
-        return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: _zeros_like_tree(v) for k, v in tree.items()}
-    return [_zeros_like_tree(v) for v in tree]
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return [_map_tree(fn, v) for v in tree]
 
 
-def init_opt_state(params: Any) -> Dict[str, Any]:
-    return {"mu": _zeros_like_tree(params), "nu": _zeros_like_tree(params),
-            "step": 0}
+def init_opt_state(params: Any, master_weights: bool = False) -> Dict[str, Any]:
+    """``master_weights=True``: keep fp32 master copies in the optimizer
+    state, so that the params can live in bf16 (the update is applied to
+    the master and the param takes its cast)."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                  device=p.device)
+    state = {"mu": _map_tree(zeros, params), "nu": _map_tree(zeros, params),
+             "step": 0}
+    if master_weights:
+        state["master"] = _map_tree(
+            lambda p: p.detach().to(torch.float32, copy=True), params)
+    return state
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -71,8 +80,11 @@ def adamw_update(
     params: Any,
     cfg: OptConfig,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
-    """One AdamW step. ``grads`` are in ``leaves(params)`` order. Params
-    and moments are updated in place and returned."""
+    """One AdamW step. ``grads`` are in ``leaves(params)`` order. Params,
+    moments and (with ``"master"`` in ``opt_state``) master weights are
+    updated in place and returned. With masters the update reads and
+    writes the fp32 master and the param gets its cast, as in the
+    reference."""
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     if cfg.grad_clip > 0:
@@ -83,13 +95,19 @@ def adamw_update(
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step
     bc2 = 1 - b2 ** step
-    for p, g, mu, nu in zip(leaves(params), grads, leaves(opt_state["mu"]),
-                            leaves(opt_state["nu"])):
+    ps = leaves(params)
+    masters = (leaves(opt_state["master"]) if "master" in opt_state
+               else [None] * len(ps))
+    for p, g, mu, nu, master in zip(ps, grads, leaves(opt_state["mu"]),
+                                    leaves(opt_state["nu"]), masters):
         g = g.float() * scale
         mu.mul_(b1).add_(g, alpha=1 - b1)
         nu.mul_(b2).add_(g.square(), alpha=1 - b2)
-        ref = p.float()
+        ref = master if master is not None else p.float()
         delta = (mu / bc1) / ((nu / bc2).sqrt() + cfg.eps) + cfg.weight_decay * ref
-        p.copy_(ref - lr * delta)
+        new_master = ref - lr * delta
+        if master is not None:
+            master.copy_(new_master)
+        p.copy_(new_master)
     opt_state["step"] = step
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

@@ -2,8 +2,9 @@
 
 The global batch is split into ``num_microbatches`` slices run one after
 the other, accumulating grads in ``accum_dtype`` (fp32 default). Remat
-lives inside the model's block loop. Gradient compression comes with a
-later slice and raises here.
+lives inside the model's block loop. Gradient compression (bf16, or int8
+with error feedback) optionally wraps the accumulated grads before the
+optimizer.
 """
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.models.convert import reference_leaf_groups
 from repro_torch.models.model_zoo import Model
+from repro_torch.train import grad_compress
 from repro_torch.train.optimizer import OptConfig, adamw_update, leaves
 
 
@@ -68,20 +71,37 @@ def make_train_step(
     *,
     num_microbatches: int = 1,
     accum_dtype=torch.float32,
-    compression: Optional[str] = None,
+    compression: Optional[str] = None,        # None|"bf16"|"int8_ef"
 ) -> Callable:
-    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; params and optimizer state are updated in place."""
-    if compression is not None:
-        raise NotImplementedError(
-            f"compression={compression!r} comes with the compression slice "
-            f"(ROADMAP.md, Queue A)")
+    """Returns ``train_step(params, opt_state, batch[, ef_state]) ->
+    (params, opt_state, metrics[, ef_state])``; params and optimizer state
+    are updated in place. With ``compression="int8_ef"`` the step takes the
+    error-feedback residuals (``grad_compress.init_ef_state(leaves(
+    params))``) and returns the new ones."""
+    if compression not in (None, "bf16", "int8_ef"):
+        raise ValueError(f"unknown compression {compression!r} "
+                         f"(expected None, 'bf16' or 'int8_ef')")
     loss_and_grads = make_loss_and_grads(model, num_microbatches, accum_dtype)
+    groups: List[List[int]] = []   # int8 scale groups, from the first step
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, ef_state=None):
         loss, grads, metrics = loss_and_grads(params, batch)
+        if compression == "bf16":
+            # the DP all-reduce would carry the bf16 grads
+            grads = grad_compress.from_bf16(grad_compress.to_bf16(grads))
+        elif compression == "int8_ef":
+            if ef_state is None:
+                raise ValueError("compression='int8_ef' needs ef_state")
+            # one scale per reference leaf (a block position's layers share one)
+            if not groups:
+                groups.extend(reference_leaf_groups(params, model.cfg))
+            _, grads, ef_state = grad_compress.ef_compress(
+                grads, ef_state, groups)
         params, opt_state, opt_metrics = adamw_update(
             grads, opt_state, params, opt_cfg)
-        return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        if compression == "int8_ef":
+            return params, opt_state, metrics, ef_state
+        return params, opt_state, metrics
 
     return train_step

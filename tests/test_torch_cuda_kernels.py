@@ -851,3 +851,84 @@ def test_cuda_fused_decode_steps_give_the_unfused_layers_bits(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(h, h_ref[:, -1])
     assert torch.equal(y, h_ref.to(dtype) * g["gate"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_ckio", [False, True])
+def test_cuda_checkpoint_round_trip_is_bit_equal(cuda, tmp_path, use_ckio):
+    """Leaves on the card (fp32, bf16, an int step) -> a packed file -> a
+    CkIO session (or plain reads) -> the card, bit for bit."""
+    from repro_torch.train import restore_tree, save_checkpoint
+
+    rng = np.random.default_rng(800)
+    f32 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda)
+    tree = {"w": f32(257, 33), "b": f32(1000).bfloat16(),
+            "layers": [{"s": f32(3), "t": f32(64, 65).bfloat16()}],
+            "step": 11}
+    path = str(tmp_path / "card.ckpt")
+    save_checkpoint(path, tree, step=11)
+    like = {"w": torch.zeros_like(tree["w"]), "b": torch.zeros_like(tree["b"]),
+            "layers": [{k: torch.zeros_like(v)
+                        for k, v in tree["layers"][0].items()}], "step": 0}
+    got, step = restore_tree(path, like, use_ckio=use_ckio)
+    assert step == 11 and got["step"] == 11
+    pairs = [(got["w"], tree["w"]), (got["b"], tree["b"])] + [
+        (got["layers"][0][k], v) for k, v in tree["layers"][0].items()]
+    for g, w in pairs:
+        assert g.device == w.device and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_restores_into_the_live_tensors(cuda, tmp_path):
+    """A file read without a like-tree (host tensors) is written into
+    tensors on the card in place, bit for bit."""
+    from repro_torch.train import load_into, restore_tree, save_checkpoint
+
+    rng = np.random.default_rng(801)
+    f32 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda)
+    tree = {"w": f32(257, 33), "b": f32(1000).bfloat16(), "step": 11}
+    path = str(tmp_path / "card.ckpt")
+    save_checkpoint(path, tree, step=11)
+    live = {"w": f32(257, 33), "b": f32(1000).bfloat16(), "step": 0}
+    ptrs = (live["w"].data_ptr(), live["b"].data_ptr())
+    got = load_into(restore_tree(path)[0], live)
+    assert (got["w"].data_ptr(), got["b"].data_ptr()) == ptrs
+    assert got["step"] == 11
+    assert torch.equal(got["w"], tree["w"]) and torch.equal(got["b"], tree["b"])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_error_passes_through_the_supervisor(cuda, tmp_path):
+    """A launch the CUDA runtime refuses (a grid of zero blocks) raises
+    ``KernelError`` from the wrapper's ``check_rc``; the supervisor lets it
+    through on the first failure, with no restore, and the card works on
+    (the error is not sticky)."""
+    from repro_torch.train import AsyncCheckpointer, StepSupervisor
+
+    src = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    out = torch.empty_like(src)
+
+    def step_fn(state, batch):
+        if state["step"] == 1:
+            rc = K._library().ckio_reassemble(
+                src.data_ptr(), idx.data_ptr(), out.data_ptr(), 0, 32, 16,
+                K.stream_of(out))
+            K.check_rc(rc, "reassemble")
+        return {"x": state["x"] + 1, "step": state["step"] + 1}, {}
+
+    ck = AsyncCheckpointer(str(tmp_path / "ckpt"), keep=2)
+    sup = StepSupervisor(step_fn, ck, ckpt_every=1, max_retries=3)
+    with pytest.raises(K.KernelError, match="reassemble: CUDA error"):
+        sup.run({"x": torch.zeros((), device=cuda), "step": 0},
+                lambda s: None, 3)
+    ck.shutdown()
+    assert (sup.stats.failures, sup.stats.restores, sup.stats.steps_run) == (0, 0, 1)
+    lin = torch.arange(40, dtype=torch.int32, device=cuda)
+    got = ops.reassemble_window(lin, global_batch=2, seq_len=7)
+    want = ref.window_chunks_ref([lin], global_batch=2, seq_len=7)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
