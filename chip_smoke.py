@@ -69,7 +69,12 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              2048-token causal prefill with window 2048; then its time, the
              plain version's and ``scaled_dot_product_attention``'s at the
              served decode shapes and at the prefill shapes, beside the
-             bound;
+             bound; then the decode shapes of the five families of phases
+             16-20 (hd 128: 32/32, 40/10 and 16/16 heads at Sk 1 to 2048,
+             gemma3's 32/16 with its window of 1,024 while a ring fills,
+             over a full 1,024-slot ring and over a 1,100-key global
+             prefix), at B=1 and B=4, decode rows bit-identical at B=1 and
+             B=4 there too, and the time of each served shape beside SDPA's;
 11. scan     the literal selective-scan kernel against its plain version
              on the card (1e-4): the four sweep cases of
              tests/test_kernels.py, the falcon-mamba decode shape (B=1, S=1,
@@ -122,14 +127,34 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              Then a ring-wrap check: the first 6 layers in fp32, one
              2100-token prompt replayed through decode (the 2048-slot rings
              wrap) against the plain prefill forward (1e-4);
-16. profile  only with ``--profile``: two whole-window main-path steps, 16
+16-20. serve_codeqwen, serve_phi3, serve_gemma3, serve_qwen2moe,
+             serve_olmoe: the same two modes for codeqwen1.5-7b (32 layers,
+             MHA 32/32, QKV bias), phi3-medium-14b (40 layers, GQA 40/10),
+             gemma3-27b (all 62 layers, 5 local layers with 1,024-key
+             windows to 1 global; bf16 params, 54 GB, since its 108 GB of
+             fp32 ones exceed the card), qwen2-moe-a2.7b (24 MoE layers: 60
+             routed experts top-4 + 4 padded ones, 4 shared experts) and
+             olmoe-1b-7b (16 MoE layers, 64 experts top-8), all at full
+             width with random weights from seed 0, fp32 params but
+             gemma3's; 64 prompt tokens and 16 new ones a request (static:
+             4 requests, batch 4; continuous: 2 requests, 4 slots). Every
+             layer is attention, so each decode call launches the kernel
+             once a layer; the MoE FFNs are PyTorch einsums, as the
+             reference computes them outside any Pallas kernel. Each phase
+             holds a captured served decode input against the plain
+             version, continuous tokens against the oracle, the decode
+             replay against the prefill forward, and peak memory under 80
+             GB; serve_gemma3 then runs its first 6 layers (5 local + 1
+             global) in fp32 over a 1,100-token prompt, so the local rings
+             wrap while the global layer keeps every position (1e-4);
+21. profile  only with ``--profile``: two whole-window main-path steps, 16
              B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
              recurrentgemma under ``torch.profiler`` (device busy share,
              kernels and copies a call, kernels by device time).
 
 The launch counts are zeroed just before each main-path run (phases 4-8,
-each mode of phases 13-15, the prefill forwards of phase 14's replay check,
-and the ring-wrap replay) and read just after it. The line before the last is a JSON object with one entry per kernel;
+each mode of phases 13-20, the prefill forwards of phase 14's replay check,
+and the two ring-wrap replays) and read just after it. The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -198,6 +223,34 @@ SSM_D, SSM_N = 8192, 16
 RG_H, RG_KV, RG_HD = 10, 1, 256
 RG_REC, RG_LOC = 18, 8             # RG-LRU and local-attention layers
 RG_W, RG_WINDOW, WRAP_LAYERS, WRAP_PROMPT = 2560, 2048, 6, 2100
+# The five text families served since: arch -> (the smoke phase, its param
+# dtype). gemma3-27b's 27.0 B params
+# take 108 GB in fp32, past one 80 GB card, so it is served with bf16 params
+# (54 GB) at all 62 layers; the others in fp32 at all their layers. Each
+# serves FAM_PROMPT-token prompts (FAM_STATIC_REQUESTS static, batch 4;
+# FAM_CONT_REQUESTS continuous, 4 slots) with NEW new tokens.
+FAMILIES = {
+    "codeqwen1.5-7b": ("serve_codeqwen", "float32"),
+    "phi3-medium-14b": ("serve_phi3", "float32"),
+    "gemma3-27b": ("serve_gemma3", "bfloat16"),
+    "qwen2-moe-a2.7b": ("serve_qwen2moe", "float32"),
+    "olmoe-1b-7b": ("serve_olmoe", "float32"),
+}
+FAM_PROMPT, FAM_STATIC_REQUESTS, FAM_CONT_REQUESTS = 64, 4, 2
+# gemma3's ring-wrap check: its first block (5 local layers with 1,024-slot
+# rings, 1 global layer) at full width in fp32, one prompt past the window.
+G3_WINDOW, G3_WRAP_LAYERS, G3_WRAP_PROMPT = 1024, 6, 1100
+# Their decode shapes (H, K, Sk, window) at hd 128, held in the attention
+# phase: key counts at the 32-key spans' edges, the served prefix and a
+# long one; gemma3's window while a local ring fills, its full ring (no
+# window) and a global prefix past the window.
+FAMILY_DECODE = [
+    *[(h, k, sk, 0) for h, k in ((32, 32), (40, 10), (16, 16))
+      for sk in (1, 63, 64, 65, FAM_PROMPT + NEW, 2048)],
+    *[(32, 16, sk, G3_WINDOW) for sk in (1, 65, FAM_PROMPT + NEW, 1023,
+                                         G3_WINDOW)],
+    (32, 16, G3_WINDOW, 0), (32, 16, G3_WRAP_PROMPT, 0),
+]
 # Logits of a prompt replayed through decode (kernel attention) against the
 # plain prefill forward: relative L2 bound by compute dtype. In bf16 each
 # path is ~2e-2 from the fp32 logits after 32 layers (a CPU run of
@@ -1269,6 +1322,9 @@ class Smoke:
             (1, RG_H, RG_KV, 1, RG_WINDOW, RG_HD, True, 33),
             (4, H, KV, 1, PROMPT + NEW, HD, True, 0),
             (4, RG_H, RG_KV, 1, RG_WINDOW, RG_HD, True, 0),
+            # The five families served since, at B = 1 and B = 4.
+            *[(b_, h_, kv_, 1, sk, HD, True, w_) for b_ in (1, 4)
+              for h_, kv_, sk, w_ in FAMILY_DECODE],
         ]
         for b, h, kv, sq, sk, hd, causal, window in cases:
             for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -1285,7 +1341,11 @@ class Smoke:
         # A decode row gets the same bits alone and inside a batch of 4, and
         # on every run: the split plan depends on (Sk, hd) only.
         for h, kv, hd, sk in ((H, KV, HD, PROMPT + NEW),
-                              (RG_H, RG_KV, RG_HD, RG_WINDOW)):
+                              (RG_H, RG_KV, RG_HD, RG_WINDOW),
+                              (32, 32, HD, FAM_PROMPT + NEW),
+                              (40, 10, HD, FAM_PROMPT + NEW),
+                              (16, 16, HD, FAM_PROMPT + NEW),
+                              (32, 16, HD, G3_WINDOW)):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = self._attn_inputs(rng, 4, h, kv, 1, sk, hd, dtype)
                 batch = FA.flash_attention_cuda(q, k, v)
@@ -1313,7 +1373,16 @@ class Smoke:
                 ("decode_hd256", RG_H, RG_KV, RG_HD, 1, PROMPT + NEW, 0),
                 ("decode_hd256_ring", RG_H, RG_KV, RG_HD, 1, RG_WINDOW, 0),
                 ("prefill_hd256", RG_H, RG_KV, RG_HD, RG_WINDOW, RG_WINDOW,
-                 RG_WINDOW)):
+                 RG_WINDOW),
+                # The five families' served decode shapes (the longest
+                # prefix their phases reach), gemma3's full local ring and
+                # the global prefix of its ring-wrap check.
+                ("decode_codeqwen", 32, 32, HD, 1, FAM_PROMPT + NEW, 0),
+                ("decode_phi3", 40, 10, HD, 1, FAM_PROMPT + NEW, 0),
+                ("decode_gemma3", 32, 16, HD, 1, FAM_PROMPT + NEW, G3_WINDOW),
+                ("decode_gemma3_ring", 32, 16, HD, 1, G3_WINDOW, 0),
+                ("decode_gemma3_global", 32, 16, HD, 1, G3_WRAP_PROMPT, 0),
+                ("decode_moe", 16, 16, HD, 1, FAM_PROMPT + NEW, 0)):
             q, k, v = self._attn_inputs(rng, 1, h, kv, sq, sk, hd,
                                         torch.bfloat16)
             # Kept (query, key) pairs under the end-aligned causal mask (a
@@ -1665,16 +1734,19 @@ class Smoke:
     # -- 13, 14, 15 ------------------------------------------------------------
     def _serve_arch(self, arch, *, prompt_len, new, static_requests,
                     cont_requests, kmod, kfn, kname, want, check,
-                    kernels=None, prefill=None):
+                    kernels=None, prefill=None, param_dtype="float32"):
         """Serve ``arch`` at full width through ``launch.serve``, static
-        and continuous, with random weights from seed 0. ``kmod.kfn`` is
+        and continuous, with random weights from seed 0 in ``param_dtype``
+        (handed to ``launch.serve.main``; the compute dtype stays the
+        config's bf16). ``kmod.kfn`` is
         the wrapper of a kernel the decode call launches (``kname`` in
         ``kmod.LAUNCHES``); the first call whose arguments satisfy ``want``
         is captured and handed to ``check`` after the run. ``kernels``
         maps each kernel name to its module and its launches per decode
         call (default: ``kname``, once a layer). ``prefill`` maps a kernel
         name to its module and its launches per prefill forward, counted
-        over the decode-replay check's two prefill forwards. Returns the
+        over the decode-replay check's two prefill forwards (an MoE
+        config's at the capacity of :meth:`_dropless`). Returns the
         launches of both modes (and of those forwards) by kernel."""
         import numpy as np
         import torch
@@ -1683,19 +1755,25 @@ class Smoke:
         from repro_torch.launch import serve as L
         from repro_torch.models import build_model, transformer
         from repro_torch.serve import sequential_oracle
+        from repro_torch.train import leaves
 
         cfg = get_config(arch)
-        model = build_model(cfg)
         kernels = kernels or {kname: (kmod, cfg.num_layers)}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        params = model.init(0, device=self.dev)
+        params = build_model(cfg.replace(param_dtype=param_dtype)).init(
+            0, device=self.dev)
         torch.cuda.synchronize()
         n_params = cfg.param_counts()["total"]
+        # What the card holds and a decode call reads: padded experts too.
+        held = leaves(params)
+        w_numel = sum(t.numel() for t in held)
+        w_bytes = sum(t.numel() * t.element_size() for t in held)
         log(f"serve {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-            f"{n_params / 1e9:.3f} B params in fp32 ({4 * n_params / 1e9:.2f}"
-            f" GB), bf16 compute; weights made in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{n_params / 1e9:.3f} B params ({w_numel / 1e9:.3f} B held) in "
+            f"{param_dtype} ({w_bytes / 1e9:.2f} GB), {cfg.dtype} compute; "
+            f"weights made in {time.perf_counter() - t0:.1f} s")
+        del held
         base = ["--arch", cfg.name, "--batch", str(SLOTS), "--prompt-len",
                 str(prompt_len), "--max-new", str(new), "--data",
                 os.path.join(self.tmp, f"prompts_{arch}.bin")]
@@ -1785,7 +1863,8 @@ class Smoke:
         prefill = prefill or {}
         pre_counts = {k: 0 for k in prefill}
         for dtype, tol in PREFILL_REL_TOL.items():
-            m = build_model(cfg.replace(dtype=dtype))
+            m = build_model(self._dropless(cfg, prompt_len).replace(
+                dtype=dtype))
             with torch.no_grad():
                 state = m.init_decode_state(params, 1, prompt_len + new)
                 for t in range(prompt_len):
@@ -1823,9 +1902,9 @@ class Smoke:
             log(f"serve {arch}: B=1 {dtype} decode call at positions "
                 f"{prompt_len}-{prompt_len + new - 1}: {per_call * 1e3:.2f} "
                 f"ms (host clock, synchronized) = {1 / per_call:.1f} tokens/s"
-                f" a stream; it reads the {4 * n_params / 1e9:.2f} GB of "
-                f"fp32 weights -> >= {4 * n_params / HBM_BYTES_PER_S * 1e3:.2f}"
-                f" ms at 3.35 TB/s")
+                f" a stream; it reads the {w_bytes / 1e9:.2f} GB of "
+                f"{param_dtype} weights -> >= "
+                f"{w_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s")
         for k, (_, n) in prefill.items():
             n_fwd = len(PREFILL_REL_TOL)
             if pre_counts[k] != n * n_fwd:
@@ -1939,58 +2018,64 @@ class Smoke:
             kernels={"rglru_scan_gated": (LRU, RG_REC),
                      "rglru_scan": (LRU, 0),
                      "flash_attention": (FA, RG_LOC)})
-        self._ring_wrap()
+        self._ring_wrap(
+            "ring_wrap", "recurrentgemma-2b", WRAP_LAYERS, WRAP_PROMPT,
+            lambda n_att: {"rglru_scan_gated": (LRU, WRAP_LAYERS - n_att),
+                           "rglru_scan": (LRU, 0),
+                           "flash_attention": (FA, n_att)})
 
-    def _ring_wrap(self):
-        """The first WRAP_LAYERS layers of recurrentgemma-2b at full width
-        in fp32: one WRAP_PROMPT-token prompt replayed through decode, so
-        that every local layer's 2048-slot ring wraps, against the plain
-        prefill forward, which masks the window explicitly."""
+    def _ring_wrap(self, name, arch, layers, prompt_len, kernels):
+        """The first ``layers`` layers of ``arch`` at full width in fp32
+        (params and compute): one ``prompt_len``-token prompt replayed
+        through decode, so that every local layer's ring (of its window's
+        slots) wraps while a global layer keeps every position, against the
+        plain prefill forward, which masks the window explicitly.
+        ``kernels(n_att)`` maps each kernel counted to its module and its
+        launches a token, given the attention layers."""
         import numpy as np
         import torch
 
-        from repro_torch.configs.base import ATTN_LOCAL
+        from repro_torch.configs.base import ATTN, ATTN_LOCAL
         from repro_torch.configs.registry import get_config
-        from repro_torch.kernels import flash_attention as FA
-        from repro_torch.kernels import rglru_scan as LRU
         from repro_torch.models import build_model
 
-        cfg = get_config("recurrentgemma-2b").replace(
-            num_layers=WRAP_LAYERS, dtype="float32")
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32",
+                                       param_dtype="float32")
         model = build_model(cfg)
         params = model.init(0, device=self.dev)
-        n_att = sum(spec.mixer == ATTN_LOCAL for spec in cfg.layer_schedule())
+        specs = [s for s in cfg.layer_schedule() if s.mixer in (ATTN,
+                                                                 ATTN_LOCAL)]
+        want_rings = [min(s.window, prompt_len) if s.mixer == ATTN_LOCAL
+                      else prompt_len for s in specs]
+        counted = kernels(len(specs))
         prompt = torch.from_numpy(np.random.default_rng(5).integers(
-            0, cfg.vocab_size, size=(1, WRAP_PROMPT)).astype(np.int32)).to(
+            0, cfg.vocab_size, size=(1, prompt_len)).astype(np.int32)).to(
                 self.dev)
         torch.cuda.synchronize()
-        FA.reset_launch_counts()
-        LRU.reset_launch_counts()
+        for mod, _ in counted.values():
+            mod.reset_launch_counts()
         t = time.perf_counter()
         with torch.no_grad():
-            state = model.init_decode_state(params, 1, WRAP_PROMPT)
-            for i in range(WRAP_PROMPT):
+            state = model.init_decode_state(params, 1, prompt_len)
+            for i in range(prompt_len):
                 logits, state = model.decode(params, state,
                                              {"tokens": prompt[:, i:i + 1]})
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            counts = {"rglru_scan_gated": LRU.LAUNCHES["rglru_scan_gated"],
-                      "rglru_scan": LRU.LAUNCHES["rglru_scan"],
-                      "flash_attention": FA.LAUNCHES["flash_attention"]}
+            counts = {k: mod.LAUNCHES[k] for k, (mod, _) in counted.items()}
             pre = model.prefill_logits(params, {"tokens": prompt})
         rings = [st.k.shape[1] for st in state.layers if hasattr(st, "k")]
-        want = {"rglru_scan_gated": (WRAP_LAYERS - n_att) * WRAP_PROMPT,
-                "rglru_scan": 0, "flash_attention": n_att * WRAP_PROMPT}
-        if rings != [RG_WINDOW] * n_att or counts != want:
-            raise AssertionError(f"ring wrap: rings {rings}, launches "
-                                 f"{counts} (want {want})")
-        self.launches["ring_wrap"] = counts
+        want = {k: n * prompt_len for k, (_, n) in counted.items()}
+        if rings != want_rings or counts != want:
+            raise AssertionError(f"{name}: rings {rings} (want {want_rings})"
+                                 f", launches {counts} (want {want})")
+        self.launches[name] = counts
         a, b = logits.float(), pre.float()
         rel = ((a - b).norm() / b.norm()).item()
-        log(f"ring wrap: {WRAP_LAYERS} layers ({n_att} local, rings of "
-            f"{RG_WINDOW} slots), fp32, a {WRAP_PROMPT}-token prompt replayed "
-            f"through decode in {wall:.1f} s ({wall / WRAP_PROMPT * 1e3:.2f} ms"
-            f" a call, host clock); launches {json.dumps(counts)}; last "
+        log(f"{name}: {arch}, {layers} layers ({len(specs)} attention, rings "
+            f"of {rings} slots), fp32, a {prompt_len}-token prompt replayed "
+            f"through decode in {wall:.1f} s ({wall / prompt_len * 1e3:.2f} "
+            f"ms a call, host clock); launches {json.dumps(counts)}; last "
             f"logits vs the prefill forward: relative L2 {rel:.3e} (bound "
             f"{PREFILL_REL_TOL['float32']}), max abs "
             f"{(a - b).abs().max().item():.3e}, same argmax "
@@ -1998,8 +2083,63 @@ class Smoke:
         del params, state, logits, pre, a, b
         torch.cuda.empty_cache()
         if not rel <= PREFILL_REL_TOL["float32"]:
-            raise AssertionError(f"ring wrap: decode replay differs from "
+            raise AssertionError(f"{name}: decode replay differs from "
                                  f"prefill (relative L2 {rel})")
+
+    @staticmethod
+    def _dropless(cfg, prompt_len):
+        """The config whose prefill forward a decode replay must equal. A
+        decode call routes one token, whose top-k experts are distinct, so
+        it never meets an expert's capacity; a prefill forward at the
+        config's capacity factor (1.25) drops the choices past an expert's
+        C slots, a function of the whole prompt. With capacity factor
+        n_real / top_k, C is the prompt's length and no expert can
+        overflow: the forward then computes what decode does (at S = 1 it
+        keeps C = 1). A dense config is returned as it is."""
+        if not cfg.num_experts:
+            return cfg
+        cf = cfg.num_experts / cfg.top_k
+        C = max(1, int(cf * cfg.top_k * prompt_len / cfg.num_experts + 0.5))
+        if C < prompt_len:
+            raise AssertionError(f"{cfg.name}: capacity {C} < {prompt_len}")
+        return cfg.replace(capacity_factor=cf)
+
+    # -- 16-20 -----------------------------------------------------------------
+    def serve_family(self, arch):
+        """One of the five text families served since recurrentgemma, at
+        full width and all its layers (FAMILIES), through the phases'
+        common path; every layer is attention, so a decode call launches
+        the flash-attention kernel once a layer. gemma3-27b then runs its
+        ring-wrap check."""
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import ref
+
+        phase, param_dtype = FAMILIES[arch]
+        cfg = get_config(arch)
+        h, kv = cfg.num_heads, cfg.num_kv_heads
+
+        def check(fa, q, k, v, **kw):
+            self._close("flash_attention", fa(q, k, v, **kw),
+                        ref.attention_ref(q, k, v, **kw), 2e-2)
+            return (f"q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
+                    f"window {kw.get('window', 0)}: kernel within 2e-2 of the "
+                    f"plain version")
+
+        # One layer's served decode inputs at the longest prefix (B=1).
+        self.launches[phase] = self._serve_arch(
+            arch, prompt_len=FAM_PROMPT, new=NEW,
+            static_requests=FAM_STATIC_REQUESTS,
+            cont_requests=FAM_CONT_REQUESTS, kmod=FA,
+            kfn="flash_attention_cuda", kname="flash_attention",
+            want=lambda q, k, v, **kw: (q.shape[:3] == (1, h, 1)
+                                        and k.shape[1:3] == (
+                                            kv, FAM_PROMPT + NEW)),
+            check=check, param_dtype=param_dtype)
+        if arch == "gemma3-27b":
+            self._ring_wrap("ring_wrap_gemma3", arch, G3_WRAP_LAYERS,
+                            G3_WRAP_PROMPT,
+                            lambda n_att: {"flash_attention": (FA, n_att)})
 
     # -- result ----------------------------------------------------------------
     def kernel_line(self):
@@ -2067,6 +2207,8 @@ def main() -> int:
             sm.phase("serve", sm.serve)
             sm.phase("serve_ssm", sm.serve_ssm)
             sm.phase("serve_hybrid", sm.serve_hybrid)
+            for arch, (name, _) in FAMILIES.items():
+                sm.phase(name, lambda arch=arch: sm.serve_family(arch))
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)
     finally:

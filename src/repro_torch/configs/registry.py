@@ -2,9 +2,13 @@
 
 ``get_config(name)`` returns the exact published config; ``smoke_config``
 shrinks a config to a CPU-runnable size *of the same family* (same block
-pattern, same mixer kinds, few layers, tiny widths). The port carries the
-dense phi4-mini-3.8b, the SSM falcon-mamba-7b and the hybrid
-recurrentgemma-2b so far; the other families come with their slices.
+pattern, same mixer kinds, few layers, tiny widths). The port carries every
+decoder-only text family of the reference: the dense phi4-mini-3.8b,
+codeqwen1.5-7b, phi3-medium-14b and gemma3-27b (5 local : 1 global
+attention), the MoE qwen2-moe-a2.7b (padded and shared experts) and
+olmoe-1b-7b, the SSM falcon-mamba-7b and the hybrid recurrentgemma-2b. The
+VLM qwen2-vl-2b and the encoder-decoder whisper-medium come with their
+slices.
 """
 from __future__ import annotations
 
@@ -12,12 +16,18 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.codeqwen1_5_7b import CONFIG as _codeqwen
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
+from repro_torch.configs.gemma3_27b import CONFIG as _gemma3
+from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
+from repro_torch.configs.phi3_medium_14b import CONFIG as _phi3
 from repro_torch.configs.phi4_mini_3_8b import CONFIG as _phi4
+from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _qwen2_moe
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _recurrentgemma
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (_phi4, _falcon_mamba, _recurrentgemma)}
+    c.name: c for c in (_qwen2_moe, _olmoe, _codeqwen, _phi4, _phi3, _gemma3,
+                        _falcon_mamba, _recurrentgemma)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -10,12 +10,17 @@ with a ``ServeMetrics`` summary table (arrival→ingested / →first-token /
 
 The flags are the reference driver's plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain PyTorch path). ``--arch`` takes the families the
-port carries: ``phi4-mini-3.8b`` (the default; dense attention, each
-decode call through the flash-attention kernel), ``falcon-mamba-7b``
+port carries: ``phi4-mini-3.8b`` (the default), ``codeqwen1.5-7b``,
+``phi3-medium-14b`` and ``gemma3-27b`` (dense attention; gemma3's local
+layers over 1,024-slot rings), ``qwen2-moe-a2.7b`` and ``olmoe-1b-7b``
+(attention with Mixture-of-Experts FFNs), each decode call through the
+flash-attention kernel in every attention layer; ``falcon-mamba-7b``
 (attention-free; each decode call through the selective-scan kernel) and
 ``recurrentgemma-2b`` (the reference's default; each decode call through
 the RG-LRU kernel in its 18 recurrent layers and the flash-attention kernel
-over a local-window ring in its 8 attention layers).
+over a local-window ring in its 8 attention layers). Params in another
+``param_dtype`` than the config's (gemma3-27b's fp32 params exceed one
+80 GB card; bf16 ones fit) come in through ``main(argv, params=...)``.
 ``--service`` and ``--pool-workers`` raise until the reader service is
 ported.
 

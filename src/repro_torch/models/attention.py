@@ -202,8 +202,7 @@ def attention_decode(
     if softcap > 0.0:
         raise NotImplementedError(
             "attention logit softcap in decode: the flash-attention kernel "
-            "does not compute it; it comes with the gemma slices (ROADMAP.md,"
-            " Queue A item 9)")
+            "does not compute it, and no config the port carries sets one")
     q, k_new, v_new = _project_qkv(params, x, dtype, eps)
     if use_rope:
         q = apply_rope(q, cos, sin)

@@ -3,8 +3,13 @@ reference's JAX pytrees and the port.
 
 The reference stacks each block-pattern position's params over a leading
 ``num_blocks`` axis (``params["blocks"]["l{i}"]``, scanned by the stack)
-and keeps the remainder layers in ``params["tail"]``. The port keeps one
-dict per layer, in schedule order, in ``params["layers"]``. The param and
+and keeps the remainder layers in ``params["tail"]`` (gemma3-27b: 10
+blocks of 6 layers and 2 tail layers). The port keeps one dict per layer,
+in schedule order, in ``params["layers"]``. Leaves map by name, one to
+one, whatever the layer holds: an MoE layer's ``router`` (d, E + pad), its
+``gate`` / ``up`` (E + pad, d, f) and ``down`` (E + pad, f, d), and its
+``shared_*`` experts keep the reference's shapes, padded experts
+included. The param and
 decode-state functions take and give NumPy arrays on the reference side
 (the caller moves them in and out of JAX), so this module needs neither
 package's arrays; the train-state pair keeps tensors on both sides, since

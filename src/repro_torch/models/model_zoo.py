@@ -1,6 +1,6 @@
-"""Model facade: one interface over the decoder-only stack (dense
-attention blocks, attention-free Mamba-1 blocks and Griffin's RG-LRU and
-local-attention blocks so far)."""
+"""Model facade: one interface over the decoder-only stack (global and
+local attention blocks with dense or Mixture-of-Experts FFNs,
+attention-free Mamba-1 blocks and Griffin's RG-LRU blocks)."""
 from __future__ import annotations
 
 import functools
@@ -51,7 +51,7 @@ class Model:
         if frames is not None:
             raise NotImplementedError(
                 "encoder frames: encoder-decoder decode comes with the "
-                "whisper slice (ROADMAP.md, Queue A item 9)")
+                "whisper slice (ROADMAP.md, Queue A item 13)")
         return transformer.init_decode_state(self.cfg, batch_size, seq_budget,
                                              self.device(params))
 

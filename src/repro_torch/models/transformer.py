@@ -14,10 +14,15 @@ local-window layer, updated in place (``attention_decode``), a
 layer. The next position is a host int, so that picking the cache slots to
 attend over needs no device sync.
 
-The port carries dense attention blocks (phi4-mini), attention-free Mamba-1
-blocks (falcon-mamba) and Griffin's RG-LRU and local-attention blocks with
-GeGLU MLPs (recurrentgemma) so far; the other mixer and FFN kinds raise
-``NotImplementedError`` and come with their families.
+Every layer kind of the reference's decoder-only text families is
+carried: global and local attention with a dense SwiGLU or GeGLU MLP
+(phi4-mini, codeqwen, phi3-medium, gemma3), attention with a
+Mixture-of-Experts FFN (qwen2-moe, olmoe; ``models/moe.py``),
+attention-free Mamba-1 blocks (falcon-mamba) and Griffin's RG-LRU blocks
+(recurrentgemma). An MoE layer's router loss is summed over the stack
+(through the checkpointed blocks too) and added to the loss with weight
+``router_aux_coef``, as in the reference. Any other layer kind raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.configs.base import (
     ATTN_LOCAL,
     DENSE,
     MAMBA,
+    MOE,
     NONE,
     RGLRU,
     ModelConfig,
@@ -49,6 +55,7 @@ from repro_torch.models.layers import (
     softmax_xent,
     unembed_logits,
 )
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (
     MambaState,
     mamba_apply,
@@ -78,6 +85,7 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_spec(spec) -> None:
     if not ((spec.mixer in (ATTN, ATTN_LOCAL, RGLRU) and spec.ffn == DENSE)
+            or (spec.mixer == ATTN and spec.ffn == MOE)
             or (spec.mixer == MAMBA and spec.ffn == NONE)):
         raise NotImplementedError(
             f"layer kind ({spec.mixer}, {spec.ffn}) is not carried by the "
@@ -105,7 +113,12 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec, device
                                bias=cfg.attn_bias, qk_norm=cfg.qk_norm)
     if spec.ffn != NONE:
         p["norm2"] = rmsnorm_init(d, pd, device)
-        p["ffn"] = mlp_init(gen, d, cfg.d_ff, cfg.act, pd, device)
+        if spec.ffn == MOE:
+            p["ffn"] = moe_init(gen, d, cfg.num_experts, cfg.moe_d_ff,
+                                cfg.num_shared_experts, pd, device,
+                                expert_pad=cfg.expert_pad)
+        else:
+            p["ffn"] = mlp_init(gen, d, cfg.d_ff, cfg.act, pd, device)
     return p
 
 
@@ -130,8 +143,18 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device
 # ---------------------------------------------------------------------------
 # train / prefill forward
 # ---------------------------------------------------------------------------
+def _ffn(params, spec, cfg: ModelConfig, h, dt):
+    """(the FFN's output, its router loss or None for a dense MLP)."""
+    if spec.ffn == MOE:
+        return moe_apply(params["ffn"], h, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, dtype=dt,
+                         num_real_experts=cfg.num_experts)
+    return mlp_apply(params["ffn"], h, cfg.act, dt), None
+
+
 def apply_layer_train(params, spec, cfg: ModelConfig, x, cos, sin
-                      ) -> torch.Tensor:
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the layer's output, its router loss: 0 but for an MoE layer)."""
     dt = _dtype(cfg)
     eps = cfg.norm_eps
     h = rmsnorm(params["norm1"], x, eps)
@@ -145,13 +168,19 @@ def apply_layer_train(params, spec, cfg: ModelConfig, x, cos, sin
             window=spec.window, softcap=cfg.attn_logit_softcap,
             use_rope=cfg.use_rope, q_chunk=cfg.attn_q_chunk,
         )
-    if spec.ffn == NONE:
-        return x
-    h = rmsnorm(params["norm2"], x, eps)
-    return x + mlp_apply(params["ffn"], h, cfg.act, dt)
+    aux = None
+    if spec.ffn != NONE:
+        f, aux = _ffn(params, spec, cfg, rmsnorm(params["norm2"], x, eps), dt)
+        x = x + f
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
-def forward_backbone(params, cfg: ModelConfig, x, cos, sin) -> torch.Tensor:
+def forward_backbone(params, cfg: ModelConfig, x, cos, sin
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final-normed hidden states, the router loss summed over the
+    layers in schedule order, the reference's scan carry)."""
     if cfg.remat_policy not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
     schedule = cfg.layer_schedule()
@@ -159,21 +188,23 @@ def forward_backbone(params, cfg: ModelConfig, x, cos, sin) -> torch.Tensor:
     nb = cfg.num_layers // per_block
     layers = params["layers"]
 
-    def run(x, lo: int, hi: int):
+    def run(x, aux, lo: int, hi: int):
         for i in range(lo, hi):
-            x = apply_layer_train(layers[i], schedule[i], cfg, x, cos, sin)
-        return x
+            x, a = apply_layer_train(layers[i], schedule[i], cfg, x, cos, sin)
+            aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for b in range(nb):
         lo, hi = b * per_block, (b + 1) * per_block
         if cfg.remat_policy == "none" or not torch.is_grad_enabled():
-            x = run(x, lo, hi)
+            x, aux = run(x, aux, lo, hi)
         else:
             # "dots" and "full" both recompute the block in the backward
             # pass (the reference's "dots" also keeps matmul outputs).
-            x = checkpoint(run, x, lo, hi, use_reentrant=False)
-    x = run(x, nb * per_block, cfg.num_layers)        # tail layers
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            x, aux = checkpoint(run, x, aux, lo, hi, use_reentrant=False)
+    x, aux = run(x, aux, nb * per_block, cfg.num_layers)     # tail layers
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def _positions(batch: Dict[str, torch.Tensor], S: int, B: int, device):
@@ -211,11 +242,9 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     """Full train forward -> (scalar loss fp32, metrics)."""
     x, B, S = _input_x(params, cfg, batch)
     cos, sin = _rope(cfg, _positions(batch, S, B, x.device))
-    x = forward_backbone(params, cfg, x, cos, sin)
+    x, aux = forward_backbone(params, cfg, x, cos, sin)
     xent = softmax_xent(_logits(params, cfg, x), batch["labels"],
                         mode=cfg.xent_mode)
-    # Dense blocks carry no router loss: aux is 0, as in the reference.
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return xent + cfg.router_aux_coef * aux, {"xent": xent, "aux": aux}
 
 
@@ -224,7 +253,7 @@ def forward_logits(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Prefill forward (no labels). Returns last-position logits by default."""
     x, B, S = _input_x(params, cfg, batch)
     cos, sin = _rope(cfg, _positions(batch, S, B, x.device))
-    x = forward_backbone(params, cfg, x, cos, sin)
+    x, _ = forward_backbone(params, cfg, x, cos, sin)
     if last_only:
         x = x[:, -1:]
     return _logits(params, cfg, x)
@@ -287,8 +316,9 @@ def apply_layer_decode(params, state: LayerState, spec, cfg: ModelConfig, x,
     x = x + m
     if spec.ffn == NONE:
         return x, new_state
-    h = rmsnorm(params["norm2"], x, eps)
-    return x + mlp_apply(params["ffn"], h, cfg.act, dt), new_state
+    # An MoE layer routes the one token (S = 1), as the reference does.
+    f, _ = _ffn(params, spec, cfg, rmsnorm(params["norm2"], x, eps), dt)
+    return x + f, new_state
 
 
 def decode_step(params, cfg: ModelConfig, state: DecodeState,

@@ -54,13 +54,13 @@ def _to_numpy(t):
     return t.numpy()
 
 
-def _states(master: bool):
-    """The reference's smoke phi4-mini ``{"params", "opt"}`` (bf16 params
+def _states(master: bool, arch: str = "phi4-mini-3.8b"):
+    """The reference's smoke ``{"params", "opt"}`` of ``arch`` (bf16 params
     with fp32 masters when ``master``; seeded random moments, step 7) and
     the port's copy of it."""
     dtype = "bfloat16" if master else "float32"
-    jcfg = jsmoke(jget_config("phi4-mini-3.8b")).replace(param_dtype=dtype)
-    tcfg = smoke_config(get_config("phi4-mini-3.8b")).replace(param_dtype=dtype)
+    jcfg = jsmoke(jget_config(arch)).replace(param_dtype=dtype)
+    tcfg = smoke_config(get_config(arch)).replace(param_dtype=dtype)
     jp = jbuild(jcfg).init(jax.random.PRNGKey(0))
     jopt = jinit_opt(jp, master_weights=master)
     rng = np.random.default_rng(3)
@@ -93,11 +93,17 @@ def _tree_pair(case):
         j = {"w": jnp.arange(64, dtype=jnp.float32),
              "c": jnp.asarray(7, jnp.int32)}
         return j, jax.tree.map(_to_torch, j)
-    jstate, tstate, tcfg = _states(master=case == "state_master")
+    jstate, tstate, tcfg = _states(master=case == "state_master",
+                                   arch=STATE_ARCHS.get(case, "phi4-mini-3.8b"))
     return jstate, train_state_to_reference(tstate, tcfg)
 
 
-CASES = ["mixed", "mixed_int", "aligned", "odd", "state", "state_master"]
+# MoE train states: the router and the (E + pad, ...) expert leaves, and
+# qwen2-moe's 4 padded and shared experts, cross the converter by name.
+STATE_ARCHS = {"state_olmoe": "olmoe-1b-7b",
+               "state_qwen2_moe": "qwen2-moe-a2.7b"}
+CASES = ["mixed", "mixed_int", "aligned", "odd", "state", "state_master",
+         *STATE_ARCHS]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -121,7 +127,8 @@ def _assert_same_leaves(a, b):
 
 
 @pytest.mark.parametrize("use_ckio", [False, True])
-@pytest.mark.parametrize("case", ["mixed", "odd", "state_master"])
+@pytest.mark.parametrize("case", ["mixed", "odd", "state_master",
+                                  *STATE_ARCHS])
 def test_each_package_restores_the_others_file(tmp_path, case, use_ckio):
     j, t = _tree_pair(case)
     jsave(str(tmp_path / "ref.ckpt"), j, step=5)

@@ -373,6 +373,39 @@ def test_cuda_split_decode_matches_split_plain(cuda, B, H, K, Sq, Sk, hd,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# The decode shapes of the five text families served since: codeqwen
+# (32/32, G = 1), phi3-medium (40/10, G = 4), the two MoE families (16/16,
+# G = 1) and gemma3 (32/16, G = 2) with its 1,024-key local window, passed
+# while a local ring fills (Sk <= 1,024) and dropped once it has wrapped
+# (Sk = 1,024, every slot kept), and its global layers (no window, Sk past
+# the window). Key counts at the 32-key spans' edges, the served prefixes
+# (64-token prompts and 16 new tokens) and long ones (span 96 at 4,100).
+FAMILY_DECODE = [
+    *[(h, k, sk, 0) for h, k in ((32, 32), (40, 10), (16, 16))
+      for sk in (1, 63, 64, 65, 80, 2048, 4100)],
+    *[(32, 16, sk, 1024) for sk in (1, 65, 80, 1023, 1024)],
+    (32, 16, 1024, 0), (32, 16, 1100, 0), (32, 16, 4100, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FA_DTYPES)
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("H,K,Sk,window", FAMILY_DECODE)
+def test_cuda_decode_at_the_served_families_shapes(cuda, H, K, Sk, window, B,
+                                                   dtype, tol):
+    q, k, v = _attn_inputs(B, H, K, 1, Sk, 128, dtype, cuda, seed=Sk + H)
+    plan = FA.launch_plan(q.shape, k.shape, dtype, window=window)
+    assert plan["path"] == "decode"
+    FA.reset_launch_counts()
+    got = FA.flash_attention_cuda(q, k, v, window=window)
+    want = ref.attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def _odd_views(B, H, K, Sq, Sk, hd, dtype, device, how):
     """q, k, v with a dim stride of 2 ("strided") or offset by one element
     from a 16-byte boundary ("misaligned")."""
@@ -412,7 +445,10 @@ def test_cuda_flash_attention_takes_odd_strides(cuda, how, H, K, Sq, Sk, hd,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,K,Sk,hd", [(24, 8, 144, 128), (24, 8, 2048, 128),
-                                       (10, 1, 129, 256), (10, 1, 2048, 256)])
+                                       (10, 1, 129, 256), (10, 1, 2048, 256),
+                                       (32, 32, 80, 128), (40, 10, 80, 128),
+                                       (16, 16, 80, 128), (32, 16, 1024, 128),
+                                       (32, 16, 1100, 128)])
 def test_cuda_decode_row_is_bitwise_the_same_at_any_batch(cuda, H, K, Sk, hd,
                                                           dtype):
     # The continuous batcher's tokens equal the sequential oracle's only if
