@@ -147,14 +147,44 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              GB; serve_gemma3 then runs its first 6 layers (5 local + 1
              global) in fp32 over a 1,100-token prompt, so the local rings
              wrap while the global layer keeps every position (1e-4);
-21. profile  only with ``--profile``: two whole-window main-path steps, 16
+21. fileset  the train driver over a 3-shard corpus through the cold-path
+             read engine, in three legs. (a) ``launch.train.main`` with
+             phi4-mini at full width, 4 layers, batch 8 x 2048, 4
+             microbatches, 4 steps, ``--device-ingest --direct-io
+             --queue-depth 8 --num-readers 4 --data a b c``, whole-window
+             and then ``--streaming``: the corpus holds 2 step windows
+             (steps 3-4 read windows 1-2 again, the driver's ``step %
+             num_steps``), each straddling a shard start (interior shards
+             of whole blocks, the last odd-sized). Batches and the 4 losses
+             must be bit-equal to a single file of the same tokens read
+             with the blocking buffered loop; one window-kernel launch a
+             step, no table upload; every session's in-flight high-water
+             mark <= 8; per-shard bytes summing to the bytes read; no read
+             spanning two shard files. Checkpoints are off in these runs
+             (each would save 12.2 GB twice; phase 6 holds them). (b) One
+             cold session of 2 GiB over 3 shard files, blocking buffered,
+             queue depth 8 buffered with 8 MiB of readahead, and queue
+             depth 8 ``O_DIRECT``: the files evicted (``drop_page_cache``)
+             and the eviction checked with ``mincore`` before each; bytes
+             exact; GB/s beside the cache state, the submit kind and the
+             filesystem under ``build/``. (c) 8 cold sessions of 256 MiB
+             of one shard file under ``adaptive_queue`` and then under
+             ``adaptive_splinters``: the (depth, readahead) and splinter
+             paths the tuners chose, each session's GB/s, bytes exact.
+             Where no ``O_DIRECT`` open succeeds under ``build/``, (a)
+             asserts that ``--direct-io`` raises ``DirectIOError`` naming
+             the file and runs buffered at queue depth 8, and (b) drops its
+             direct mode. These are host-storage numbers on the card's
+             machine, not a speed of the card;
+22. profile  only with ``--profile``: two whole-window main-path steps, 16
              B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
              recurrentgemma under ``torch.profiler`` (device busy share,
              kernels and copies a call, kernels by device time).
 
 The launch counts are zeroed just before each main-path run (phases 4-8,
 each mode of phases 13-20, the prefill forwards of phase 14's replay check,
-and the two ring-wrap replays) and read just after it. The line before the last is a JSON object with one entry per kernel;
+the two ring-wrap replays and the three driver runs of phase 21) and read
+just after it. The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -237,6 +267,11 @@ FAMILIES = {
     "olmoe-1b-7b": ("serve_olmoe", "float32"),
 }
 FAM_PROMPT, FAM_STATIC_REQUESTS, FAM_CONT_REQUESTS = 64, 4, 2
+# The fileset phase: queue depth of leg (a) and (b); leg (b)'s shards in
+# MiB (the last one 517 tokens past it: odd-sized); leg (c)'s sessions.
+FS_DEPTH, FS_READERS = 8, 4
+COLD_SHARD_MIB, COLD_READAHEAD = (720, 720, 608), 8 << 20
+TUNER_SESSIONS, TUNER_BYTES = 8, 256 << 20
 # gemma3's ring-wrap check: its first block (5 local layers with 1,024-slot
 # rings, 1 global layer) at full width in fp32, one prompt past the window.
 G3_WINDOW, G3_WRAP_LAYERS, G3_WRAP_PROMPT = 1024, 6, 1100
@@ -348,6 +383,82 @@ def tokens_sector_floor_bytes(row_idx) -> int:
     the bound (which counts each distinct token once)."""
     b, s1 = row_idx.shape
     return 4 * row_idx.numel() + 32 * int((row_idx >= 0).sum()) + 8 * b * (s1 - 1)
+
+
+# -- page-cache residency (a copy of benchmarks/common.py's probe) -------------
+def residency(path: str):
+    """Fraction of ``path``'s pages resident in the page cache, or ``None``
+    when mincore isn't usable (non-Linux libc, empty file, sandbox)."""
+    import ctypes
+    import ctypes.util
+    import mmap
+
+    try:
+        libc = ctypes.CDLL(ctypes.util.find_library("c") or "libc.so.6",
+                           use_errno=True)
+        libc.mincore  # AttributeError if the symbol is missing
+    except (OSError, AttributeError):
+        return None
+    try:
+        size = os.path.getsize(path)
+        if size <= 0:
+            return None
+        npages = (size + mmap.PAGESIZE - 1) // mmap.PAGESIZE
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            # MAP_PRIVATE + PROT_WRITE: ctypes.from_buffer needs a writable
+            # buffer; private COW keeps the file itself untouched.
+            m = mmap.mmap(fd, size, flags=mmap.MAP_PRIVATE,
+                          prot=mmap.PROT_READ | mmap.PROT_WRITE)
+        finally:
+            os.close(fd)
+        try:
+            vec = (ctypes.c_ubyte * npages)()
+            addr = ctypes.addressof(ctypes.c_char.from_buffer(m))
+            if libc.mincore(ctypes.c_void_p(addr), ctypes.c_size_t(size),
+                            vec) != 0:
+                return None
+            return sum(b & 1 for b in vec) / npages
+        finally:
+            del vec
+            m.close()
+    except (OSError, ValueError):
+        return None
+
+
+def evict(paths):
+    """Drop ``paths`` from the page cache and say how far that is known:
+    "verified" (fadvise worked and mincore shows at most 2 % of each file's
+    pages resident), "advisory" (fadvise worked, mincore unavailable) or
+    "warm" (eviction failed or did not hold); with each file's fadvise
+    result and resident share after it."""
+    from repro_torch.io.posix import drop_page_cache
+
+    states, detail = [], []
+    for p in paths:
+        dropped = drop_page_cache(p)
+        frac = residency(p)
+        detail.append(f"{os.path.basename(p)}: fadvise "
+                      f"{'ok' if dropped else 'failed'}, resident "
+                      f"{'unknown' if frac is None else f'{frac:.4f}'}")
+        states.append("warm" if not dropped else "advisory" if frac is None
+                      else "verified" if frac <= 0.02 else "warm")
+    state = next((s for s in ("warm", "advisory") if s in states),
+                 "verified")
+    return state, "; ".join(detail)
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type ``/proc/mounts`` gives for ``path``'s mount."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, typ = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best):
+                best, kind = mnt, typ
+    return f"{kind} at {best}"
 
 
 class Smoke:
@@ -2141,6 +2252,348 @@ class Smoke:
                             G3_WRAP_PROMPT,
                             lambda n_att: {"flash_attention": (FA, n_att)})
 
+    # -- 21 --------------------------------------------------------------------
+    def fileset(self):
+        """Phase 21: the driver over three shards (leg a), a cold 2 GiB
+        read in three modes (leg b) and the online tuners (leg c); every
+        file lives under ``build/`` and is removed when the phase ends."""
+        from repro_torch.io.posix import fs_block_size, supports_direct_io
+
+        d = os.path.join(self.tmp, "fileset")
+        os.makedirs(d)
+        try:
+            bs = fs_block_size(d)
+            probe = os.path.join(d, "probe.bin")
+            with open(probe, "wb") as f:
+                f.write(b"\0" * bs)
+            direct = supports_direct_io(probe)
+            log(f"fileset: build/ is {fs_type(d)}, block {bs} B; "
+                f"supports_direct_io {direct}")
+            if not direct:
+                log("fileset: no O_DIRECT open succeeds under build/: leg (a)"
+                    " checks that --direct-io raises DirectIOError and runs "
+                    "buffered; leg (b) drops its direct mode")
+            for leg in (self._fileset_driver, self._fileset_cold,
+                        self._fileset_tuners):
+                t0 = time.perf_counter()
+                leg(d, bs, direct)
+                log(f"fileset: {leg.__name__} {time.perf_counter() - t0:.1f}"
+                    f" s")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
+    def _fileset_driver(self, d, bs, direct):
+        """Leg (a): ``launch.train.main`` over ``--data a b c`` against a
+        single file of the same tokens read with the blocking loop."""
+        import contextlib
+        import io
+
+        import numpy as np
+        import torch
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.core import buffers as B_
+        from repro_torch.data import pipeline as P
+        from repro_torch.data import write_token_shards
+        from repro_torch.data.tokenfile import write_token_file
+        from repro_torch.io import posix
+        from repro_torch.io.posix import DirectIOError
+        from repro_torch.kernels import reassemble as K
+        from repro_torch.launch import train as T
+
+        w = B * (S + 1)                      # tokens of a step window
+        unit = bs // 4                       # tokens of a block
+        cut1, cut2 = (w // 2) // unit * unit, (3 * w // 2) // unit * unit
+        if not (0 < cut1 < w < cut2 < 2 * w):
+            raise AssertionError(f"fileset: {bs}-byte blocks leave no shard "
+                                 f"start inside each {w}-token window")
+        total = 2 * w + 517
+        counts = [cut1, cut2 - cut1, total - cut2]
+        vocab = get_config("phi4-mini-3.8b").vocab_size
+        arr = np.random.default_rng(0).integers(0, vocab, total,
+                                                dtype=np.uint32)
+        shards = write_token_shards(os.path.join(d, "shards"), arr, counts)
+        single = os.path.join(d, "single.bin")
+        write_token_file(single, arr)
+        raw = arr.view(np.int32)
+        log(f"fileset: shards of {counts} tokens (starts at {cut1} and "
+            f"{cut2}; windows of {w}), {os.path.getsize(shards[-1])} B last")
+
+        argv = ["--arch", "phi4-mini-3.8b", "--layers", str(ARCH_LAYERS),
+                "--steps", str(STEPS), "--global-batch", str(B),
+                "--seq", str(S), "--microbatches", str(MICROBATCHES),
+                "--lr", "1e-3", "--num-readers", str(FS_READERS),
+                "--num-consumers", "16", "--device-ingest",
+                "--ckpt-every", "1000"]
+        flags = ["--queue-depth", str(FS_DEPTH)]
+        if direct:
+            flags.append("--direct-io")
+        else:
+            try:
+                T.main([*argv, "--data", *shards, "--direct-io",
+                        "--ckpt-dir", os.path.join(d, "ck")])
+            except DirectIOError as e:
+                if shards[0] not in str(e):
+                    raise AssertionError(f"fileset: DirectIOError does not "
+                                         f"name {shards[0]}: {e}")
+                log(f"fileset: --direct-io raised DirectIOError: {e}")
+            else:
+                raise AssertionError("fileset: --direct-io ran where no "
+                                     "O_DIRECT open succeeds")
+
+        class NoSave(T.AsyncCheckpointer):
+            def save(self, tree, step, **kw):
+                return None
+
+        spans = [0, 0]                       # reads, reads spanning shards
+        pread_into = posix.ShardedFile.pread_into
+        starts = []                          # reader-set start() seconds
+        reader_start = B_.BufferReaderSet.start
+
+        def timed_start(readers):
+            t0 = time.perf_counter()
+            try:
+                return reader_start(readers)
+            finally:
+                starts.append(time.perf_counter() - t0)
+
+        def one_shard(self, offset, view, **kw):
+            spans[0] += 1
+            if self.shard_of(offset) != self.shard_of(offset + len(view) - 1):
+                spans[1] += 1
+            return pread_into(self, offset, view, **kw)
+
+        runs = {}
+        get_batch_device = P.CkIOPipeline.get_batch_device
+        make_train_step = T.make_train_step
+        checkpointer = T.AsyncCheckpointer
+        for name, extra in (("single", ["--data", single]),
+                            ("window", ["--data", *shards, *flags]),
+                            ("streamed", ["--data", *shards, *flags,
+                                          "--streaming"])):
+            rec = {"batches": [], "losses": [], "t_batch": [], "t_step": []}
+
+            def timed_batch(pipe, step, *a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, y = get_batch_device(pipe, step, *a, **kw)
+                rec["t_batch"].append((t0, time.perf_counter()))
+                rec["batches"].append((x.cpu().numpy(), y.cpu().numpy()))
+                return x, y
+
+            def recorded_step(*a, **kw):
+                inner = make_train_step(*a, **kw)
+
+                def step_fn(params, opt, batch):
+                    p, o, m = inner(params, opt, batch)
+                    rec["losses"].append(float(m["loss"]))   # synchronizes
+                    rec["t_step"].append(time.perf_counter())
+                    return p, o, m
+                return step_fn
+
+            out = io.StringIO()
+            P.CkIOPipeline.get_batch_device = timed_batch
+            T.make_train_step = recorded_step
+            T.AsyncCheckpointer = NoSave
+            posix.ShardedFile.pread_into = one_shard
+            B_.BufferReaderSet.start = timed_start
+            starts.clear()
+            K.reset_launch_counts()
+            try:
+                with contextlib.redirect_stdout(out):
+                    summary = T.main([*argv, *extra, "--ckpt-dir",
+                                      os.path.join(d, f"ck_{name}")])
+            finally:
+                P.CkIOPipeline.get_batch_device = get_batch_device
+                T.make_train_step = make_train_step
+                T.AsyncCheckpointer = checkpointer
+                posix.ShardedFile.pread_into = pread_into
+                B_.BufferReaderSet.start = reader_start
+            counts_k = dict(K.LAUNCHES)
+            uploads = K.TABLE_UPLOADS
+            self.launches[f"fileset_{name}"] = counts_k
+            torch.cuda.empty_cache()
+            for line in out.getvalue().splitlines():
+                if line.startswith("fileset:"):
+                    log(f"fileset driver: {line}")
+            rec.update(summary=summary, launches=counts_k, uploads=uploads)
+            runs[name] = rec
+            gb = [t1 - t0 for t0, t1 in rec["t_batch"]]
+            step = [e - t0 for (t0, _), e in zip(rec["t_batch"],
+                                                rec["t_step"])]
+            gb_s, step_s = sum(gb[1:]) / len(gb[1:]), sum(step[1:]) / len(
+                step[1:])
+            read = summary["read"]
+            shown = " ".join(a for a in extra if not a.startswith(d))
+            log(f"fileset {name}: {shown}; losses "
+                f"{rec['losses']}; launches {json.dumps(counts_k)}, chunk-"
+                f"table uploads {uploads}; get_batch_device "
+                f"{gb_s * 1e3:.3f} ms of a {step_s * 1e3:.1f} ms step = "
+                f"{gb_s / step_s:.4f} (mean of steps 2-{STEPS}, host clock), "
+                f"reader-set starts {sum(starts) * 1e3:.3f} ms over "
+                f"{len(starts)} sessions; {self.card_line}")
+            log(f"fileset {name}: read {json.dumps(read)}; shards "
+                f"{json.dumps(summary['shards'])}")
+            # -- checks ---------------------------------------------------------
+            if len(rec["batches"]) != STEPS or summary["steps"] != STEPS:
+                raise AssertionError(f"fileset {name}: {summary['steps']} "
+                                     f"steps, {len(rec['batches'])} batches")
+            for step, (x, y) in enumerate(rec["batches"]):
+                win = raw[(step % 2) * w:(step % 2 + 1) * w].reshape(B, S + 1)
+                if not (np.array_equal(x, win[:, :-1])
+                        and np.array_equal(y, win[:, 1:])):
+                    raise AssertionError(f"fileset {name} step {step}: batch "
+                                         f"differs from the tokens")
+            if counts_k["reassemble_window"] != STEPS or uploads:
+                raise AssertionError(f"fileset {name}: window launches "
+                                     f"{counts_k}, uploads {uploads}")
+            if name == "single":
+                continue
+            if read["inflight_hwm"][1] > FS_DEPTH or read["queue_depth"] != [
+                    FS_DEPTH, FS_DEPTH]:
+                raise AssertionError(f"fileset {name}: read {read}")
+            if read["direct_io"] != [direct]:
+                raise AssertionError(f"fileset {name}: direct_io {read}")
+            sh = summary["shards"]
+            if sum(sh["shard_bytes"].values()) != read["bytes_read"] or \
+                    sh["shards_read"] != 3:
+                raise AssertionError(f"fileset {name}: shard bytes {sh} vs "
+                                     f"read {read}")
+            want = runs["single"]
+            for (xg, yg), (xw, yw) in zip(rec["batches"], want["batches"]):
+                if not (np.array_equal(xg, xw) and np.array_equal(yg, yw)):
+                    raise AssertionError(f"fileset {name}: batches differ "
+                                         f"from the single-file run's")
+            if rec["losses"] != want["losses"]:
+                raise AssertionError(f"fileset {name}: losses {rec['losses']}"
+                                     f" vs the single file's {want['losses']}")
+        if spans[1] or not spans[0]:
+            raise AssertionError(f"fileset: {spans[1]} of {spans[0]} shard-"
+                                 f"file reads span two shards")
+        log(f"fileset: batches and losses of both FileSet runs bit-equal to "
+            f"the single file's; {spans[0]} shard-file reads, none spanning "
+            f"two shards")
+
+    def _cold_corpus(self, d):
+        """Leg (b)'s corpus: three token-file shards of ``COLD_SHARD_MIB``
+        MiB (interior ones of whole blocks; the last 517 tokens longer, so
+        odd-sized), as one uint32 array and the shard paths."""
+        import numpy as np
+
+        from repro_torch.data import write_token_shards
+
+        counts = [m << 18 for m in COLD_SHARD_MIB]
+        counts[-1] += 517
+        arr = np.random.default_rng(1).integers(0, 1 << 32, sum(counts),
+                                                dtype=np.uint32)
+        t0 = time.perf_counter()
+        paths = write_token_shards(os.path.join(d, "cold"), arr, counts)
+        for p in paths:
+            fd = os.open(p, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+        log(f"fileset cold: wrote {arr.nbytes} B in {len(paths)} shards in "
+            f"{time.perf_counter() - t0:.2f} s (host clock, fsync included)")
+        return arr, paths
+
+    def _cold_read(self, ck, fh, paths, nbytes, offset, want):
+        """One evicted session of ``nbytes`` at ``offset``: its bytes held
+        against ``want``; returns (GB/s, cache state, session)."""
+        import numpy as np
+
+        state, detail = evict(paths)
+        t0 = time.perf_counter()
+        sess = ck.start_read_session_sync(fh, nbytes, offset)
+        if not sess.readers.join(600):
+            raise AssertionError("fileset: a cold session did not finish")
+        dt = time.perf_counter() - t0
+        got = np.frombuffer(ck.read_view_sync(sess, nbytes, offset),
+                            dtype=np.uint8)
+        same = np.array_equal(got, want)
+        del got
+        ck.close_read_session_sync(sess)
+        if not same:
+            raise AssertionError(f"fileset: session at {offset} of {nbytes}"
+                                 f" B differs from the file")
+        return nbytes / dt / 1e9, (state, detail), sess
+
+    def _fileset_cold(self, d, bs, direct):
+        """Leg (b): one 2 GiB session over three shards, in three modes."""
+        from repro_torch.core import CkIO, FileOptions
+        from repro_torch.data import FileSet
+
+        arr, paths = self._cold_corpus(d)
+        self.cold = (arr, paths)
+        want = arr.view("uint8")
+        modes = [("blocking buffered", {}),
+                 ("queue depth 8 buffered, 8 MiB readahead",
+                  dict(queue_depth=FS_DEPTH, readahead_bytes=COLD_READAHEAD)),
+                 ("queue depth 8 O_DIRECT",
+                  dict(queue_depth=FS_DEPTH, direct_io=True))]
+        for name, opts in modes[:3 if direct else 2]:
+            ck = CkIO(num_pes=4, pes_per_node=4)
+            fh = ck.open_fileset_sync(FileSet.build(paths), FileOptions(
+                num_readers=8, **opts))
+            try:
+                gbs, (state, detail), sess = self._cold_read(
+                    ck, fh, paths, arr.nbytes, 0, want)
+                m = sess.metrics
+            finally:
+                ck.close_sync(fh)
+            log(f"fileset cold: {name}: {arr.nbytes} B at {gbs:.3f} GB/s "
+                f"(host clock, session start to last byte), cache {state} "
+                f"({detail}), "
+                f"submit {m.submit_backend or 'blocking'}, in flight <= "
+                f"{m.inflight_hwm}, direct tails "
+                f"{m.recovery.direct_tail_reads}, shard bytes "
+                f"{json.dumps(m.shard_bytes)}, {fs_type(d)}; "
+                f"{self.card_line}")
+            if sum(m.shard_bytes.values()) != arr.nbytes or \
+                    m.inflight_hwm > FS_DEPTH:
+                raise AssertionError(f"fileset cold: {name}: shard bytes "
+                                     f"{m.shard_bytes}, hwm {m.inflight_hwm}")
+
+    def _fileset_tuners(self, d, bs, direct):
+        """Leg (c): 8 evicted 256 MiB sessions of one shard file under each
+        online tuner: the paths they chose and each session's GB/s."""
+        from repro_torch.core import CkIO, FileOptions
+        from repro_torch.data.tokenfile import read_meta
+
+        arr, paths = self.cold
+        path = paths[0]
+        base = read_meta(path).data_offset
+        data = arr.view("uint8")
+        for name, opts in (("adaptive_queue", dict(adaptive_queue=True)),
+                           ("adaptive_splinters",
+                            dict(adaptive_splinters=True))):
+            ck = CkIO(num_pes=4, pes_per_node=4)
+            fh = ck.open_sync(path, FileOptions(num_readers=FS_READERS,
+                                                **opts))
+            walk = []
+            try:
+                for i in range(TUNER_SESSIONS):
+                    off = (i % 2) * TUNER_BYTES
+                    gbs, (state, _), sess = self._cold_read(
+                        ck, fh, [path], TUNER_BYTES, base + off,
+                        data[off:off + TUNER_BYTES])
+                    m, plan = sess.metrics, sess.plan
+                    walk.append({
+                        "GB/s": gbs, "cache": state,
+                        "queue_depth": m.queue_depth,
+                        "readahead_MiB": m.readahead_bytes / 2**20,
+                        "submit": m.submit_backend or "blocking",
+                        "splinter_MiB": [
+                            b / 2**20 for b in (plan.reader_splinter_bytes
+                                                or [plan.splinter_bytes])],
+                        "in_flight_max": m.inflight_hwm,
+                    })
+            finally:
+                ck.close_sync(fh)
+            log(f"fileset tuners: {name}: {json.dumps(walk)}; "
+                f"{self.card_line}")
+
     # -- result ----------------------------------------------------------------
     def kernel_line(self):
         launches = {}
@@ -2209,6 +2662,7 @@ def main() -> int:
             sm.phase("serve_hybrid", sm.serve_hybrid)
             for arch, (name, _) in FAMILIES.items():
                 sm.phase(name, lambda arch=arch: sm.serve_family(arch))
+            sm.phase("fileset", sm.fileset)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)
     finally:

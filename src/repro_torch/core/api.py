@@ -107,7 +107,10 @@ class CkIO:
         as ONE logical file. The returned ``FileHandle`` addresses the
         manifest's global data byte space (shard data regions concatenated,
         header pages excluded, byte 0 = row 0); sessions, ``read``/
-        ``read_stream``/subscribe and zero-copy views work unchanged."""
+        ``read_stream``/subscribe and zero-copy views work unchanged —
+        stripe planning pins shard starts as hard bounds so no physical
+        read spans a shard. ``opts.direct_io`` opens every shard
+        ``O_DIRECT``."""
         self.director.open_fileset(fileset, opts or FileOptions(),
                                    _to_cb(opened))
 

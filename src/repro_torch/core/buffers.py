@@ -21,9 +21,11 @@ cross-"node" deliveries (used by the migration-locality benchmark, paper
 Fig. 12); by default delivery is an immediate zero-copy memoryview hand-off.
 
 This copy carries the default thread backend only: helper I/O threads in
-this process, buffered ``preadv`` into a pageable ``np.empty`` arena, one
-blocking read per splinter. The process backend, NUMA placement, direct
-I/O and queue-depth submission are later slices of the port.
+this process reading into a pageable ``np.empty`` arena, buffered or
+``O_DIRECT`` (the arena then sits on the file's block grid), either one
+blocking read per splinter or ``queue_depth`` reads in flight through
+``io/submit.py``. The process backend and NUMA placement are later slices
+of the port.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ import numpy as np
 from repro_torch.core.metrics import SessionMetrics
 from repro_torch.core.scheduler import TaskScheduler
 from repro_torch.io.layout import StripePlan, Splinter, splinters_covering
-from repro_torch.io.posix import PosixFile
+from repro_torch.io.posix import DEFAULT_ALIGN, DirectIOError, PosixFile
+from repro_torch.io.submit import AsyncReadEngine, ring_selected
 
 
 @dataclass
@@ -60,6 +63,20 @@ class ReaderOptions:
     # Zero-fill the arena up front (a full memset on the start critical
     # path — the legacy "before" of the non-zero-filled np.empty arena).
     prefault_arena: bool = False
+    # -- cold-cache read engine (io/submit.py) -------------------------------
+    # The file handle was opened O_DIRECT (reads DMA past the page cache).
+    # start() validates the arena/plan against the probed block size and
+    # raises io.posix.DirectIOError on any structural misalignment.
+    direct_io: bool = False
+    # In-flight reads per reader thread: 0/1 = the blocking per-splinter
+    # loop; >= 2 = depth-managed async submission (io_uring or a preadv
+    # pool, see submit_mode).
+    queue_depth: int = 0
+    # WILLNEED window advised ahead of the submission frontier (bytes;
+    # buffered files only — O_DIRECT bypasses the page cache).
+    readahead_bytes: int = 0
+    # "auto" | "io_uring" | "threads" (io/submit.py make_submitter).
+    submit_mode: str = "auto"
 
 
 class NetworkModel:
@@ -163,6 +180,11 @@ class BufferReaderSet:
         if opts.piece_timing_every:
             self.metrics.piece_timing_every = opts.piece_timing_every
 
+        # FileSet sessions: the handle resolves offsets to shard ids
+        # (io.posix.ShardedFile.shard_of); None for single-file sessions.
+        # Splinters never span shards (hard stripe bounds), so attributing
+        # a whole pread to shard_of(offset) is exact.
+        self._shard_of = getattr(file, "shard_of", None)
         # Session storage: stripes are slices of one arena. Readers fill it;
         # clients get zero-copy memoryviews out of it.
         self._arena: np.ndarray = self._alloc_arena(plan)
@@ -211,13 +233,57 @@ class BufferReaderSet:
         synchronous with respect to the source (the copy returns once the
         bytes have been consumed), which is what lets the pipeline release
         a session right after staging its window."""
-        arena = np.empty(plan.nbytes, dtype=np.uint8)
+        if getattr(self.file, "direct_io", False):
+            # O_DIRECT DMA targets need the arena base on the FS block grid,
+            # but numpy only guarantees 16-byte alignment for small
+            # allocations: over-allocate one block and slice to the grid
+            # (the parent buffer stays alive through ``.base``).
+            bs = getattr(self.file, "block_size", DEFAULT_ALIGN)
+            raw = np.empty(plan.nbytes + bs, dtype=np.uint8)
+            skew = (-raw.ctypes.data) % bs
+            arena = raw[skew: skew + plan.nbytes]
+        else:
+            arena = np.empty(plan.nbytes, dtype=np.uint8)
         if self.opts.prefault_arena:
             # Legacy prefault — explicit memset: np.zeros would calloc
             # lazily-zeroed pages without touching them — fill() actually
             # faults every page in.
             arena.fill(0)
         return arena
+
+    def _validate_direct_io(self) -> None:
+        """Fail fast when a direct-I/O session cannot satisfy the probed
+        block alignment — the no-silent-fallback half of the O_DIRECT
+        contract. Checks the arena base (DMA target), the session offset,
+        and every splinter's file offset (the splinter grid); sub-block
+        *lengths* (tails) are legal — they finish through the buffered fd,
+        counted."""
+        if not getattr(self.file, "direct_io", False) or not self.plan.nbytes:
+            return
+        bs = getattr(self.file, "block_size", DEFAULT_ALIGN)
+        problems: List[str] = []
+        base_addr = self._arena.ctypes.data
+        if base_addr % bs:
+            problems.append(
+                f"arena base 0x{base_addr:x} is not {bs}-byte aligned")
+        if self.plan.offset % bs:
+            problems.append(
+                f"session offset {self.plan.offset} is off the {bs}-byte "
+                f"block grid")
+        bad_sp = [sp for sp in self.plan.splinters if sp.offset % bs]
+        if bad_sp:
+            problems.append(
+                f"{len(bad_sp)} splinter offset(s) off the {bs}-byte grid "
+                f"(first: splinter {bad_sp[0].index} at {bad_sp[0].offset}) "
+                f"— plan the session with align=fs_block_size(path)")
+        # Arena positions must land on the grid too (the DMA destination is
+        # base + (sp.offset - plan.offset); with base and plan.offset
+        # aligned this follows from aligned splinter offsets, so no extra
+        # scan is needed).
+        if problems:
+            raise DirectIOError(
+                "direct_io=True cannot run this session: "
+                + "; ".join(problems))
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> None:
@@ -226,10 +292,20 @@ class BufferReaderSet:
         without waiting for client requests")."""
         if self.started:
             return
-        self.started = True
+        self._validate_direct_io()
         nthreads = min(
             max(1, self.plan.num_readers), max(1, self.opts.max_io_threads)
         )
+        if self.opts.queue_depth >= 2:
+            # Each reader thread builds its own engine; a forced io_uring
+            # that cannot run (a sharded file, a kernel that refuses the
+            # ring) fails the session start here, not a reader thread.
+            ring_selected(self.file, self.opts.submit_mode,
+                          self.opts.delay_model)
+        self.started = True
+        # Recorded here (not only in the async loop) so blocking-path
+        # sessions still report their open mode.
+        self.metrics.direct_io = bool(getattr(self.file, "direct_io", False))
         self.metrics.session_started(self.plan.nbytes, self.plan.num_readers)
         if self.plan.nbytes:
             # Kick kernel readahead for the whole session before the first
@@ -305,6 +381,9 @@ class BufferReaderSet:
         return None
 
     def _reader_main(self, tid: int, nthreads: int) -> None:
+        if self.opts.queue_depth >= 2:
+            self._reader_main_async(tid, nthreads)
+            return
         while not self._cancelled:
             sp = self._next_splinter(tid, nthreads)
             if sp is None:
@@ -325,7 +404,67 @@ class BufferReaderSet:
                     f"short read: wanted {sp.nbytes} at {sp.offset}, got {n}"
                 )
             self.metrics.record_read(sp.reader, sp.nbytes, dt)
+            if self._shard_of is not None:
+                self.metrics.record_shard_read(self._shard_of(sp.offset),
+                                               sp.nbytes)
             self._mark_done(sp)
+
+    def _reader_main_async(self, tid: int, nthreads: int) -> None:
+        """Depth-managed drain: same work source (``_next_splinter`` — so
+        stealing survives), same completion fan-out (``_mark_done``, which
+        also feeds the splinter stream of a streamed pipeline), but up to
+        ``queue_depth`` splinter reads in flight through ``io/submit.py``
+        instead of one blocking pread at a time."""
+        opts = self.opts
+        delay = None
+        if opts.delay_model is not None:
+            dm = opts.delay_model
+
+            def delay(sp, nbytes):
+                d = dm(sp.reader, sp)
+                if d > 0:
+                    time.sleep(d)
+        eng = AsyncReadEngine(
+            self.file, opts.queue_depth,
+            readahead_bytes=opts.readahead_bytes,
+            mode=opts.submit_mode,
+            stats=self.metrics.recovery,
+            fault=opts.io_fault,
+            delay=delay,
+        )
+        self.metrics.record_submit_config(
+            opts.queue_depth, opts.readahead_bytes, eng.kind,
+            bool(getattr(self.file, "direct_io", False)))
+
+        def next_item():
+            if self._cancelled:
+                return None
+            sp = self._next_splinter(tid, nthreads)
+            if sp is None:
+                return None           # own stripes drained; nothing to steal
+            lo = sp.offset - self._base
+            return (sp, sp.offset, memoryview(self._arena)[lo: lo + sp.nbytes])
+
+        def on_complete(sp, n, dt):
+            if n != sp.nbytes and not self._cancelled:
+                raise IOError(
+                    f"short read: wanted {sp.nbytes} at {sp.offset}, got {n}"
+                )
+            # Folded per completion (not only in the finally below): join()
+            # wakes on the last _mark_done, possibly before this thread's
+            # engine teardown runs — the high-water mark must already be
+            # visible to that waiter.
+            self.metrics.record_inflight_hwm(eng.max_inflight)
+            self.metrics.record_read(sp.reader, sp.nbytes, dt)
+            if self._shard_of is not None:
+                self.metrics.record_shard_read(self._shard_of(sp.offset),
+                                               sp.nbytes)
+            self._mark_done(sp)
+
+        try:
+            eng.run(next_item, on_complete, stop=lambda: self._cancelled)
+        finally:
+            self.metrics.record_inflight_hwm(eng.max_inflight)
 
     def _mark_done(self, sp: Splinter) -> None:
         """Record one splinter completion and fan out waiters/subscribers."""

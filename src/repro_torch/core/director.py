@@ -15,31 +15,20 @@ import threading
 from typing import Callable, Dict, List, Optional
 
 from repro_torch.core.assembler import ReadAssembler
+from repro_torch.core.autotune import (
+    AutoTuner,
+    QueueTuner,
+    SplinterSizer,
+    suggest_num_readers,
+)
 from repro_torch.core.buffers import BufferReaderSet
 from repro_torch.core.futures import CkCallback
-from repro_torch.core.metrics import RecoveryMetrics, SessionMetrics
+from repro_torch.core.metrics import RecoveryMetrics, SessionMetrics, ShardMetrics
 from repro_torch.core.placement import place_readers
 from repro_torch.core.scheduler import TaskScheduler
 from repro_torch.core.session import FileHandle, FileOptions, Session
 from repro_torch.io.layout import plan_session
 from repro_torch.io.posix import DEFAULT_ALIGN, PosixFile
-
-
-def suggest_num_readers(
-    file_bytes: int,
-    num_pes: int,
-    num_nodes: int = 1,
-    target_chunk_bytes: int = 64 * 1024 * 1024,
-) -> int:
-    """Reader count for a session of ``file_bytes`` when ``num_readers`` is
-    unset: one reader per ``target_chunk_bytes``, at least one per node,
-    at most two per PE (paper Fig. 4: beyond ~2/PE only adds contention)."""
-    if file_bytes <= 0:
-        return 1
-    by_chunk = max(1, (file_bytes + target_chunk_bytes - 1) // target_chunk_bytes)
-    lo = max(1, num_nodes)
-    hi = max(lo, 2 * num_pes)
-    return int(min(max(by_chunk, lo), hi))
 
 
 class Manager:
@@ -72,15 +61,29 @@ class Director:
         self.sessions: Dict[int, Session] = {}
         # optional global sequencing: serialize session *starts* per group key
         self._sequence_lock = threading.Lock()
-        # Session-close observers: each finished session's metrics are fed
-        # to every registered observer (extend with ``add_observer``).
-        self._observers: List[Callable[[SessionMetrics], None]] = []
+        # One observation path for every knob controller: close_session feeds
+        # each finished session's metrics to all of these (autotune §VI-A,
+        # the splinter-size controller, the cold-path queue controller, the
+        # per-shard byte aggregate). Extend with ``add_observer``.
+        self.tuner = AutoTuner(num_pes=sched.num_pes, num_nodes=sched.num_nodes)
+        self.splinter_sizer = SplinterSizer()
+        # Consulted at session start when FileOptions.adaptive_queue is set.
+        self.queue_tuner = QueueTuner()
+        # Director-lifetime FileSet aggregate: per-shard physical read bytes.
+        self.shards = ShardMetrics()
+        self._observers: List[Callable[[SessionMetrics], None]] = [
+            self.tuner.record_session,
+            self.splinter_sizer.record_session,
+            self.queue_tuner.record_session,
+            self.shards.merge_session,
+        ]
         # Director-lifetime I/O-retry aggregate (merged on session close).
         self.recovery = RecoveryMetrics()
 
     def add_observer(self, observe: Callable[[SessionMetrics], None]) -> None:
-        """Register a session-close observer (it receives every finished
-        session's ``SessionMetrics``)."""
+        """Register a session-close observer on the shared observation path
+        (it receives every finished session's ``SessionMetrics``, exactly
+        like the tuners)."""
         self._observers.append(observe)
 
     # -- files ---------------------------------------------------------------
@@ -88,7 +91,7 @@ class Director:
         self, path: str, opts: FileOptions, opened: CkCallback
     ) -> None:
         def do_open() -> None:
-            posix = PosixFile.open(path)
+            posix = PosixFile.open(path, direct_io=opts.direct_io)
             with self._lock:
                 fid = next(self._file_ids)
                 handle = FileHandle(id=fid, path=path, posix=posix, opts=opts)
@@ -108,11 +111,11 @@ class Director:
         core layer never imports the data layer."""
 
         def do_open() -> None:
-            sharded = fileset.sharded_file()
+            sharded = fileset.sharded_file(direct_io=opts.direct_io)
             with self._lock:
                 fid = next(self._file_ids)
                 handle = FileHandle(id=fid, path=sharded.path, posix=sharded,
-                                    opts=opts)
+                                    opts=opts, fileset=fileset)
                 self.files[fid] = handle
             opened.send(self.sched, handle)
 
@@ -143,6 +146,13 @@ class Director:
         num_readers = opts.num_readers or suggest_num_readers(
             nbytes, self.sched.num_pes, self.sched.num_nodes
         )
+        # FileSet sessions: shard starts inside the window are HARD stripe
+        # bounds (no stripe — so no splinter, so no single pread — may span
+        # one). Segmenting needs >= one reader per shard segment; bump the
+        # count BEFORE adaptive sizing so per-reader splinter sizes line up.
+        bounds_in = getattr(file.posix, "bounds_in", None)
+        hard_bounds = tuple(bounds_in(offset, nbytes)) if bounds_in else ()
+        num_readers = max(num_readers, len(hard_bounds) + 1)
 
         def do_start() -> None:
             if sequenced:
@@ -150,15 +160,43 @@ class Director:
                 # read kick-off of concurrent sessions on distinct files.
                 self._sequence_lock.acquire()
             try:
+                splinter_bytes = opts.splinter_bytes
+                reader_sizes = None
+                if opts.adaptive_splinters:
+                    # Observed per-reader throughput (large on streaming
+                    # stripes) shrunk by steal pressure (small near stolen
+                    # tails); opts.splinter_bytes seeds the first session,
+                    # and per-reader sizes (once per-stripe signal exists)
+                    # let a straggling stripe alone run fine splinters.
+                    splinter_bytes = self.splinter_sizer.suggest(
+                        splinter_bytes)
+                    reader_sizes = self.splinter_sizer.suggest_per_reader(
+                        max(1, num_readers), splinter_bytes)
                 plan = plan_session(
                     offset, nbytes, num_readers,
-                    splinter_bytes=opts.splinter_bytes,
+                    splinter_bytes=splinter_bytes,
+                    reader_splinter_bytes=reader_sizes,
+                    hard_bounds=hard_bounds or None,
+                    # The file's REAL block size (statvfs probe at open):
+                    # with direct_io this keeps every splinter offset
+                    # O_DIRECT-legal.
                     align=getattr(file.posix, "block_size", DEFAULT_ALIGN),
                 )
                 reader_pes = place_readers(
                     opts.placement, plan.num_readers, self.sched,
                     consumer_pes,
                 )
+                if opts.adaptive_queue:
+                    # The QueueTuner's explore-then-exploit walk picks
+                    # (queue_depth, readahead) from observed session
+                    # throughput; the explicit fields only seed the first
+                    # session (an unset/blocking depth seeds at 8 so the
+                    # walk starts in async territory).
+                    seed_depth = (opts.queue_depth
+                                  if opts.queue_depth >= 2 else 8)
+                    ropts.queue_depth, ropts.readahead_bytes = (
+                        self.queue_tuner.suggest(seed_depth,
+                                                 opts.readahead_bytes))
                 session = self._construct_session(
                     file, plan, reader_pes, opts, ropts)
             finally:

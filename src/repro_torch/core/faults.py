@@ -24,8 +24,8 @@ index, it fires in every generation) for driving respawn-budget exhaustion.
 The port carries the thread backend only: there ``FlakyEIO``, ``ShortRead``
 (``io_fault``) and ``DelayEach`` / ``StallReader`` (``delay_model``) act.
 The worker and ring hooks (``CrashReader``, ``CrashSplinter``, ``TornSlot``)
-act inside reader worker processes, which come with the process-backend
-slice (ROADMAP.md, Queue A item 7); the plan still derives them, so that
+act inside reader worker processes, which come with the process backend
+and service slice (ROADMAP.md, Queue A); the plan still derives them, so that
 ``describe()`` equals the reference's for a seed.
 """
 from __future__ import annotations

@@ -3,9 +3,9 @@
 Everything the paper's evaluation plots (throughput, overlap fraction,
 permutation cost, cross-node traffic) is derived from these counters.
 Thread-safe; negligible overhead (integer adds under a lock). This copy
-keeps the session, ingest and stream counters the thread-backend training
-path fills (plus the recovery record a session carries), and the serving
-subsystem's ``ServeMetrics``.
+keeps the session, ingest, stream and per-shard counters the thread-backend
+training path fills (plus the recovery record a session carries), and the
+serving subsystem's ``ServeMetrics``.
 
 Per-piece *timing* (two ``perf_counter`` calls per delivered piece) is the
 one non-negligible probe, so it sits behind ``piece_timing_every``: 0 (the
@@ -31,19 +31,31 @@ class RecoveryMetrics:
     advisory (fadvise-class) errors swallowed by design but counted
     (``suppressed_errors``). One instance per session, merged into a
     Director-lifetime aggregate on session close. ``record_io_retry`` /
-    ``record_suppressed`` match the stats protocol of ``io/posix.py``.
-    The process backend's respawn/reissue counters come with that slice."""
+    ``record_suppressed`` / ``record_direct_tail`` match the stats protocol
+    of ``io/posix.py``. The process backend's respawn/reissue counters come
+    with that slice."""
 
     lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
     io_retries: int = 0
     retried_errnos: Dict[int, int] = field(default_factory=dict)
     suppressed_errors: int = 0
+    # Direct-I/O tail accounting: sub-block fragments a direct-mode read had
+    # to finish through the buffered descriptor (the only legal buffered
+    # bytes in an O_DIRECT session — counted, never silent).
+    direct_tail_reads: int = 0
+    direct_tail_bytes: int = 0
 
     def record_io_retry(self, err: Optional[int] = None) -> None:
         with self.lock:
             self.io_retries += 1
             if err is not None:
                 self.retried_errnos[err] = self.retried_errnos.get(err, 0) + 1
+
+    def record_direct_tail(self, nbytes: int = 0) -> None:
+        """One sub-block fragment of a direct read served buffered."""
+        with self.lock:
+            self.direct_tail_reads += 1
+            self.direct_tail_bytes += int(nbytes)
 
     def record_suppressed(self, err: Optional[int] = None) -> None:
         with self.lock:
@@ -54,16 +66,21 @@ class RecoveryMetrics:
         with other.lock:
             retries, errnos = other.io_retries, dict(other.retried_errnos)
             suppressed = other.suppressed_errors
+            tails, tail_bytes = other.direct_tail_reads, other.direct_tail_bytes
         with self.lock:
             self.io_retries += retries
             for err, c in errnos.items():
                 self.retried_errnos[err] = self.retried_errnos.get(err, 0) + c
             self.suppressed_errors += suppressed
+            self.direct_tail_reads += tails
+            self.direct_tail_bytes += tail_bytes
 
     def summary(self) -> Dict[str, float]:
         with self.lock:
             return {"io_retries": float(self.io_retries),
-                    "suppressed_errors": float(self.suppressed_errors)}
+                    "suppressed_errors": float(self.suppressed_errors),
+                    "direct_tail_reads": float(self.direct_tail_reads),
+                    "direct_tail_bytes": float(self.direct_tail_bytes)}
 
 
 @dataclass
@@ -105,6 +122,20 @@ class SessionMetrics:
     # I/O retry observables; travels the same Director observer path as the
     # rest of the session counters. Has its own lock.
     recovery: RecoveryMetrics = field(default_factory=RecoveryMetrics)
+    # FileSet sessions: physically-read bytes per shard id (splinters never
+    # span shards, so every pread lands wholly in one shard file). Empty
+    # for single-file sessions.
+    shard_bytes: Dict[int, int] = field(default_factory=dict)
+    # Submission-layer config + observables for this session — what the
+    # QueueTuner consumes through the Director observer path. queue_depth 0
+    # means the blocking (synchronous) loop; submit_backend is the backend
+    # make_submitter actually chose ("io_uring"/"threads"/"" for blocking),
+    # so an auto-mode fallback is observable, never silent.
+    queue_depth: int = 0
+    readahead_bytes: int = 0
+    submit_backend: str = ""
+    direct_io: bool = False
+    inflight_hwm: int = 0
     _piece_seq: int = 0               # sampling counter (racy by design)
 
     def session_started(self, nbytes: int, num_readers: int) -> None:
@@ -112,6 +143,21 @@ class SessionMetrics:
             self.session_bytes = nbytes
             self.num_readers = num_readers
             self.t_start = time.perf_counter()
+
+    def record_submit_config(self, queue_depth: int, readahead_bytes: int,
+                             backend: str, direct_io: bool) -> None:
+        """The submission shape this session ran with (reader-set start)."""
+        with self.lock:
+            self.queue_depth = int(queue_depth)
+            self.readahead_bytes = int(readahead_bytes)
+            self.submit_backend = backend
+            self.direct_io = bool(direct_io)
+
+    def record_inflight_hwm(self, hwm: int) -> None:
+        """Fold one reader's in-flight high-water mark in (max across)."""
+        with self.lock:
+            if hwm > self.inflight_hwm:
+                self.inflight_hwm = hwm
 
     def record_read(self, reader: int, nbytes: int, dt: float) -> None:
         with self.lock:
@@ -128,6 +174,11 @@ class SessionMetrics:
             self.reads_per_reader[reader] = (
                 self.reads_per_reader.get(reader, 0) + 1
             )
+
+    def record_shard_read(self, shard: int, nbytes: int) -> None:
+        """One physical read attributed to FileSet shard ``shard``."""
+        with self.lock:
+            self.shard_bytes[shard] = self.shard_bytes.get(shard, 0) + nbytes
 
     def record_steal(self, victim: int) -> None:
         """One splinter stolen from reader ``victim``'s pending queue —
@@ -212,7 +263,43 @@ class SessionMetrics:
             "timed_pieces": float(self.timed_pieces),
             "requests": float(self.requests),
             "imbalance": self.imbalance(),
+            "shards_read": float(len(self.shard_bytes)),
+            "queue_depth": float(self.queue_depth),
+            "readahead_bytes": float(self.readahead_bytes),
+            "inflight_hwm": float(self.inflight_hwm),
+            "direct_io": float(self.direct_io),
         }
+
+
+@dataclass
+class ShardMetrics:
+    """FileSet accounting, the read side: ``merge_session`` rides the
+    Director observer path (``Director.add_observer``), so each closing
+    session's ``SessionMetrics.shard_bytes`` (physical bytes per FileSet
+    shard) folds in here and drivers read one object after many sessions.
+    The reference's stage side (``device_put`` calls and cross-host
+    placements of a sharded pipeline) comes with the sharding slice."""
+
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    sessions: int = 0
+    shard_bytes: Dict[int, int] = field(default_factory=dict)
+
+    def merge_session(self, sm: "SessionMetrics") -> None:
+        """Director observer: fold one finished session's per-shard reads."""
+        with sm.lock:
+            snap = dict(sm.shard_bytes)
+        with self.lock:
+            self.sessions += 1
+            for sh, nb in snap.items():
+                self.shard_bytes[sh] = self.shard_bytes.get(sh, 0) + nb
+
+    def summary(self) -> Dict[str, float]:
+        with self.lock:
+            return {
+                "sessions": float(self.sessions),
+                "shards_read": float(len(self.shard_bytes)),
+                "shard_read_bytes": float(sum(self.shard_bytes.values())),
+            }
 
 
 @dataclass
@@ -540,7 +627,7 @@ class ServeMetrics:
     # -- Director observer -----------------------------------------------------
     def record_session(self, m: "SessionMetrics") -> None:
         # pooled_sessions stays 0: the port has no ReaderService yet
-        # (ROADMAP.md, Queue A item 3).
+        # (the process backend and service slice, ROADMAP.md Queue A).
         with self.lock:
             self.ingest_sessions += 1
             self.ingest_bytes += m.bytes_read

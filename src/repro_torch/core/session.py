@@ -29,6 +29,10 @@ class FileOptions:
     splinter_bytes: int = 8 * 1024 * 1024
     # Reader backend: only "thread" (helper I/O threads in this process).
     backend: str = "thread"
+    # Dynamic splinter sizing: when True, each new session's splinter size is
+    # chosen by the Director's SplinterSizer from observed per-reader
+    # throughput and steal pressure (core/autotune.py); ``splinter_bytes``
+    # then only seeds the first session (no observations yet).
     adaptive_splinters: bool = False
     work_stealing: bool = True
     max_io_threads: int = 64
@@ -52,9 +56,26 @@ class FileOptions:
     # act only in reader worker processes: on the thread backend they do
     # not act, as in the reference.
     fault_plan: Optional[object] = None
+    # -- cold-cache read engine (io/submit.py) -------------------------------
+    # Open the file(s) O_DIRECT: reads bypass the page cache and DMA
+    # straight into the arena. Requires block-aligned session offset, arena
+    # and (for FileSets) shard data regions — violations raise
+    # io.posix.DirectIOError at open/start, never silently fall back;
+    # sub-block tails go through the buffered fd, counted in
+    # RecoveryMetrics.direct_tail_reads.
     direct_io: bool = False
-    # In-flight reads per reader: 0/1 = the blocking per-splinter loop.
+    # In-flight reads per reader: 0/1 = the blocking per-splinter loop;
+    # >= 2 = depth-managed async submission through io/submit.py.
     queue_depth: int = 0
+    # WILLNEED window (bytes) advised ahead of the submission frontier
+    # (buffered files only — O_DIRECT bypasses the cache readahead).
+    readahead_bytes: int = 0
+    # Submission backend: "auto" (io_uring when the kernel/sandbox allows,
+    # else the preadv worker pool), or force "io_uring"/"threads".
+    submit_mode: str = "auto"
+    # When True, each session's (queue_depth, readahead_bytes) is chosen by
+    # the Director's QueueTuner from observed throughput; the explicit
+    # fields then only seed the first session.
     adaptive_queue: bool = False
 
     def reader_options(self) -> ReaderOptions:
@@ -66,16 +87,16 @@ class FileOptions:
                 f"(expected 'thread' or 'process')")
         if self.topology is not None or self.numa_pin:
             raise _later("topology / numa_pin", "NUMA")
-        if self.direct_io:
-            raise _later("direct_io", "direct I/O and async submit")
+        if self.submit_mode not in ("auto", "io_uring", "threads"):
+            raise ValueError(
+                f"unknown submit mode {self.submit_mode!r} "
+                f"(expected 'auto', 'io_uring' or 'threads')")
         if self.queue_depth < 0:
             raise ValueError(
                 f"queue_depth must be >= 0, got {self.queue_depth}")
-        if self.queue_depth >= 2:
-            raise _later("queue_depth >= 2", "direct I/O and async submit")
-        if self.adaptive_splinters or self.adaptive_queue:
-            raise _later("adaptive_splinters / adaptive_queue",
-                         "direct I/O and async submit")
+        if self.readahead_bytes < 0:
+            raise ValueError(
+                f"readahead_bytes must be >= 0, got {self.readahead_bytes}")
         if self.worker_fault is not None or self.ring_fault is not None:
             raise _later("worker_fault / ring_fault",
                          "process backend and service")
@@ -93,6 +114,10 @@ class FileOptions:
             network=self.network,
             piece_timing_every=self.piece_timing_every,
             prefault_arena=self.prefault_arena,
+            direct_io=self.direct_io,
+            queue_depth=self.queue_depth,
+            readahead_bytes=self.readahead_bytes,
+            submit_mode=self.submit_mode,
         )
 
 
@@ -101,12 +126,14 @@ class FileHandle:
     """Returned by ``CkIO.open`` / ``CkIO.open_fileset`` (paper:
     ``Ck::IO::File``). ``posix`` is a ``PosixFile``, or the
     byte-space-compatible ``io.posix.ShardedFile`` for FileSet opens
-    (offsets are then global data bytes)."""
+    (``fileset`` then carries the manifest; offsets are global data
+    bytes)."""
 
     id: int
     path: str
     posix: PosixFile                    # or io.posix.ShardedFile (duck-typed)
     opts: FileOptions
+    fileset: Optional[object] = None    # data.fileset.FileSet when sharded
 
     @property
     def size(self) -> int:

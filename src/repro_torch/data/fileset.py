@@ -17,9 +17,10 @@ presents them as ONE logical token file with **global row addressing**:
 The byte space is made physical by ``io/posix.py``'s ``ShardedFile`` (built
 via :meth:`FileSet.sharded_file`): a ``PosixFile``-compatible handle whose
 ``pread`` dispatches global offsets to the right shard fd. Everything above
-— stripe planning, buffer readers, borrowed views — works unchanged;
-``CkIO.open_fileset`` is the entry point (a FileSet fed to ``CkIOPipeline``
-comes with a later slice).
+— stripe planning (with ``hard_bounds`` pinned to shard starts so no stripe
+spans a shard), buffer readers, borrowed views — works unchanged;
+``CkIO.open_fileset`` / ``CkIOPipeline(FileSet(...))`` are the entry
+points.
 
 Validation happens at manifest build time, not at first read: mismatched
 dtype or inner shape, a torn header (``read_meta`` raises a descriptive
@@ -240,9 +241,13 @@ class FileSet:
             (s.path, s.byte_start, HEADER_BYTES, s.data_bytes, s.index)
             for s in self.shards if s.data_bytes > 0)
 
-    def sharded_file(self) -> ShardedFile:
-        """Open one ``ShardedFile`` over the manifest's byte space."""
-        return ShardedFile(self.segments())
+    def sharded_file(self, *, direct_io: bool = False) -> ShardedFile:
+        """Open one ``ShardedFile`` over the manifest's byte space.
+
+        ``direct_io`` opens every shard O_DIRECT (io/posix.py: shard data
+        regions must sit on the filesystem block grid or this raises
+        ``DirectIOError`` naming the offenders — never a silent fallback)."""
+        return ShardedFile(self.segments(), direct_io=direct_io)
 
     def describe(self) -> str:
         return (f"fileset[{self.num_shards} shards, {self._total_rows} rows, "

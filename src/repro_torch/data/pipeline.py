@@ -46,8 +46,25 @@ Lifetime rules:
   * streamed chunk views are pinned from staging until their step retires,
     under the same rule.
 
-Not carried by this slice (each raises ``NotImplementedError``): a
-``FileSet`` corpus, a reader ``service``, and ``sharding``.
+Multi-file corpora and the cold-path read engine
+------------------------------------------------
+``path`` may be a ``data.fileset.FileSet`` manifest: the shard list opens as
+one logical byte space (``CkIO.open_fileset``; shard data regions
+concatenated, headers excluded), interior shard starts become hard stripe
+bounds in every session plan, so no physical read spans two shard files,
+and per-shard read bytes land in ``ck.director.shards``. ``file_opts``
+carries the read engine of ``io/submit.py``: ``queue_depth >= 2`` keeps
+that many reads in flight per reader (io_uring where the kernel allows,
+else a preadv pool), ``readahead_bytes`` advises ahead of the submission
+frontier, and ``direct_io`` opens the corpus ``O_DIRECT``. An ``O_DIRECT``
+session must start on the block grid, so with ``direct_io`` each step's
+session starts at the block boundary at or below its window (the
+reference package raises ``DirectIOError`` for a window off the grid
+instead); the batch, the staged chunks and the counters cover the window
+alone. Batches are bit-identical in every mode.
+
+Not carried by this slice (each raises ``NotImplementedError``): a reader
+``service`` and ``sharding``.
 """
 from __future__ import annotations
 
@@ -93,8 +110,10 @@ class _StreamState:
 
     session: Optional[Session] = None
     token: Optional[int] = None            # read_stream subscription token
+    window: Tuple[int, int] = (0, 0)       # [start, end) of the step's bytes
     pending: List[SplinterEvent] = field(default_factory=list)
     events: List[SplinterEvent] = field(default_factory=list)  # staged order
+    pieces: List[Tuple[int, int]] = field(default_factory=list)  # (off, n)
     chunks: List[torch.Tensor] = field(default_factory=list)   # device chunks
     chunk_hosts: List[tuple] = field(default_factory=list)     # (np, view)
     t_first_stage: float = 0.0
@@ -153,21 +172,27 @@ class CkIOPipeline:
         pad_id: int = 0,
         device="cuda",
     ):
-        if not isinstance(path, str):
-            raise _later("a FileSet corpus", "FileSet")
         if service is not None:
             raise _later("service=", "process backend and service")
         if sharding is not None:
             raise _later("sharding=", "sharding")
         self.device = resolve_device(device)
-        self.meta = read_meta(path)
+        # ``path``: a filesystem path (single token file) or a
+        # ``data.fileset.FileSet`` manifest (duck-typed — it carries the
+        # same meta surface with ``data_offset == 0``, so every offset in
+        # this pipeline is a global data-space byte either way).
+        is_fileset = hasattr(path, "sharded_file")
+        self.meta = path if is_fileset else read_meta(path)
         if len(self.meta.shape) != 1:
             raise ValueError("LM pipeline expects a flat token file")
         self.global_batch = global_batch
         self.seq_len = seq_len
         self.ck = ckio or CkIO(num_pes=num_pes)
         self.file_opts = file_opts or FileOptions()
-        self.file = self.ck.open_sync(path, self.file_opts)
+        if is_fileset:
+            self.file = self.ck.open_fileset_sync(path, self.file_opts)
+        else:
+            self.file = self.ck.open_sync(path, self.file_opts)
         self.prefetch_depth = max(1, prefetch_depth)
         self.drop_remainder = drop_remainder
         self.pad_id = pad_id
@@ -325,10 +350,15 @@ class CkIOPipeline:
                         mv[rel_off : rel_off + take],
                         client.callback(make_done()), client=client)
 
+        # An O_DIRECT session starts on the block grid: read from the block
+        # boundary at or below the window (the head is read, never handed
+        # out); the tail past the last whole block goes buffered, counted.
+        head = (abs_off % self.file.posix.block_size
+                if self.file_opts.direct_io else 0)
         self.ck.start_read_session(
             self.file,
-            nbytes,
-            abs_off,
+            nbytes + head,
+            abs_off - head,
             CkCallback(on_session, inline=True),
             consumer_pes=[c.pe for c in self.consumers],
         )
@@ -336,7 +366,8 @@ class CkIOPipeline:
     # -- streamed staging (the event-driven device path) ----------------------
     def _subscribe_stream(self, buf: _StepBuffer, session: Session) -> None:
         """Attach the per-splinter staging loop to ``session``'s stream."""
-        st = _StreamState(session=session)
+        st = _StreamState(session=session,
+                          window=(buf.abs_off, buf.abs_off + buf.nbytes))
         buf.stream = st
 
         def route(ev: SplinterEvent) -> Optional[Client]:
@@ -403,19 +434,24 @@ class CkIOPipeline:
         sess = st.session
         assert sess is not None
         for ev in group:
-            self._evict_for(ev.nbytes)
-            view = sess.readers.borrow_view(ev.offset, ev.nbytes)
+            # The splinter's bytes inside the step window: a direct-I/O
+            # session also holds the head below it, which lies inside the
+            # first splinter (splinters are whole blocks, the head less).
+            off = max(ev.offset, st.window[0])
+            nb = min(ev.offset + ev.nbytes, st.window[1]) - off
+            self._evict_for(nb)
+            view = sess.readers.borrow_view(off, nb)
             tokens = np.frombuffer(view, dtype=self.meta.dtype)
             if tokens.dtype == np.uint32:
                 tokens = tokens.view(np.int32)
             t0 = time.perf_counter()
-            self.stream.stage_inflight(ev.nbytes)
+            self.stream.stage_inflight(nb)
             try:
                 chunk, done = self._to_device(tokens)
             except BaseException:
                 # A failed transfer never reaches _stage_outstanding, so its
                 # budget charge is rolled back here.
-                self.stream.stage_inflight(-ev.nbytes)
+                self.stream.stage_inflight(-nb)
                 raise
             t1 = time.perf_counter()
             if st.t_first_stage == 0.0:
@@ -425,9 +461,9 @@ class CkIOPipeline:
                 st.chunks.append(chunk)
                 st.chunk_hosts.append((tokens, view))
                 st.events.append(ev)
-                self._stage_outstanding.append((st, done, ev.nbytes))
-            self.stream.record_chunk(
-                ev.nbytes, 1, t1 - t0, [t1 - ev.t_arrival])
+                st.pieces.append((off, nb))
+                self._stage_outstanding.append((st, done, nb))
+            self.stream.record_chunk(nb, 1, t1 - t0, [t1 - ev.t_arrival])
 
     def _evict_for(self, nbytes: int) -> None:
         """Bounded in-flight budget: make room for an ``nbytes`` transfer by
@@ -474,8 +510,7 @@ class CkIOPipeline:
         # The consuming kernel is ordered after every chunk copy on the
         # stream; this stream's transfers leave the in-flight budget.
         self.stream.stage_inflight(-sum(n for _, _, n in own))
-        pieces = [(e.offset, e.nbytes) for e in st.events]
-        return list(st.chunks), pieces, st
+        return list(st.chunks), list(st.pieces), st
 
     def _abort_stream(self, buf: _StepBuffer) -> None:
         """Tear down a step's stream without consuming it (host-path fetch,

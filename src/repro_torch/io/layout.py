@@ -15,7 +15,7 @@ stripes partition the session; every byte belongs to exactly one splinter).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from repro_torch.io.posix import DEFAULT_ALIGN, aligned_floor
 
@@ -44,6 +44,13 @@ class StripePlan:
     splinter_bytes: int
     stripe_bounds: Tuple[Tuple[int, int], ...]   # per reader: (abs_start, abs_end)
     splinters: Tuple[Splinter, ...]              # global splinter list
+    # Per-reader adaptive sizing: when set, reader r's stripe was cut into
+    # reader_splinter_bytes[r]-sized splinters (splinter_bytes then only
+    # records the session-level base size). None = uniform splinter_bytes.
+    reader_splinter_bytes: Optional[Tuple[int, ...]] = None
+    # Hard segmentation offsets the plan honoured (FileSet shard starts):
+    # no stripe — hence no splinter, hence no single pread — spans one.
+    hard_bounds: Optional[Tuple[int, ...]] = None
 
     @property
     def end(self) -> int:
@@ -68,47 +75,125 @@ def _align_up(x: int, a: int) -> int:
     return ((x + a - 1) // a) * a
 
 
-def plan_session(
-    offset: int,
-    nbytes: int,
-    num_readers: int,
-    splinter_bytes: int = 8 * 1024 * 1024,
-    align: int = DEFAULT_ALIGN,
-) -> StripePlan:
-    """Partition ``[offset, offset+nbytes)`` into stripes and splinters.
-
-    Stripe boundaries are aligned to ``align`` (FS block size) except at the
-    session edges; splinters are capped at ``splinter_bytes``. Degenerate
-    cases (more readers than bytes) collapse gracefully: trailing readers get
-    empty stripes. (The reference's per-reader splinter sizes and FileSet
-    hard bounds come with their slices.)
-    """
-    if nbytes < 0:
-        raise ValueError(f"negative session length {nbytes}")
-    num_readers = max(1, num_readers)
-    # Floor the splinter size to an ``align`` multiple: a non-multiple size
-    # would put every later splinter offset in the stripe off the FS block
-    # grid.
-    splinter_bytes = aligned_floor(splinter_bytes, align)
-
-    # Interior stripe boundaries aligned up to ``align``; the final stripe
-    # absorbs the remainder; trailing readers may get empty stripes.
+def _cut_stripes(
+    offset: int, nbytes: int, num_readers: int, align: int
+) -> List[Tuple[int, int]]:
+    """The classic stripe cut of ``[offset, offset+nbytes)`` over
+    ``num_readers``: interior boundaries aligned up to ``align``, the final
+    stripe absorbs the remainder, trailing readers may get empty stripes."""
     base = nbytes // num_readers
     stripe_len = _align_up(max(base, 1), align) if nbytes else 0
     bounds: List[Tuple[int, int]] = []
     cur = offset
     end = offset + nbytes
     for r in range(num_readers):
-        e = end if r == num_readers - 1 else min(cur + stripe_len, end)
-        bounds.append((cur, e))
+        if r == num_readers - 1:
+            s, e = cur, end
+        else:
+            s, e = cur, min(cur + stripe_len, end)
+        bounds.append((s, e))
         cur = e
+    return bounds
+
+
+def _readers_per_segment(
+    seg_bytes: Sequence[int], num_readers: int
+) -> List[int]:
+    """Largest-remainder allocation of readers to segments: every segment
+    gets >= 1 reader (a shard is never co-owned with its neighbour), extras
+    go by byte share, deterministic tie-break on segment order."""
+    nsegs = len(seg_bytes)
+    alloc = [1] * nsegs
+    extra = num_readers - nsegs
+    total = sum(seg_bytes)
+    if extra <= 0 or total == 0:
+        return alloc
+    shares = [extra * b / total for b in seg_bytes]
+    floors = [int(sh) for sh in shares]
+    for i, fl in enumerate(floors):
+        alloc[i] += fl
+    rest = extra - sum(floors)
+    order = sorted(range(nsegs), key=lambda i: (-(shares[i] - floors[i]), i))
+    for i in order[:rest]:
+        alloc[i] += 1
+    return alloc
+
+
+def plan_session(
+    offset: int,
+    nbytes: int,
+    num_readers: int,
+    splinter_bytes: int = 8 * 1024 * 1024,
+    align: int = DEFAULT_ALIGN,
+    reader_splinter_bytes: Optional[Sequence[int]] = None,
+    hard_bounds: Optional[Sequence[int]] = None,
+) -> StripePlan:
+    """Partition ``[offset, offset+nbytes)`` into stripes and splinters.
+
+    Stripe boundaries are aligned to ``align`` (FS block size) except at the
+    session edges; splinters are capped at ``splinter_bytes``. Degenerate
+    cases (more readers than bytes) collapse gracefully: trailing readers get
+    empty stripes.
+
+    ``reader_splinter_bytes`` (per-reader adaptive sizing) overrides the
+    splinter size per stripe: reader ``r`` reads in
+    ``reader_splinter_bytes[r]`` units — a straggling stripe can run fine
+    splinters (tight steal granularity) while healthy stripes stream large
+    reads. Stripe *bounds* stay a function of ``num_readers`` alone, so
+    per-reader sizes never change which reader owns a byte.
+
+    ``hard_bounds`` (FileSet shard starts, in session byte-space) are
+    offsets NO stripe may span: the session is first segmented at every
+    hard bound strictly inside it, readers are distributed over segments by
+    byte share (>= 1 each, largest-remainder), and each segment is striped
+    independently. Since a splinter lives inside one stripe, no physical
+    read ever crosses a shard boundary — each lands wholly in one shard
+    file. Requires ``num_readers >= number of segments`` (the Director
+    bumps the reader count before planning a FileSet session).
+    """
+    if nbytes < 0:
+        raise ValueError(f"negative session length {nbytes}")
+    num_readers = max(1, num_readers)
+    # Floor every splinter size to an ``align`` multiple (not just a
+    # minimum): a non-multiple size would put every subsequent splinter
+    # offset in the stripe off the FS block grid — the read-modify-write
+    # amplification the alignment contract exists to prevent. Enforced
+    # here so every caller is covered, not only the SplinterSizer.
+    splinter_bytes = aligned_floor(splinter_bytes, align)
+    if reader_splinter_bytes is not None:
+        if len(reader_splinter_bytes) != num_readers:
+            raise ValueError(
+                f"reader_splinter_bytes has {len(reader_splinter_bytes)} "
+                f"entries for {num_readers} readers")
+        reader_splinter_bytes = tuple(
+            aligned_floor(int(s), align) for s in reader_splinter_bytes)
+
+    end = offset + nbytes
+    cuts = (sorted({int(b) for b in hard_bounds if offset < int(b) < end})
+            if hard_bounds else [])
+
+    if not cuts:
+        bounds = _cut_stripes(offset, nbytes, num_readers, align)
+    else:
+        edges = [offset] + cuts + [end]
+        segs = list(zip(edges[:-1], edges[1:]))
+        if num_readers < len(segs):
+            raise ValueError(
+                f"{num_readers} readers cannot honour {len(segs)} hard "
+                f"segments (need >= one reader per segment)")
+        alloc = _readers_per_segment([e - s for s, e in segs], num_readers)
+        bounds = []
+        for (s, e), k in zip(segs, alloc):
+            bounds.extend(_cut_stripes(s, e - s, k, align))
 
     splinters: List[Splinter] = []
     gidx = 0
     for r, (s, e) in enumerate(bounds):
+        sb = (reader_splinter_bytes[r] if reader_splinter_bytes is not None
+              else splinter_bytes)
         pos = s
         while pos < e:
-            n = min(splinter_bytes, e - pos)
+            n = min(sb, e - pos)
             splinters.append(Splinter(reader=r, index=gidx, offset=pos, nbytes=n))
             gidx += 1
             pos += n
@@ -120,6 +205,8 @@ def plan_session(
         splinter_bytes=splinter_bytes,
         stripe_bounds=tuple(bounds),
         splinters=tuple(splinters),
+        reader_splinter_bytes=reader_splinter_bytes,
+        hard_bounds=tuple(cuts) if cuts else None,
     )
 
 

@@ -26,19 +26,51 @@ each syscall — the deterministic short-read / flaky-EIO injection point
 used by ``core/faults.py`` (picklable, so it also ships to reader worker
 processes through ``WorkerSpec.io_fault``).
 
-This copy reads through the buffered descriptor only; ``O_DIRECT`` comes
-with a later slice of the port. ``ShardedFile`` presents the shards of a
-FileSet as one byte space.
+Direct I/O mode (the cold-cache contract)
+-----------------------------------------
+``PosixFile.open(path, direct_io=True)`` opens a second ``O_DIRECT``
+descriptor next to the buffered one. Direct reads bypass the page cache
+entirely — the kernel DMAs straight into the session arena — which is the
+honest way to measure (and serve) the storage path the paper targets:
+``drop_page_cache``-based eviction is advisory, but an O_DIRECT read can
+never be satisfied from DRAM in the first place.
+
+The price is alignment: file offset, request length, and the destination
+buffer address must all be multiples of the filesystem block size (probed
+per path via :func:`fs_block_size` — ``os.statvfs``, falling back to
+:data:`DEFAULT_ALIGN`). The splinter grid already provides aligned offsets
+(``aligned_floor`` over the probed block size) and the session arena is
+placed on the block grid (``core/buffers.py`` over-allocates one block),
+so the steady-state read path satisfies this for free. The
+two legal violations are handled, **counted, never silent**:
+
+* a *tail* shorter than one block (end of a stripe/file) is read through
+  the buffered descriptor and counted via ``record_direct_tail`` on the
+  stats sink (falling back to :data:`IO_EVENTS`);
+* anything structurally misaligned (arena base, session offset, shard
+  ``file_base``) raises :class:`DirectIOError` with a descriptive message
+  at open/start time — there is no silent fallback to buffered mode.
+
+When to expect O_DIRECT to *lose*: warm-cache re-reads (buffered reads are
+DRAM copies), tiny requests (per-request DMA setup dominates), and FSes
+where the kernel's own readahead pipelines better than the submitted queue
+depth. It wins on genuinely cold data, on memory-pressured nodes (no cache
+pollution: a training epoch's worth of token shards never evicts the
+model's pages), and wherever tail latency from page-cache writeback
+interference matters.
+
+``ShardedFile`` presents the shards of a FileSet as one byte space.
 """
 from __future__ import annotations
 
+import ctypes
 import errno
 import os
 import threading
 import time
 from bisect import bisect_right
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 # Typical FS block size; stripe/splinter boundaries are aligned to this when
 # possible to avoid read-modify-write amplification on the storage side.
@@ -75,6 +107,28 @@ def fs_block_size(path: str, fallback: int = DEFAULT_ALIGN) -> int:
             p = os.path.dirname(p) or "."
     return fallback
 
+
+class DirectIOError(OSError):
+    """Raised when ``direct_io=True`` cannot be honoured.
+
+    Deliberately an error, not a warning: the direct-I/O contract is
+    "runs end-to-end or fails fast with the reason" — a silent fallback to
+    buffered reads would report cold-cache numbers that are really DRAM."""
+
+
+def _buf_addr(view: memoryview) -> int:
+    """Virtual address of a writable buffer (for O_DIRECT alignment checks)."""
+    return ctypes.addressof(ctypes.c_char.from_buffer(view))
+
+
+def supports_direct_io(path: str) -> bool:
+    """True when ``path``'s filesystem accepts ``O_DIRECT`` opens."""
+    try:
+        fd = os.open(path, os.O_RDONLY | os.O_DIRECT)
+    except (OSError, AttributeError):
+        return False
+    os.close(fd)
+    return True
 
 # os.preadv reads straight into a caller-provided buffer (no intermediate
 # bytes object); available on Linux/BSD since Python 3.7. When absent we fall
@@ -126,6 +180,8 @@ class IOEventCounts:
         self._lock = threading.Lock()
         self.retries = 0
         self.suppressed = 0
+        self.direct_tail_reads = 0
+        self.direct_tail_bytes = 0
         self.by_errno: Dict[int, int] = {}
 
     def record_io_retry(self, err: Optional[int] = None) -> None:
@@ -139,6 +195,11 @@ class IOEventCounts:
             self.suppressed += 1
             if err is not None:
                 self.by_errno[err] = self.by_errno.get(err, 0) + 1
+
+    def record_direct_tail(self, nbytes: int = 0) -> None:
+        with self._lock:
+            self.direct_tail_reads += 1
+            self.direct_tail_bytes += int(nbytes)
 
 
 IO_EVENTS = IOEventCounts()
@@ -171,16 +232,44 @@ class PosixFile:
     # Per-call ``fault=`` overrides this; reader workers set it from
     # ``WorkerSpec.io_fault`` (core/faults.py hooks are picklable).
     fault: Optional[object] = None
-    # Probed FS block size: the stripe/splinter grid is planned on it.
+    # Direct-I/O mode: ``direct_fd`` is the O_DIRECT descriptor (body reads),
+    # ``fd`` stays buffered (sub-block tails, advisory hints). ``block_size``
+    # is the probed alignment every direct read must honour.
+    direct_io: bool = False
+    direct_fd: int = -1
     block_size: int = DEFAULT_ALIGN
     _refcount: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     @classmethod
-    def open(cls, path: str) -> "PosixFile":
+    def open(cls, path: str, *, direct_io: bool = False) -> "PosixFile":
         fd = os.open(path, os.O_RDONLY)
         size = os.fstat(fd).st_size
-        f = cls(path=path, fd=fd, size=size, block_size=fs_block_size(path))
+        bs = fs_block_size(path)
+        direct_fd = -1
+        if direct_io:
+            if not HAVE_PREADV:
+                os.close(fd)
+                raise DirectIOError(
+                    f"direct_io=True needs os.preadv (read straight into an "
+                    f"aligned arena view); this platform lacks it — cannot "
+                    f"open {path!r} in direct mode")
+            flag = getattr(os, "O_DIRECT", 0)
+            if not flag:
+                os.close(fd)
+                raise DirectIOError(
+                    f"direct_io=True: os.O_DIRECT is not available on this "
+                    f"platform — cannot open {path!r} in direct mode")
+            try:
+                direct_fd = os.open(path, os.O_RDONLY | flag)
+            except OSError as e:
+                os.close(fd)
+                raise DirectIOError(
+                    f"direct_io=True: O_DIRECT open of {path!r} failed with "
+                    f"errno {e.errno} ({os.strerror(e.errno or 0)}) — the "
+                    f"filesystem does not support direct I/O") from e
+        f = cls(path=path, fd=fd, size=size, direct_io=direct_io,
+                direct_fd=direct_fd, block_size=bs)
         f._refcount = 1
         return f
 
@@ -228,6 +317,14 @@ class PosixFile:
         ``fault`` (default ``self.fault``) is the injection hook — it may
         cap a syscall's length (short read) or raise ``OSError`` (which
         then flows through the same retry machinery a real error would).
+
+        Direct mode: the aligned body of the request goes through the
+        O_DIRECT descriptor; any sub-block fragment (a tail shorter than
+        one block, or a grid re-sync after an injected/EOF short read)
+        goes through the buffered descriptor and is counted via
+        ``record_direct_tail`` on the stats sink. A structurally
+        misaligned call (offset or buffer address off the probed block
+        grid) raises :class:`DirectIOError` — never a silent fallback.
         """
         want = len(view)
         total = 0
@@ -235,8 +332,24 @@ class PosixFile:
         hook = fault if fault is not None else self.fault
         pol = self.retry
         use_v = self.use_preadv and HAVE_PREADV
+        direct = self.direct_io and self.direct_fd >= 0
+        bs = self.block_size
+        if direct and want > 0:
+            if offset % bs:
+                raise DirectIOError(
+                    f"direct read at offset {offset} is off the {bs}-byte "
+                    f"block grid of {self.path!r} (offset % {bs} == "
+                    f"{offset % bs}); plan splinters with "
+                    f"align=fs_block_size(path)")
+            addr = _buf_addr(view)
+            if addr % bs:
+                raise DirectIOError(
+                    f"direct read destination buffer at 0x{addr:x} is not "
+                    f"{bs}-byte aligned for {self.path!r}; the session "
+                    f"arena must be allocated on the block grid")
         while total < want:
             attempts, pause, deadline = 0, pol.base_backoff_s, None
+            tail_frag = False
             while True:
                 cap = want - total
                 try:
@@ -244,7 +357,24 @@ class PosixFile:
                         c = hook(offset + total, cap)
                         if c is not None:
                             cap = max(1, min(cap, int(c)))
-                    if use_v:
+                    pos = offset + total
+                    tail_frag = False
+                    if direct and pos % bs == 0 and cap >= bs:
+                        # Aligned body — DMA straight into the arena view.
+                        dcap = (cap // bs) * bs
+                        got = os.preadv(
+                            self.direct_fd, [view[total: total + dcap]], pos
+                        )
+                    elif direct:
+                        # Sub-block fragment (tail, or re-sync to the grid
+                        # after a short return) — buffered fd, counted.
+                        frag = pos % bs
+                        bcap = min(cap, bs - frag) if frag else cap
+                        got = os.preadv(
+                            self.fd, [view[total: total + bcap]], pos
+                        )
+                        tail_frag = True
+                    elif use_v:
                         got = os.preadv(
                             self.fd, [view[total: total + cap]], offset + total
                         )
@@ -270,6 +400,9 @@ class PosixFile:
                     pause = min(pause * 2.0, pol.max_backoff_s)
             if got <= 0:              # EOF (preadv never returns <0 in py)
                 break
+            if tail_frag:
+                rec = getattr(sink, "record_direct_tail", None)
+                (rec if rec is not None else IO_EVENTS.record_direct_tail)(got)
             total += got
         return total
 
@@ -306,6 +439,9 @@ class PosixFile:
             if self._refcount <= 0 and self.fd >= 0:
                 os.close(self.fd)
                 self.fd = -1
+                if self.direct_fd >= 0:
+                    os.close(self.direct_fd)
+                    self.direct_fd = -1
 
     @property
     def closed(self) -> bool:
@@ -329,16 +465,22 @@ class ShardedFile:
 
     It carries the part of the ``PosixFile`` surface the reader runtime
     uses (``pread_into``, ``advise_sequential``, ``block_size``, ``size``,
-    ``path``, ``close``), with ``PosixFile``'s semantics: positional reads
-    from any thread, short-read/EOF behaviour (a torn shard body returns
-    short, it does not raise), per-shard transient-error retry (each
-    underlying handle keeps its own ``RetryPolicy``). A read that crosses a
-    shard boundary is split at it (this copy's stripe planning does not pin
-    shard starts as stripe bounds). The ``fault`` injection hook is
-    forwarded to the per-shard reads and observes *shard-file* offsets.
+    ``path``, ``direct_io``, ``close``), with ``PosixFile``'s semantics:
+    positional reads from any thread, short-read/EOF behaviour (a torn shard
+    body returns short, it does not raise), per-shard transient-error retry
+    (each underlying handle keeps its own ``RetryPolicy``). Session plans pin
+    interior shard starts as hard stripe bounds (``bounds_in``), so no
+    splinter spans a shard; a read that crosses one anyway is split at it.
+    The ``fault`` injection hook is forwarded to the per-shard reads and
+    observes *shard-file* offsets.
+
+    ``direct_io=True`` opens every shard ``O_DIRECT``; a shard whose data
+    region (``file_base``) or, for interior shards, whose ``global_start``
+    is off the block grid is rejected at open, by name.
     """
 
-    def __init__(self, segments: Sequence[Tuple[str, int, int, int, int]]):
+    def __init__(self, segments: Sequence[Tuple[str, int, int, int, int]],
+                 *, direct_io: bool = False):
         segs = tuple(
             (str(p), int(g), int(b), int(n), int(sid))
             for (p, g, b, n, sid) in segments
@@ -358,26 +500,59 @@ class ShardedFile:
         self.size = segs[-1][1] + segs[-1][3]   # end of the global space
         self.path = (f"fileset[{len(segs)} shards: {segs[0][0]} .. "
                      f"{segs[-1][0]}]")
+        self.direct_io = bool(direct_io)
         # One descriptor per unique path (a path may legally back several
         # segments); opened here, owned by this handle alone.
         self._by_path: Dict[str, PosixFile] = {}
         try:
             for p, *_ in segs:
                 if p not in self._by_path:
-                    self._by_path[p] = PosixFile.open(p)
+                    self._by_path[p] = PosixFile.open(p, direct_io=direct_io)
         except OSError:
             for f in self._by_path.values():
                 f.close()
             raise
         self._files = tuple(self._by_path[p] for (p, *_ ) in segs)
         self.block_size = max(f.block_size for f in self._by_path.values())
+        if direct_io:
+            # A shard whose data region starts off the block grid would put
+            # every global-aligned read at an unaligned file offset — reject
+            # up front with the offender list, per the direct-I/O contract.
+            bad = [(p, "file_base", b) for (p, g, b, n, sid) in segs
+                   if b % self._by_path[p].block_size]
+            # Interior shard starts become hard stripe bounds; if one is off
+            # the grid, every splinter of that shard lands at an unaligned
+            # arena position (buffer-address check would fail at read time).
+            bad += [(p, "global_start", g) for (p, g, b, n, sid) in segs[1:]
+                    if g % self.block_size]
+            if bad:
+                for f in self._by_path.values():
+                    f.close()
+                raise DirectIOError(
+                    f"direct_io=True: {len(bad)} shard segment field(s) off "
+                    f"the block grid (first: {bad[0][0]!r} {bad[0][1]}="
+                    f"{bad[0][2]}); direct sharded sessions need "
+                    f"block-aligned shard data regions and block-multiple "
+                    f"shard sizes")
 
+    # -- shard resolution -------------------------------------------------
     def _seg_at(self, global_off: int) -> int:
         i = bisect_right(self._starts, global_off) - 1
         if i < 0:
             raise ValueError(
                 f"offset {global_off} before global space start {self.offset}")
         return i
+
+    def shard_of(self, global_off: int) -> int:
+        """Shard id owning the byte at ``global_off`` (end maps to last)."""
+        return self.segments[self._seg_at(min(global_off, self.size - 1))][4]
+
+    def bounds_in(self, offset: int, nbytes: int) -> List[int]:
+        """Interior shard-start offsets strictly inside
+        ``(offset, offset + nbytes)`` — the hard stripe bounds a session
+        plan over this handle must not let any stripe span."""
+        end = offset + nbytes
+        return [g for g in self._starts[1:] if offset < g < end]
 
     # -- PosixFile surface -------------------------------------------------
     def pread_into(self, offset: int, view: memoryview, *,
@@ -438,3 +613,47 @@ def write_file(path: str, data: bytes, *, sync: bool = False) -> None:
         if sync:
             f.flush()
             os.fsync(f.fileno())
+
+
+def drop_page_cache(path: str, *, stats=None) -> bool:
+    """Best-effort eviction of a file from the OS page cache.
+
+    Benchmarks call this between trials so that throughput numbers measure the
+    storage path rather than DRAM. Uses ``posix_fadvise(DONTNEED)``; returns
+    False when unsupported (results then measure warm-cache behaviour, which
+    the benchmark records). Suppressed errors are counted (``stats`` /
+    :data:`IO_EVENTS`): the swallowed set is the fadvise
+    unsupported-hint errnos plus a missing/unreadable path — an unexpected
+    errno propagates instead of masquerading as "cache not dropped".
+    """
+    sink = stats if stats is not None else IO_EVENTS
+    try:
+        fadvise = os.posix_fadvise
+    except AttributeError:            # platform gap — nothing to count
+        return False
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError as e:
+        if e.errno in (errno.ENOENT, errno.EACCES, errno.EPERM, errno.EISDIR):
+            sink.record_suppressed(e.errno)
+            return False
+        raise
+    try:
+        try:
+            # DONTNEED cannot evict DIRTY pages — a file written moments
+            # ago (every benchmark fixture) would silently stay resident.
+            # fsync on a read-only fd is legal on Linux and flushes the
+            # inode's dirty pages first; failure is advisory, not fatal.
+            os.fsync(fd)
+        except OSError as e:
+            sink.record_suppressed(e.errno)
+        try:
+            fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        except OSError as e:
+            if e.errno in _FADVISE_SUPPRESS:
+                sink.record_suppressed(e.errno)
+                return False
+            raise
+    finally:
+        os.close(fd)
+    return True

@@ -1,8 +1,8 @@
 """The reader worker's error type and its picklable fault hooks.
 
 The process backend (reader worker processes over a shared-memory arena)
-comes with the process-backend slice (ROADMAP.md, Queue A item 7). This
-module carries only what the train supervisor and the fault plan use
+comes with the process backend and service slice (ROADMAP.md, Queue A).
+This module carries only what the train supervisor and the fault plan use
 before it: :class:`WorkerCrashed`, which the supervisor counts as a
 reader failure, and the hooks :class:`StallReader`, :class:`ExitAfter`
 and :class:`RaiseAfter`, which ``core/faults.py`` re-exports.

@@ -37,7 +37,8 @@ STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: a power of two, one warp at most
 FORWARD_ONLY = (
     "mamba_scan: the CUDA selective-scan kernel is forward-only (the "
     "reference has no backward kernel either); training an SSM on the card "
-    "comes with its own slice (ROADMAP.md, Queue A item 9)")
+    "comes with the training through the Hopper kernels slice (ROADMAP.md, "
+    "Queue A)")
 
 # Kernel launches, counted where the wrapper launches the kernel.
 LAUNCHES: Dict[str, int] = {"mamba_scan": 0, "mamba_scan_fused": 0}

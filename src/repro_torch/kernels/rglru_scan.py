@@ -35,7 +35,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 FORWARD_ONLY = (
     "rglru_scan: the CUDA RG-LRU kernel is forward-only (the reference has "
     "no backward kernel either); training a recurrent model on the card "
-    "comes with its own slice (ROADMAP.md, Queue A item 9)")
+    "comes with the training through the Hopper kernels slice (ROADMAP.md, "
+    "Queue A)")
 
 # Kernel launches, counted where the wrapper launches the kernel.
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0, "rglru_scan_gated": 0}

@@ -228,7 +228,7 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> ServeRun:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not carried by the port yet: "
                 f"the pooled reader service comes with the process backend "
-                f"and service slice (ROADMAP.md, Queue A item 3)")
+                f"and service slice (ROADMAP.md, Queue A)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:

@@ -11,6 +11,13 @@ see ROADMAP.md, Queue A.
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 6 \
       --global-batch 8 --seq 128 --streaming --ckpt-every 2
 
+More than one ``--data`` path reads the list as one ``FileSet`` (each shard
+written if missing), and ``--direct-io``, ``--queue-depth N``,
+``--readahead-mb M``, ``--submit-mode``, ``--adaptive-queue`` and
+``--adaptive-splinters`` set the cold-path read engine (``io/submit.py``,
+``core/autotune.py``); the summary's ``read`` and ``shards`` blocks report
+what the sessions ran with and read.
+
 Checkpoints hold the train state in the reference's layout
 (``models.convert.train_state_to_reference``, stacked on the host), so
 either package resumes from the other's; ``--resume`` continues from the
@@ -34,7 +41,8 @@ import torch
 from repro_torch.configs.base import MAMBA, RGLRU, ModelConfig
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.core import CkIO, FileOptions
-from repro_torch.data import CkIOPipeline, make_token_file
+from repro_torch.core.metrics import SessionMetrics
+from repro_torch.data import CkIOPipeline, FileSet, make_token_file
 from repro_torch.device import resolve_device
 from repro_torch.kernels import mamba_scan, rglru_scan
 from repro_torch.models import build_model
@@ -53,12 +61,7 @@ _LATER = {
     "topology": (None, "NUMA"),
     "numa_pin": (False, "NUMA"),
     "service": (False, "process backend and service"),
-    "adaptive_splinters": (False, "direct I/O and async submit"),
     "tuned_env": (False, "benchmark legs"),
-    "direct_io": (False, "direct I/O and async submit"),
-    "readahead_mb": (0, "direct I/O and async submit"),
-    "submit_mode": ("auto", "direct I/O and async submit"),
-    "adaptive_queue": (False, "direct I/O and async submit"),
 }
 
 
@@ -80,8 +83,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--data", nargs="+",
                     default=[os.path.join(tempfile.gettempdir(),
                                           "repro_torch_train_tokens.bin")],
-                    help="token file path (written if missing); more than one"
-                         " path (a FileSet) is not carried yet")
+                    help="token file path(s), each written if missing; more"
+                         " than one path opens the list as a FileSet — one"
+                         " logical row space over all shards"
+                         " (data/fileset.py), read through one shard-aware"
+                         " session per step window")
     ap.add_argument("--device", default="cuda",
                     help="torch device for the model and the device-ingest"
                          " path; 'cpu' runs the plain PyTorch versions")
@@ -100,7 +106,31 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["thread", "process"])
     ap.add_argument("--max-workers", type=int, default=4)
     ap.add_argument("--pool-workers", type=int, default=4)
-    ap.add_argument("--queue-depth", type=int, default=0)
+    ap.add_argument("--queue-depth", type=int, default=0,
+                    help="in-flight splinter reads per reader: 0/1 = the"
+                         " blocking loop, >= 2 = depth-managed async"
+                         " submission (io_uring when available, else a"
+                         " preadv pool)")
+    ap.add_argument("--direct-io", action="store_true",
+                    help="open the corpus O_DIRECT: reads bypass the page"
+                         " cache and DMA into the session arena; a shard"
+                         " off the block grid raises DirectIOError, never a"
+                         " silent buffered read")
+    ap.add_argument("--readahead-mb", type=int, default=0,
+                    help="WILLNEED window (MB) advised ahead of the async"
+                         " submission frontier (buffered files only)")
+    ap.add_argument("--submit-mode", default="auto",
+                    choices=["auto", "io_uring", "threads"],
+                    help="async submission backend selection")
+    ap.add_argument("--adaptive-queue", action="store_true",
+                    help="let the Director's QueueTuner pick (queue-depth,"
+                         " readahead) per session from observed throughput;"
+                         " the explicit flags then only seed the first"
+                         " session")
+    ap.add_argument("--adaptive-splinters", action="store_true",
+                    help="size splinters per session from observed"
+                         " per-reader throughput and steal pressure"
+                         " (core/autotune.py SplinterSizer)")
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_ckpts"))
@@ -114,13 +144,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--topology", default=None)
     ap.add_argument("--numa-pin", action="store_true")
     ap.add_argument("--service", action="store_true")
-    ap.add_argument("--adaptive-splinters", action="store_true")
     ap.add_argument("--tuned-env", action="store_true")
-    ap.add_argument("--direct-io", action="store_true")
-    ap.add_argument("--readahead-mb", type=int, default=0)
-    ap.add_argument("--submit-mode", default="auto",
-                    choices=["auto", "io_uring", "threads"])
-    ap.add_argument("--adaptive-queue", action="store_true")
     return ap
 
 
@@ -130,9 +154,30 @@ def _reject_unported(args) -> None:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not carried by the port yet: "
                 f"it comes with the {slice_name} slice (ROADMAP.md, Queue A)")
-    if len(args.data) > 1:
-        raise NotImplementedError("a multi-shard --data corpus (FileSet) comes "
-                                  "with the FileSet slice (ROADMAP.md, Queue A)")
+
+
+def read_summary(sessions: List[SessionMetrics]) -> Dict:
+    """The read sessions' submission shape and observables, summed (bytes,
+    direct tails) or as their range over the run (depth, readahead, the
+    in-flight high-water mark), from the ``SessionMetrics`` the Director's
+    observer path saw."""
+    def span(vals):
+        return [min(vals), max(vals)] if vals else None
+
+    return {
+        "sessions": len(sessions),
+        "bytes_read": sum(m.bytes_read for m in sessions),
+        "submit_backend": sorted({m.submit_backend or "blocking"
+                                  for m in sessions}),
+        "direct_io": sorted({m.direct_io for m in sessions}),
+        "queue_depth": span([m.queue_depth for m in sessions]),
+        "readahead_bytes": span([m.readahead_bytes for m in sessions]),
+        "inflight_hwm": span([m.inflight_hwm for m in sessions]),
+        "direct_tail_reads": sum(m.recovery.direct_tail_reads
+                                 for m in sessions),
+        "direct_tail_bytes": sum(m.recovery.direct_tail_bytes
+                                 for m in sessions),
+    }
 
 
 def make_supervisor(step_fn, cfg: ModelConfig, ckpt_dir: str, *,
@@ -179,20 +224,35 @@ def main(argv: Optional[List[str]] = None) -> Dict:
           f"params≈{cfg.param_counts()['total']/1e6:.1f}M device={dev}")
 
     # -- corpus + CkIO pipeline ------------------------------------------------
-    path = args.data[0]
-    if not os.path.exists(path):
-        need = args.steps * args.global_batch * (args.seq + 1) + 1024
-        print(f"writing synthetic corpus: {path} ({need} tokens)")
-        make_token_file(path, need, cfg.vocab_size, seed=0)
+    need = args.steps * args.global_batch * (args.seq + 1) + 1024
+    per_shard = (need + len(args.data) - 1) // len(args.data)
+    for i, p in enumerate(args.data):
+        if not os.path.exists(p):
+            print(f"writing synthetic corpus shard: {p} ({per_shard} tokens)")
+            make_token_file(p, per_shard, cfg.vocab_size, seed=i)
+    if len(args.data) > 1:
+        # One FileSet manifest = one logical row space; shard starts become
+        # hard stripe bounds inside each session plan.
+        data_source = FileSet.build(args.data)
+        print(f"fileset: {data_source.describe()}")
+    else:
+        data_source = args.data[0]
     num_pes = 4
     ckio = CkIO(num_pes=num_pes, pes_per_node=num_pes)
+    sessions: List[SessionMetrics] = []
+    ckio.director.add_observer(sessions.append)
     pipe = CkIOPipeline(
-        path, args.global_batch, args.seq,
+        data_source, args.global_batch, args.seq,
         ckio=ckio, num_consumers=args.num_consumers,
         file_opts=FileOptions(num_readers=args.num_readers,
+                              adaptive_splinters=args.adaptive_splinters,
                               placement=args.placement,
                               backend=args.backend,
-                              queue_depth=args.queue_depth),
+                              direct_io=args.direct_io,
+                              queue_depth=args.queue_depth,
+                              readahead_bytes=args.readahead_mb * (1 << 20),
+                              submit_mode=args.submit_mode,
+                              adaptive_queue=args.adaptive_queue),
         streaming=args.streaming,
         device=dev,
     )
@@ -251,6 +311,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "device": str(dev),
         "ingest": pipe.ingest.summary(),
         "stream": pipe.stream.summary() if args.streaming else None,
+        "read": read_summary(sessions),
+        "shards": (ckio.director.shards.summary()
+                   | {"shard_bytes": dict(ckio.director.shards.shard_bytes)}
+                   if len(args.data) > 1 else None),
     }
     print(json.dumps(summary, indent=2))
     return summary

@@ -51,7 +51,7 @@ class Model:
         if frames is not None:
             raise NotImplementedError(
                 "encoder frames: encoder-decoder decode comes with the "
-                "whisper slice (ROADMAP.md, Queue A item 13)")
+                "whisper slice (ROADMAP.md, Queue A)")
         return transformer.init_decode_state(self.cfg, batch_size, seq_budget,
                                              self.device(params))
 

@@ -10,8 +10,9 @@ consumer/reader decoupling: session lifetime shrinks from "the whole
 training run" to "one request's queueing time".
 
 The port runs the thread backend; a shared reader service (``service=``)
-comes with ROADMAP.md Queue A item 3, and until then ``ServiceBusy`` is
-this module's own class (raised by no reader tier yet).
+comes with the process backend and service slice (ROADMAP.md, Queue A),
+and until then ``ServiceBusy`` is this module's own class (raised by no
+reader tier yet).
 
 Everything is poll-driven and single-threaded (the split-phase idiom):
 ``submit`` never blocks on I/O, ``poll`` pumps the scheduler, advances
@@ -129,7 +130,7 @@ class RequestIngester:
             raise NotImplementedError(
                 "RequestIngester(service=...): the pooled ReaderService comes "
                 "with the process backend and service slice (ROADMAP.md, "
-                "Queue A item 3)")
+                "Queue A)")
         self.ck = ck
         self.file = file
         self.meta = meta

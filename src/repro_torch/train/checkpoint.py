@@ -292,7 +292,7 @@ def restore_sharded(path: str, like: Any, shardings: Any, **kw) -> Tuple[Any, in
     """Elastic restore onto a multi-GPU sharding: not carried yet."""
     raise NotImplementedError(
         "restore_sharded: placing leaves onto a multi-GPU sharding comes "
-        "with the multi-GPU sharding slice (ROADMAP.md, Queue A item 14); "
+        "with the multi-GPU sharding slice (ROADMAP.md, Queue A); "
         "restore_tree restores onto one device")
 
 

@@ -126,8 +126,16 @@ def test_resize_mid_stream_keeps_batches(corpus):
     tp.close()
 
 
-def test_unported_options_and_missing_card_raise(corpus):
+def test_unported_options_and_missing_card_raise(corpus, tmp_path):
     path, _ = corpus
+    # A FileSet corpus is carried now (tests/test_torch_fileset_pipeline.py).
+    from repro_torch.data import FileSet, write_token_shards
+
+    shards = write_token_shards(str(tmp_path), np.arange(600, dtype=np.uint32),
+                                [300, 300])
+    pipe = CkIOPipeline(FileSet.build(shards), 2, 31, device="cpu")
+    np.testing.assert_array_equal(pipe.get_batch(1)[0][0], np.arange(64, 95))
+    pipe.close()
     with pytest.raises(NotImplementedError):
         CkIOPipeline(path, 2, 31, sharding=object(), device="cpu")
     with pytest.raises(NotImplementedError):

@@ -346,9 +346,70 @@ def test_driver_bf16_compression_runs(tmp_path):
     assert out["steps"] == 2 and np.isfinite(out["final_loss"])
 
 
-@pytest.mark.parametrize("flag", [["--numa-pin"], ["--adaptive-splinters"],
-                                  ["--tuned-env"], ["--service"],
-                                  ["--topology", "auto"], ["--direct-io"]])
+@pytest.mark.parametrize("flag", [["--numa-pin"], ["--tuned-env"],
+                                  ["--service"], ["--topology", "auto"]])
 def test_driver_flags_of_later_slices_raise(flag):
     with pytest.raises(NotImplementedError):
         port_train.main(["--smoke", "--device", "cpu", *flag])
+
+
+def _driver_batches(argv):
+    """The driver's summary and the batches ``get_batch_device`` gave it."""
+    from repro_torch.data import pipeline as tpipeline
+
+    batches = []
+    orig = tpipeline.CkIOPipeline.get_batch_device
+
+    def recorded(self, step, *a, **kw):
+        x, y = orig(self, step, *a, **kw)
+        batches.append((x.numpy().copy(), y.numpy().copy()))
+        return x, y
+
+    tpipeline.CkIOPipeline.get_batch_device = recorded
+    try:
+        return port_train.main(argv), batches
+    finally:
+        tpipeline.CkIOPipeline.get_batch_device = orig
+
+
+def test_driver_adaptive_splinters_runs(tmp_path):
+    """``--adaptive-splinters`` sizes each session's splinters through the
+    Director's SplinterSizer; the batches are the plain run's."""
+    common = ["--smoke", "--steps", "4", "--global-batch", "2", "--seq", "32",
+              "--microbatches", "1", "--num-readers", "2", "--device", "cpu",
+              "--streaming", "--data", str(tmp_path / "tokens.bin")]
+    plain, want = _driver_batches([*common, "--ckpt-dir",
+                                   str(tmp_path / "a")])
+    out, got = _driver_batches([*common, "--adaptive-splinters",
+                                "--ckpt-dir", str(tmp_path / "b")])
+    assert out["steps"] == 4 and np.isfinite(out["final_loss"])
+    assert len(got) == len(want) == 4
+    for (xg, yg), (xw, yw) in zip(got, want):
+        np.testing.assert_array_equal(xg, xw)
+        np.testing.assert_array_equal(yg, yw)
+    assert out["read"]["submit_backend"] == ["blocking"]
+    assert out["read"]["bytes_read"] == plain["read"]["bytes_read"]
+
+
+def test_driver_direct_io_runs(tmp_path):
+    """``--direct-io`` on the driver's single-file corpus: windows of 66
+    tokens start off the block grid, so each session starts at the block
+    below its window; the batches are the buffered run's."""
+    from repro_torch.io.posix import supports_direct_io
+
+    data = str(tmp_path / "tokens.bin")
+    common = ["--smoke", "--steps", "3", "--global-batch", "2", "--seq", "32",
+              "--microbatches", "1", "--num-readers", "2", "--device", "cpu",
+              "--device-ingest", "--data", data]
+    _, want = _driver_batches([*common, "--ckpt-dir", str(tmp_path / "a")])
+    if not supports_direct_io(data):
+        pytest.skip("the filesystem under the test's tmp dir refuses O_DIRECT")
+    out, got = _driver_batches([*common, "--direct-io", "--queue-depth", "4",
+                                "--ckpt-dir", str(tmp_path / "b")])
+    assert out["steps"] == 3 and np.isfinite(out["final_loss"])
+    for (xg, yg), (xw, yw) in zip(got, want):
+        np.testing.assert_array_equal(xg, xw)
+        np.testing.assert_array_equal(yg, yw)
+    read = out["read"]
+    assert read["direct_io"] == [True] and read["direct_tail_reads"] > 0
+    assert read["inflight_hwm"][1] <= 4
