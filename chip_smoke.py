@@ -176,15 +176,45 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              the file and runs buffered at queue depth 8, and (b) drops its
              direct mode. These are host-storage numbers on the card's
              machine, not a speed of the card;
-22. profile  only with ``--profile``: two whole-window main-path steps, 16
+22. process  the driver of phase 21 (a) over the same 3 shards and flags
+             with ``--backend process --max-workers 4``: every step
+             session's arena is a shared-memory segment that 4 reader
+             worker processes fill (each rebuilds its own shard fds and
+             drains at queue depth 8), whole-window and streamed. Batches
+             and the 4 losses must be bit-equal to phase 21's thread-
+             backend runs; one window-kernel launch a step, no table
+             upload; worker processes (4, none this process) served every
+             session that read bytes, none degraded; the workers' in-flight
+             high-water mark <= 8. It prints the workers' submit kind,
+             direct tails, spawn -> attached ms a session, and
+             ``get_batch_device`` ms a step with its share of the step.
+             Then a ``CkIOPipeline`` over the shards (``O_DIRECT`` where it
+             runs, blocking worker reads, 3-block splinters: 2 a reader)
+             with a seeded ``FaultPlan`` that crashes one worker of every
+             session after its first splinter: under ``recovery="respawn"``
+             each session respawns once, under ``"reissue"`` re-reads the
+             tail here, both with batches bit-equal to the unbroken run;
+             under ``"none"`` ``get_batch_device`` raises ``WorkerCrashed``
+             at once and the pipeline closes;
+23. numa     the host's NUMA nodes (``/sys/devices/system/node``) and the
+             card's PCI ``numa_node``; then the driver with ``--topology
+             auto --numa-pin`` under ``--placement domain_spread`` and
+             ``near_consumers``, on the thread and the process backend
+             (whole-window), each bit-equal (batches and losses) to phase
+             21's plain run, with the ``locality`` summary (pinned threads
+             or workers, pin failures, same- and cross-domain bytes,
+             first-touched pages against arena pages). On a host of one
+             domain this checks the plumbing only;
+24. profile  only with ``--profile``: two whole-window main-path steps, 16
              B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
              recurrentgemma under ``torch.profiler`` (device busy share,
              kernels and copies a call, kernels by device time).
 
 The launch counts are zeroed just before each main-path run (phases 4-8,
 each mode of phases 13-20, the prefill forwards of phase 14's replay check,
-the two ring-wrap replays and the three driver runs of phase 21) and read
-just after it. The line before the last is a JSON object with one entry per kernel;
+the two ring-wrap replays, the three driver runs of phase 21, each driver
+run and fault pipeline of phase 22 and each driver run of phase 23) and
+read just after it. The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -272,6 +302,9 @@ FAM_PROMPT, FAM_STATIC_REQUESTS, FAM_CONT_REQUESTS = 64, 4, 2
 FS_DEPTH, FS_READERS = 8, 4
 COLD_SHARD_MIB, COLD_READAHEAD = (720, 720, 608), 8 << 20
 TUNER_SESSIONS, TUNER_BYTES = 8, 256 << 20
+# The process and numa phases: worker processes a session; the seed of the
+# crash that the fault leg injects, and its watchdog.
+PROC_WORKERS, FAULT_SEED, FAULT_WATCHDOG_S = 4, 20261017, 30.0
 # gemma3's ring-wrap check: its first block (5 local layers with 1,024-slot
 # rings, 1 global layer) at full width in fp32, one prompt past the window.
 G3_WINDOW, G3_WRAP_LAYERS, G3_WRAP_PROMPT = 1024, 6, 1100
@@ -2282,24 +2315,17 @@ class Smoke:
         finally:
             shutil.rmtree(d, ignore_errors=True)
 
-    def _fileset_driver(self, d, bs, direct):
-        """Leg (a): ``launch.train.main`` over ``--data a b c`` against a
-        single file of the same tokens read with the blocking loop."""
-        import contextlib
-        import io
-
+    def _fileset_corpus(self, d, bs):
+        """Leg (a)'s corpus, also read by the ``process`` and ``numa``
+        phases: 2 step windows and 517 tokens of uint32 ids from seed 0,
+        as 3 shards whose interior starts lie inside each window (on the
+        ``bs``-byte grid) and as one file; returns the shard paths, the
+        single file, the tokens as int32 and the window's token count."""
         import numpy as np
-        import torch
 
         from repro_torch.configs.registry import get_config
-        from repro_torch.core import buffers as B_
-        from repro_torch.data import pipeline as P
         from repro_torch.data import write_token_shards
         from repro_torch.data.tokenfile import write_token_file
-        from repro_torch.io import posix
-        from repro_torch.io.posix import DirectIOError
-        from repro_torch.kernels import reassemble as K
-        from repro_torch.launch import train as T
 
         w = B * (S + 1)                      # tokens of a step window
         unit = bs // 4                       # tokens of a block
@@ -2315,23 +2341,151 @@ class Smoke:
         shards = write_token_shards(os.path.join(d, "shards"), arr, counts)
         single = os.path.join(d, "single.bin")
         write_token_file(single, arr)
-        raw = arr.view(np.int32)
         log(f"fileset: shards of {counts} tokens (starts at {cut1} and "
             f"{cut2}; windows of {w}), {os.path.getsize(shards[-1])} B last")
+        return shards, single, arr.view(np.int32), w
 
-        argv = ["--arch", "phi4-mini-3.8b", "--layers", str(ARCH_LAYERS),
+    def _driver_argv(self):
+        return ["--arch", "phi4-mini-3.8b", "--layers", str(ARCH_LAYERS),
                 "--steps", str(STEPS), "--global-batch", str(B),
                 "--seq", str(S), "--microbatches", str(MICROBATCHES),
                 "--lr", "1e-3", "--num-readers", str(FS_READERS),
                 "--num-consumers", "16", "--device-ingest",
                 "--ckpt-every", "1000"]
+
+    def _driver_run(self, d, name, extra, spans=None):
+        """One ``launch.train.main`` run (checkpoints off) with ``extra``
+        flags: its batches, losses, host-clock times of each
+        ``get_batch_device`` and step, summary, launch counts (zeroed just
+        before the run), chunk-table uploads, and each reader set it
+        started with its start() seconds. ``spans`` counts the parent's
+        shard-file reads and those spanning two shards."""
+        import contextlib
+        import io
+
+        import torch
+
+        from repro_torch.core import buffers as B_
+        from repro_torch.data import pipeline as P
+        from repro_torch.io import posix
+        from repro_torch.kernels import reassemble as K
+        from repro_torch.launch import train as T
+
+        class NoSave(T.AsyncCheckpointer):
+            def save(self, tree, step, **kw):
+                return None
+
+        rec = {"batches": [], "losses": [], "t_batch": [], "t_step": [],
+               "starts": []}
+        spans = spans if spans is not None else [0, 0]
+        pread_into = posix.ShardedFile.pread_into
+        starts = {cls: cls.start for cls in (B_.BufferReaderSet,
+                                              B_.ProcessReaderSet)}
+
+        def timed(start):
+            def timed_start(readers):
+                t0 = time.perf_counter()
+                try:
+                    return start(readers)
+                finally:
+                    rec["starts"].append((readers,
+                                          time.perf_counter() - t0))
+            return timed_start
+
+        def one_shard(self, offset, view, **kw):
+            spans[0] += 1
+            if self.shard_of(offset) != self.shard_of(offset + len(view) - 1):
+                spans[1] += 1
+            return pread_into(self, offset, view, **kw)
+
+        get_batch_device = P.CkIOPipeline.get_batch_device
+        make_train_step = T.make_train_step
+        checkpointer = T.AsyncCheckpointer
+
+        def timed_batch(pipe, step, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, y = get_batch_device(pipe, step, *a, **kw)
+            rec["t_batch"].append((t0, time.perf_counter()))
+            rec["batches"].append((x.cpu().numpy(), y.cpu().numpy()))
+            return x, y
+
+        def recorded_step(*a, **kw):
+            inner = make_train_step(*a, **kw)
+
+            def step_fn(params, opt, batch):
+                p, o, m = inner(params, opt, batch)
+                rec["losses"].append(float(m["loss"]))   # synchronizes
+                rec["t_step"].append(time.perf_counter())
+                return p, o, m
+            return step_fn
+
+        out = io.StringIO()
+        P.CkIOPipeline.get_batch_device = timed_batch
+        T.make_train_step = recorded_step
+        T.AsyncCheckpointer = NoSave
+        posix.ShardedFile.pread_into = one_shard
+        for cls, start in starts.items():
+            cls.start = timed(start)
+        K.reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(out):
+                summary = T.main([*self._driver_argv(), *extra, "--ckpt-dir",
+                                  os.path.join(d, f"ck_{name}")])
+        finally:
+            P.CkIOPipeline.get_batch_device = get_batch_device
+            T.make_train_step = make_train_step
+            T.AsyncCheckpointer = checkpointer
+            posix.ShardedFile.pread_into = pread_into
+            for cls, start in starts.items():
+                cls.start = start
+        counts_k = dict(K.LAUNCHES)
+        uploads = K.TABLE_UPLOADS
+        torch.cuda.empty_cache()
+        for line in out.getvalue().splitlines():
+            if line.startswith("fileset:"):
+                log(f"fileset driver: {line}")
+        gb = [t1 - t0 for t0, t1 in rec["t_batch"]]
+        step = [e - t0 for (t0, _), e in zip(rec["t_batch"], rec["t_step"])]
+        rec.update(summary=summary, launches=counts_k, uploads=uploads,
+                   gb_s=sum(gb[1:]) / len(gb[1:]),
+                   step_s=sum(step[1:]) / len(step[1:]))
+        if len(rec["batches"]) != STEPS or summary["steps"] != STEPS:
+            raise AssertionError(f"{name}: {summary['steps']} steps, "
+                                 f"{len(rec['batches'])} batches")
+        if counts_k["reassemble_window"] != STEPS or uploads:
+            raise AssertionError(f"{name}: window launches {counts_k}, "
+                                 f"uploads {uploads}")
+        return rec
+
+    def _same_run(self, name, rec, want, what):
+        """Batches and losses of ``rec`` bit-equal to ``want``'s."""
+        import numpy as np
+
+        for (xg, yg), (xw, yw) in zip(rec["batches"], want["batches"],
+                                      strict=True):
+            if not (np.array_equal(xg, xw) and np.array_equal(yg, yw)):
+                raise AssertionError(f"{name}: batches differ from {what}")
+        if rec["losses"] != want["losses"]:
+            raise AssertionError(f"{name}: losses {rec['losses']} vs {what}"
+                                 f" {want['losses']}")
+
+    def _fileset_driver(self, d, bs, direct):
+        """Leg (a): ``launch.train.main`` over ``--data a b c`` against a
+        single file of the same tokens read with the blocking loop."""
+        import numpy as np
+
+        from repro_torch.io.posix import DirectIOError
+        from repro_torch.launch import train as T
+
+        shards, single, raw, w = self._fileset_corpus(d, bs)
         flags = ["--queue-depth", str(FS_DEPTH)]
         if direct:
             flags.append("--direct-io")
         else:
             try:
-                T.main([*argv, "--data", *shards, "--direct-io",
-                        "--ckpt-dir", os.path.join(d, "ck")])
+                T.main([*self._driver_argv(), "--data", *shards,
+                        "--direct-io", "--ckpt-dir", os.path.join(d, "ck")])
             except DirectIOError as e:
                 if shards[0] not in str(e):
                     raise AssertionError(f"fileset: DirectIOError does not "
@@ -2340,113 +2494,36 @@ class Smoke:
             else:
                 raise AssertionError("fileset: --direct-io ran where no "
                                      "O_DIRECT open succeeds")
-
-        class NoSave(T.AsyncCheckpointer):
-            def save(self, tree, step, **kw):
-                return None
-
+        self.fs_flags = flags
         spans = [0, 0]                       # reads, reads spanning shards
-        pread_into = posix.ShardedFile.pread_into
-        starts = []                          # reader-set start() seconds
-        reader_start = B_.BufferReaderSet.start
-
-        def timed_start(readers):
-            t0 = time.perf_counter()
-            try:
-                return reader_start(readers)
-            finally:
-                starts.append(time.perf_counter() - t0)
-
-        def one_shard(self, offset, view, **kw):
-            spans[0] += 1
-            if self.shard_of(offset) != self.shard_of(offset + len(view) - 1):
-                spans[1] += 1
-            return pread_into(self, offset, view, **kw)
-
         runs = {}
-        get_batch_device = P.CkIOPipeline.get_batch_device
-        make_train_step = T.make_train_step
-        checkpointer = T.AsyncCheckpointer
         for name, extra in (("single", ["--data", single]),
                             ("window", ["--data", *shards, *flags]),
                             ("streamed", ["--data", *shards, *flags,
                                           "--streaming"])):
-            rec = {"batches": [], "losses": [], "t_batch": [], "t_step": []}
-
-            def timed_batch(pipe, step, *a, **kw):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                x, y = get_batch_device(pipe, step, *a, **kw)
-                rec["t_batch"].append((t0, time.perf_counter()))
-                rec["batches"].append((x.cpu().numpy(), y.cpu().numpy()))
-                return x, y
-
-            def recorded_step(*a, **kw):
-                inner = make_train_step(*a, **kw)
-
-                def step_fn(params, opt, batch):
-                    p, o, m = inner(params, opt, batch)
-                    rec["losses"].append(float(m["loss"]))   # synchronizes
-                    rec["t_step"].append(time.perf_counter())
-                    return p, o, m
-                return step_fn
-
-            out = io.StringIO()
-            P.CkIOPipeline.get_batch_device = timed_batch
-            T.make_train_step = recorded_step
-            T.AsyncCheckpointer = NoSave
-            posix.ShardedFile.pread_into = one_shard
-            B_.BufferReaderSet.start = timed_start
-            starts.clear()
-            K.reset_launch_counts()
-            try:
-                with contextlib.redirect_stdout(out):
-                    summary = T.main([*argv, *extra, "--ckpt-dir",
-                                      os.path.join(d, f"ck_{name}")])
-            finally:
-                P.CkIOPipeline.get_batch_device = get_batch_device
-                T.make_train_step = make_train_step
-                T.AsyncCheckpointer = checkpointer
-                posix.ShardedFile.pread_into = pread_into
-                B_.BufferReaderSet.start = reader_start
-            counts_k = dict(K.LAUNCHES)
-            uploads = K.TABLE_UPLOADS
-            self.launches[f"fileset_{name}"] = counts_k
-            torch.cuda.empty_cache()
-            for line in out.getvalue().splitlines():
-                if line.startswith("fileset:"):
-                    log(f"fileset driver: {line}")
-            rec.update(summary=summary, launches=counts_k, uploads=uploads)
+            rec = self._driver_run(d, f"fileset {name}", extra, spans)
+            self.launches[f"fileset_{name}"] = rec["launches"]
             runs[name] = rec
-            gb = [t1 - t0 for t0, t1 in rec["t_batch"]]
-            step = [e - t0 for (t0, _), e in zip(rec["t_batch"],
-                                                rec["t_step"])]
-            gb_s, step_s = sum(gb[1:]) / len(gb[1:]), sum(step[1:]) / len(
-                step[1:])
-            read = summary["read"]
+            summary, read = rec["summary"], rec["summary"]["read"]
+            starts = [s for _, s in rec["starts"]]
             shown = " ".join(a for a in extra if not a.startswith(d))
             log(f"fileset {name}: {shown}; losses "
-                f"{rec['losses']}; launches {json.dumps(counts_k)}, chunk-"
-                f"table uploads {uploads}; get_batch_device "
-                f"{gb_s * 1e3:.3f} ms of a {step_s * 1e3:.1f} ms step = "
-                f"{gb_s / step_s:.4f} (mean of steps 2-{STEPS}, host clock), "
-                f"reader-set starts {sum(starts) * 1e3:.3f} ms over "
-                f"{len(starts)} sessions; {self.card_line}")
+                f"{rec['losses']}; launches {json.dumps(rec['launches'])}, "
+                f"chunk-table uploads {rec['uploads']}; get_batch_device "
+                f"{rec['gb_s'] * 1e3:.3f} ms of a {rec['step_s'] * 1e3:.1f} "
+                f"ms step = {rec['gb_s'] / rec['step_s']:.4f} (mean of steps "
+                f"2-{STEPS}, host clock), reader-set starts "
+                f"{sum(starts) * 1e3:.3f} ms over {len(starts)} sessions; "
+                f"{self.card_line}")
             log(f"fileset {name}: read {json.dumps(read)}; shards "
                 f"{json.dumps(summary['shards'])}")
             # -- checks ---------------------------------------------------------
-            if len(rec["batches"]) != STEPS or summary["steps"] != STEPS:
-                raise AssertionError(f"fileset {name}: {summary['steps']} "
-                                     f"steps, {len(rec['batches'])} batches")
             for step, (x, y) in enumerate(rec["batches"]):
                 win = raw[(step % 2) * w:(step % 2 + 1) * w].reshape(B, S + 1)
                 if not (np.array_equal(x, win[:, :-1])
                         and np.array_equal(y, win[:, 1:])):
                     raise AssertionError(f"fileset {name} step {step}: batch "
                                          f"differs from the tokens")
-            if counts_k["reassemble_window"] != STEPS or uploads:
-                raise AssertionError(f"fileset {name}: window launches "
-                                     f"{counts_k}, uploads {uploads}")
             if name == "single":
                 continue
             if read["inflight_hwm"][1] > FS_DEPTH or read["queue_depth"] != [
@@ -2459,17 +2536,13 @@ class Smoke:
                     sh["shards_read"] != 3:
                 raise AssertionError(f"fileset {name}: shard bytes {sh} vs "
                                      f"read {read}")
-            want = runs["single"]
-            for (xg, yg), (xw, yw) in zip(rec["batches"], want["batches"]):
-                if not (np.array_equal(xg, xw) and np.array_equal(yg, yw)):
-                    raise AssertionError(f"fileset {name}: batches differ "
-                                         f"from the single-file run's")
-            if rec["losses"] != want["losses"]:
-                raise AssertionError(f"fileset {name}: losses {rec['losses']}"
-                                     f" vs the single file's {want['losses']}")
+            self._same_run(f"fileset {name}", rec, runs["single"],
+                           "the single file's")
         if spans[1] or not spans[0]:
             raise AssertionError(f"fileset: {spans[1]} of {spans[0]} shard-"
                                  f"file reads span two shards")
+        # The thread backend's runs, held by the process and numa phases.
+        self.fs_runs = runs
         log(f"fileset: batches and losses of both FileSet runs bit-equal to "
             f"the single file's; {spans[0]} shard-file reads, none spanning "
             f"two shards")
@@ -2594,6 +2667,272 @@ class Smoke:
             log(f"fileset tuners: {name}: {json.dumps(walk)}; "
                 f"{self.card_line}")
 
+    # -- 22, 23 ----------------------------------------------------------------
+    def _thread_runs(self, phase):
+        runs = getattr(self, "fs_runs", None)
+        if not runs:
+            raise AssertionError(f"{phase}: the fileset phase left no thread-"
+                                 f"backend runs to hold this phase against")
+        return runs
+
+    def process(self):
+        """Phase 22: the driver over leg (a)'s 3 shards on the process
+        backend, whole-window and streamed, held against the fileset
+        phase's thread-backend runs; then a worker crash under each
+        recovery mode through a ``CkIOPipeline``."""
+        from repro_torch.io.posix import fs_block_size
+        from repro_torch.ipc.shm import shm_dir
+
+        want = self._thread_runs("process")
+        d = os.path.join(self.tmp, "process")
+        os.makedirs(d)
+        try:
+            st = os.statvfs(shm_dir())
+            log(f"process: arenas under {shm_dir()} ({fs_type(shm_dir())}): "
+                f"{st.f_blocks * st.f_frsize} B, {st.f_bavail * st.f_frsize}"
+                f" B free; each step session's arena is one window "
+                f"({B * (S + 1) * 4} B) and its head")
+            bs = fs_block_size(d)
+            shards, _, raw, w = self._fileset_corpus(d, bs)
+            flags = [*self.fs_flags, "--backend", "process", "--max-workers",
+                     str(PROC_WORKERS)]
+            for name, extra in (("window", []), ("streamed", ["--streaming"])):
+                rec = self._driver_run(d, f"process {name}",
+                                       ["--data", *shards, *flags, *extra])
+                self.launches[f"process_{name}"] = rec["launches"]
+                self._same_run(f"process {name}", rec, want[name],
+                               "the thread backend's")
+                served = self._served(f"process {name}", rec)
+                attach = [m.worker_attach_s * 1e3 for m in served]
+                read = rec["summary"]["read"]
+                log(f"process {name}: losses {rec['losses']} (the thread "
+                    f"backend's); launches {json.dumps(rec['launches'])}, "
+                    f"chunk-table uploads {rec['uploads']}; submit "
+                    f"{read['submit_backend']}, in flight <= "
+                    f"{read['inflight_hwm'][1]}, direct tails "
+                    f"{read['direct_tail_reads']} "
+                    f"({read['direct_tail_bytes']} B); {len(served)} "
+                    f"sessions served by {served[0].workers} worker "
+                    f"processes each, spawn -> attached "
+                    f"{min(attach):.1f}-{max(attach):.1f} ms (mean "
+                    f"{sum(attach) / len(attach):.1f}; of which exec -> "
+                    f"interpreter {read['worker_boot_ms']} ms, imports "
+                    f"and spec {read['worker_import_ms']} ms, the slowest "
+                    f"worker a session); get_batch_device "
+                    f"{rec['gb_s'] * 1e3:.3f} ms of a "
+                    f"{rec['step_s'] * 1e3:.1f} ms step = "
+                    f"{rec['gb_s'] / rec['step_s']:.4f} (mean of steps "
+                    f"2-{STEPS}, host clock; steps 1-{STEPS}: "
+                    f"{[round((t1 - t0) * 1e3, 1) for t0, t1 in rec['t_batch']]}"
+                    f" ms); {self.card_line}")
+                if read["inflight_hwm"][1] > FS_DEPTH or \
+                        read["degraded_sessions"]:
+                    raise AssertionError(f"process {name}: read {read}")
+            self._process_faults(d, bs, shards, raw, w)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
+    def _served(self, name, rec):
+        """The metrics of each process-backend session of a run that read
+        bytes; fails unless worker processes served every one of them."""
+        from repro_torch.core.buffers import ProcessReaderSet
+
+        readers = [r for r, _ in rec["starts"]]
+        if not readers or not all(isinstance(r, ProcessReaderSet)
+                                  for r in readers):
+            raise AssertionError(f"{name}: sessions on "
+                                 f"{sorted({type(r).__name__ for r in readers})}")
+        served = [r.metrics for r in readers if r.metrics.bytes_read]
+        for m in served:
+            pids = set(m.worker_pids)
+            if (m.workers != PROC_WORKERS or len(pids) != m.workers
+                    or os.getpid() in pids or 0 in pids
+                    or m.recovery.degraded_mode):
+                raise AssertionError(f"{name}: a session served by "
+                                     f"{m.workers} workers {m.worker_pids}, "
+                                     f"degraded {m.recovery.degraded_mode}")
+        if len(served) < STEPS // 2:
+            raise AssertionError(f"{name}: {len(served)} sessions read bytes")
+        return served
+
+    def _process_faults(self, d, bs, shards, raw, w):
+        """A seeded worker crash after the go gate in every step session of
+        a ``CkIOPipeline`` over the shards (O_DIRECT where it runs, 4
+        workers), under ``respawn``, ``reissue`` and ``none``. The workers
+        read with the blocking loop: at queue depth 2 or more the crash
+        hook fires as a read is submitted, the reads still in flight die
+        unpublished with the process, and the replacement inherits them
+        and crashes at the same point again."""
+        import numpy as np
+
+        from repro_torch.core import CkIO, FaultPlan, FileOptions, WorkerCrashed
+        from repro_torch.data import CkIOPipeline, FileSet
+        from repro_torch.io.layout import plan_session
+        from repro_torch.kernels import reassemble as K
+
+        splinter = 3 * bs
+        direct = "--direct-io" in self.fs_flags
+        # Every reader of each step session gets 2 splinters, so the
+        # plan's crash (after 1 of them) leaves a tail of 1 and a single
+        # respawn finishes it.
+        fs = FileSet.build(shards)
+        sh = fs.sharded_file()
+        for step in range(2):
+            off = step * w * 4
+            head = off % bs if direct else 0
+            o, n = off - head, w * 4 + head
+            bounds = sh.bounds_in(o, n)
+            plan = plan_session(o, n, max(FS_READERS, len(bounds) + 1),
+                                splinter_bytes=splinter,
+                                hard_bounds=tuple(bounds) or None, align=bs)
+            per = [len(plan.splinters_for_reader(r))
+                   for r in range(plan.num_readers)]
+            if per != [2] * FS_READERS:
+                raise AssertionError(f"process faults: step {step} plans "
+                                     f"{per} splinters a reader, not 2")
+        sh.close()
+        fault = FaultPlan(FAULT_SEED, num_readers=FS_READERS,
+                          num_splinters=2 * FS_READERS)
+        log(f"process faults: {json.dumps(fault.describe())}")
+
+        def pipeline(recovery):
+            ck = CkIO(num_pes=4, pes_per_node=4)
+            seen = []
+            ck.director.add_observer(seen.append)
+            pipe = CkIOPipeline(
+                fs, B, S, ckio=ck, num_consumers=16, device=self.dev,
+                file_opts=FileOptions(
+                    num_readers=FS_READERS, splinter_bytes=splinter,
+                    backend="process", max_workers=PROC_WORKERS,
+                    direct_io=direct,
+                    recovery=recovery, fault_plan=fault,
+                    worker_watchdog_s=FAULT_WATCHDOG_S))
+            return pipe, seen
+
+        for mode in ("respawn", "reissue"):
+            pipe, seen = pipeline(mode)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                for step in range(pipe.num_steps):
+                    x, y = pipe.get_batch_device(step)
+                    win = raw[step * w:(step + 1) * w].reshape(B, S + 1)
+                    if not (np.array_equal(x.cpu().numpy(), win[:, :-1])
+                            and np.array_equal(y.cpu().numpy(), win[:, 1:])):
+                        raise AssertionError(f"process faults {mode}: step "
+                                             f"{step} differs from the "
+                                             f"tokens")
+                    want = self.fs_runs["window"]["batches"][step]
+                    if not np.array_equal(x.cpu().numpy(), want[0]):
+                        raise AssertionError(f"process faults {mode}: step "
+                                             f"{step} differs from the "
+                                             f"unbroken run")
+            finally:
+                pipe.close()
+            dt = time.perf_counter() - t0
+            self.launches[f"process_{mode}"] = dict(K.LAUNCHES)
+            rec = [m.recovery for m in seen if m.bytes_read]
+            got = [(r.respawns, r.reissues, r.reissued_splinters) for r in rec]
+            log(f"process faults {mode}: {pipe.num_steps} batches bit-equal "
+                f"to the unbroken run in {dt:.2f} s (host clock); per session "
+                f"(respawns, reissues, splinters re-read) {got}, recovery "
+                f"latency {[round(r.recovery_latency_s * 1e3, 1) for r in rec]}"
+                f" ms; window launches {K.LAUNCHES['reassemble_window']}; "
+                f"{self.card_line}")
+            ok = (r.respawns == 1 if mode == "respawn" else r.reissues >= 1
+                  for r in rec)
+            if len(rec) != pipe.num_steps or not all(ok):
+                raise AssertionError(f"process faults {mode}: {got}")
+        pipe, _ = pipeline("none")
+        t0 = time.perf_counter()
+        try:
+            pipe.get_batch_device(0)
+        except WorkerCrashed as e:
+            log(f"process faults none: WorkerCrashed after "
+                f"{time.perf_counter() - t0:.3f} s (host clock): {e}")
+        else:
+            raise AssertionError("process faults none: no WorkerCrashed")
+        finally:
+            t1 = time.perf_counter()
+            try:
+                pipe.close()
+            except WorkerCrashed as e:   # the prefetched session's, after
+                log(f"process faults none: close re-raised after its "
+                    f"teardown: {e}")
+            log(f"process faults none: pipeline closed in "
+                f"{time.perf_counter() - t1:.3f} s, file closed "
+                f"{pipe.file.posix.closed}")
+        if not pipe.file.posix.closed:
+            raise AssertionError("process faults none: teardown unfinished")
+        if time.perf_counter() - t0 > FAULT_WATCHDOG_S + 30:
+            raise AssertionError("process faults none: too slow to fail")
+
+    def numa(self):
+        """Phase 23: the host's NUMA domains, then the driver with
+        ``--topology auto --numa-pin`` under ``domain_spread`` and
+        ``near_consumers`` on both backends, held against the fileset
+        phase's plain run."""
+        import glob
+
+        from repro_torch.io.numa import PAGE_BYTES, detect_numa_domains
+        from repro_torch.io.posix import fs_block_size
+
+        want = self._thread_runs("numa")["window"]
+        nodes = {os.path.basename(p): open(os.path.join(p, "cpulist")).read(
+            ).strip() for p in sorted(glob.glob(
+                "/sys/devices/system/node/node[0-9]*"))}
+        bus = subprocess.run(
+            ["nvidia-smi", "--query-gpu=pci.bus_id", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+        bus = bus.splitlines()[0] if bus else ""
+        node_file = f"/sys/bus/pci/devices/{bus[-12:].lower()}/numa_node"
+        card_node = (open(node_file).read().strip()
+                     if os.path.exists(node_file) else "not readable")
+        domains = detect_numa_domains()
+        log(f"numa: sysfs nodes {json.dumps(nodes)}; detected domains "
+            f"{[f'{len(c)} cpus {c[0]}-{c[-1]}' for c in domains]}; "
+            f"os.sched_getaffinity {len(os.sched_getaffinity(0))} cpus; "
+            f"card {bus} numa_node {card_node}")
+        if len(domains) == 1:
+            log("numa: one domain: pinning and first touch run, but place "
+                "nothing; this checks the plumbing only")
+        d = os.path.join(self.tmp, "numa")
+        os.makedirs(d)
+        try:
+            shards, _, _, _ = self._fileset_corpus(d, fs_block_size(d))
+            for backend in ("thread", "process"):
+                for placement in ("domain_spread", "near_consumers"):
+                    name = f"{backend}_{placement}"
+                    extra = ["--data", *shards, *self.fs_flags,
+                             "--topology", "auto", "--numa-pin",
+                             "--placement", placement, "--backend", backend]
+                    if backend == "process":
+                        extra += ["--max-workers", str(PROC_WORKERS)]
+                    rec = self._driver_run(d, f"numa {name}", extra)
+                    self.launches[f"numa_{name}"] = rec["launches"]
+                    self._same_run(f"numa {name}", rec, want,
+                                   "the plain run's")
+                    if backend == "process":
+                        self._served(f"numa {name}", rec)
+                    loc = rec["summary"]["locality"]
+                    arena_pages = sum(-(-r.plan.nbytes // PAGE_BYTES)
+                                      for r, _ in rec["starts"])
+                    log(f"numa {name}: batches and losses those of the plain"
+                        f" run; locality {json.dumps(loc)}; first-touched "
+                        f"pages {loc['prefault_pages']:.0f} of "
+                        f"{arena_pages} arena pages over "
+                        f"{len(rec['starts'])} sessions; get_batch_device "
+                        f"{rec['gb_s'] * 1e3:.3f} ms of a "
+                        f"{rec['step_s'] * 1e3:.1f} ms step; "
+                        f"{self.card_line}")
+                    if (loc["pinned_threads"] + loc["pin_failures"] < 1
+                            or loc["prefault_pages"] < 1
+                            or loc["same_domain_bytes"]
+                            + loc["cross_domain_bytes"] < 1):
+                        raise AssertionError(f"numa {name}: locality {loc}")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
     # -- result ----------------------------------------------------------------
     def kernel_line(self):
         launches = {}
@@ -2663,6 +3002,8 @@ def main() -> int:
             for arch, (name, _) in FAMILIES.items():
                 sm.phase(name, lambda arch=arch: sm.serve_family(arch))
             sm.phase("fileset", sm.fileset)
+            sm.phase("process", sm.process)
+            sm.phase("numa", sm.numa)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)
     finally:

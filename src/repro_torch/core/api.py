@@ -68,8 +68,14 @@ def _to_cb(cb: Union[CkCallback, CkFuture, None], default_pe: int = 0) -> CkCall
     if isinstance(cb, CkCallback):
         return cb
     if isinstance(cb, CkFuture):
-        return CkCallback(lambda *a: cb.set(a[0] if a else None),
-                          inline=True)
+        wrapped = CkCallback(lambda *a: cb.set(a[0] if a else None),
+                             inline=True)
+        # Error channel for the assembler: a session failure (process
+        # backend worker crash) is routed to ``set_error`` on the future
+        # itself, so ``wait`` raises the descriptive error instead of
+        # timing out.
+        wrapped.future = cb
+        return wrapped
     if cb is None:
         return CkCallback(lambda *a: None, inline=True)
     raise TypeError(f"expected CkCallback/CkFuture/None, got {type(cb)}")
@@ -107,10 +113,11 @@ class CkIO:
         as ONE logical file. The returned ``FileHandle`` addresses the
         manifest's global data byte space (shard data regions concatenated,
         header pages excluded, byte 0 = row 0); sessions, ``read``/
-        ``read_stream``/subscribe and zero-copy views work unchanged —
-        stripe planning pins shard starts as hard bounds so no physical
-        read spans a shard. ``opts.direct_io`` opens every shard
-        ``O_DIRECT``."""
+        ``read_stream``/subscribe, zero-copy views and both reader backends
+        work unchanged — stripe planning pins shard starts as hard bounds so
+        no physical read spans a shard, and process-backend workers rebuild
+        the shard table from paths (never inherited fds).
+        ``opts.direct_io`` opens every shard ``O_DIRECT``."""
         self.director.open_fileset(fileset, opts or FileOptions(),
                                    _to_cb(opened))
 
@@ -223,11 +230,15 @@ class CkIO:
         offset: int,
         after_read: Union[CkCallback, CkFuture, None],
         client: Optional[Client] = None,
+        classify_locality: bool = True,
     ) -> None:
         """Residency signal only: like ``read_view`` but the completion
         message carries ``data=None`` and no borrow is created — for callers
         that will take their own arena view later (e.g. once per batch
-        rather than once per consumer)."""
+        rather than once per consumer). ``classify_locality=False`` keeps
+        this request out of the same-/cross-domain byte accounting (for
+        callers whose bytes are classified on another path — see
+        ``ReadAssembler.submit``)."""
         if session.closed:
             raise RuntimeError("read_notify() on closed session")
         if not session.contains(offset, nbytes):
@@ -241,6 +252,7 @@ class CkIO:
         pe = client.pe if client is not None else 0
         self.director.managers[pe].assembler.submit(
             session, offset, nbytes, None, cb, materialize_view=False,
+            classify_locality=classify_locality,
         )
 
     def read_stream(
@@ -293,9 +305,23 @@ class CkIO:
         total = len(session.plan.splinters)
         state = {"n": 0}
         lock = threading.Lock()
+        topo = session.opts.topology
 
         def deliver(ev) -> None:
             target = route(ev) if route is not None else client
+            if topo is not None:
+                # Streamed counterpart of the assembler's per-piece
+                # classification: streamed bytes are classified against
+                # the domain of the consumer each event is routed to (the
+                # pipeline's whole-window residency probe opts out with
+                # classify_locality=False, so nothing is counted twice).
+                # Classified at issue time (a drop-stale discard later
+                # still counts as routed bytes).
+                dest_pe = target.pe if target is not None else pe
+                session.readers.locality.record_delivery(
+                    ev.nbytes,
+                    session.readers.reader_domain(ev.reader)
+                    == topo.domain_of(dest_pe))
             if target is not None:
                 target.callback(on_splinter, drop_stale=True).send(
                     self.sched, ev)

@@ -10,8 +10,10 @@ the last ack triggers the user's ``ready`` callback — mirroring the paper's
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import threading
+import warnings
 from typing import Callable, Dict, List, Optional
 
 from repro_torch.core.assembler import ReadAssembler
@@ -21,9 +23,14 @@ from repro_torch.core.autotune import (
     SplinterSizer,
     suggest_num_readers,
 )
-from repro_torch.core.buffers import BufferReaderSet
+from repro_torch.core.buffers import BufferReaderSet, ProcessReaderSet
 from repro_torch.core.futures import CkCallback
-from repro_torch.core.metrics import RecoveryMetrics, SessionMetrics, ShardMetrics
+from repro_torch.core.metrics import (
+    LocalityMetrics,
+    RecoveryMetrics,
+    SessionMetrics,
+    ShardMetrics,
+)
 from repro_torch.core.placement import place_readers
 from repro_torch.core.scheduler import TaskScheduler
 from repro_torch.core.session import FileHandle, FileOptions, Session
@@ -77,7 +84,14 @@ class Director:
             self.queue_tuner.record_session,
             self.shards.merge_session,
         ]
-        # Director-lifetime I/O-retry aggregate (merged on session close).
+        # Director-lifetime locality aggregate: each closing session's
+        # per-session LocalityMetrics are merged here (cross-domain bytes,
+        # per-reader splinter histograms) so drivers read one object after
+        # many sessions.
+        self.locality = LocalityMetrics()
+        # Director-lifetime fault-recovery aggregate (respawns, re-issued
+        # splinters, I/O retries, degraded sessions) — same merge-on-close
+        # pattern as ``locality``.
         self.recovery = RecoveryMetrics()
 
     def add_observer(self, observe: Callable[[SessionMetrics], None]) -> None:
@@ -184,7 +198,7 @@ class Director:
                 )
                 reader_pes = place_readers(
                     opts.placement, plan.num_readers, self.sched,
-                    consumer_pes,
+                    consumer_pes, topology=opts.topology,
                 )
                 if opts.adaptive_queue:
                     # The QueueTuner's explore-then-exploit walk picks
@@ -197,8 +211,8 @@ class Director:
                     ropts.queue_depth, ropts.readahead_bytes = (
                         self.queue_tuner.suggest(seed_depth,
                                                  opts.readahead_bytes))
-                session = self._construct_session(
-                    file, plan, reader_pes, opts, ropts)
+                session = self._start_backend(file, plan, reader_pes, opts,
+                                              ropts)
             finally:
                 # Always released — an exception above would otherwise
                 # deadlock every future sequenced session start.
@@ -229,10 +243,17 @@ class Director:
         def do_close() -> None:
             for observe in self._observers:
                 observe(session.metrics)
+            self.locality.merge(session.readers.locality)
             session.readers.cancel()
             # Enforce the borrowed-view contract: views handed out by
             # read(dest=None) die with the session.
             session.readers.invalidate_borrows()
+            # Backend teardown (no-op for threads; the process backend
+            # joins its supervisor and unmaps the shm segments here).
+            session.readers.release()
+            # Merge AFTER release: the process backend's worker I/O
+            # counters are folded into the session metrics by its
+            # supervisor teardown, which release() joins.
             self.recovery.merge(session.metrics.recovery)
             session.closed = True
             with self._lock:
@@ -257,17 +278,60 @@ class Director:
         self.sched.enqueue(0, do_close, label="ckio-close-session")
 
     # -- session construction --------------------------------------------------
+    def _start_backend(self, file: FileHandle, plan, reader_pes: List[int],
+                       opts: FileOptions, ropts) -> Session:
+        """Backend dispatch: helper threads, or worker processes over a
+        shared-memory arena (``core/buffers.py`` ``ProcessReaderSet``).
+
+        Graceful degradation is opt-in: with ``fallback_backend="thread"``
+        a process-backend *setup* failure (spawn rejecting an unpicklable
+        hook, shm exhaustion) rebuilds the session on the thread backend
+        instead of failing it, with one ``RuntimeWarning`` per
+        ``FileOptions`` and ``recovery.degraded_mode`` set on every such
+        session; a ``FileOptions`` that fell back stays on threads (no
+        re-attempt, no re-warning). Worker crashes after the start are the
+        recovery layer's job (``FileOptions.recovery``), not this one's."""
+        degraded = (ropts.backend == "process"
+                    and getattr(opts, "_fallback_active", False))
+        if degraded:
+            ropts = dataclasses.replace(ropts, backend="thread")
+        try:
+            session = self._construct_session(file, plan, reader_pes, opts,
+                                              ropts)
+        except Exception as exc:
+            if (ropts.backend != "process"
+                    or opts.fallback_backend != "thread"):
+                raise
+            if not getattr(opts, "_warned_fallback", False):
+                opts._warned_fallback = True
+                warnings.warn(
+                    f"process reader backend failed at session start "
+                    f"({exc}); falling back to backend='thread' for this "
+                    f"file (degraded mode)", RuntimeWarning)
+            opts._fallback_active = True
+            degraded = True
+            ropts = dataclasses.replace(ropts, backend="thread")
+            session = self._construct_session(file, plan, reader_pes, opts,
+                                              ropts)
+        if degraded:
+            session.metrics.recovery.mark_degraded()
+        return session
+
     def _construct_session(self, file: FileHandle, plan,
                            reader_pes: List[int], opts: FileOptions,
                            ropts) -> Session:
-        """Allocate an id, construct the thread-backend reader set, register
-        and start it. On failure the half-created session is scrubbed from
-        the tables before the exception propagates."""
+        """Allocate an id, construct the reader set for ``ropts.backend``,
+        register and start it. On any failure the half-created session is
+        scrubbed from the tables and backend resources released before the
+        exception propagates (so a fallback retry starts clean)."""
         with self._lock:
             sid = next(self._session_ids)
+        readers = None
         try:
-            readers = BufferReaderSet(file.posix, plan, self.sched,
-                                      reader_pes, ropts)
+            reader_cls = (ProcessReaderSet if ropts.backend == "process"
+                          else BufferReaderSet)
+            readers = reader_cls(file.posix, plan, self.sched, reader_pes,
+                                 ropts)
             session = Session(
                 id=sid,
                 file=file,
@@ -286,4 +350,6 @@ class Director:
         except BaseException:
             with self._lock:
                 self.sessions.pop(sid, None)
+            if readers is not None:
+                readers.release()
             raise

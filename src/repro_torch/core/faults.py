@@ -21,12 +21,12 @@ a respawned worker — deliberately: a *transient* fault clears on respawn.
 ``CrashSplinter`` is the persistent variant (keyed on the global splinter
 index, it fires in every generation) for driving respawn-budget exhaustion.
 
-The port carries the thread backend only: there ``FlakyEIO``, ``ShortRead``
-(``io_fault``) and ``DelayEach`` / ``StallReader`` (``delay_model``) act.
-The worker and ring hooks (``CrashReader``, ``CrashSplinter``, ``TornSlot``)
-act inside reader worker processes, which come with the process backend
-and service slice (ROADMAP.md, Queue A); the plan still derives them, so that
-``describe()`` equals the reference's for a seed.
+On the thread backend ``FlakyEIO``, ``ShortRead`` (``io_fault``) and
+``DelayEach`` / ``StallReader`` (``delay_model``) act; the worker and ring
+hooks (``CrashReader``, ``CrashSplinter``, ``TornSlot``) act inside reader
+worker processes (``FileOptions(backend="process")``), where the others act
+too. A worker process is a fresh interpreter that unpickles its hooks by
+import path, so this module loads no torch.
 """
 from __future__ import annotations
 

@@ -3,9 +3,10 @@
 Everything the paper's evaluation plots (throughput, overlap fraction,
 permutation cost, cross-node traffic) is derived from these counters.
 Thread-safe; negligible overhead (integer adds under a lock). This copy
-keeps the session, ingest, stream and per-shard counters the thread-backend
-training path fills (plus the recovery record a session carries), and the
-serving subsystem's ``ServeMetrics``.
+keeps the session, recovery, locality, ingest, stream and per-shard
+counters the training path fills on either reader backend, and the serving
+subsystem's ``ServeMetrics``. The reader service's ``ServiceMetrics`` comes
+with that slice.
 
 Per-piece *timing* (two ``perf_counter`` calls per delivered piece) is the
 one non-negligible probe, so it sits behind ``piece_timing_every``: 0 (the
@@ -26,24 +27,61 @@ from typing import Dict, List, Optional
 
 @dataclass
 class RecoveryMetrics:
-    """I/O-fault accounting of the thread backend: transient pread errors
-    absorbed by the posix backoff layer (``io_retries``, by errno) and
-    advisory (fadvise-class) errors swallowed by design but counted
-    (``suppressed_errors``). One instance per session, merged into a
-    Director-lifetime aggregate on session close. ``record_io_retry`` /
-    ``record_suppressed`` / ``record_direct_tail`` match the stats protocol
-    of ``io/posix.py``. The process backend's respawn/reissue counters come
-    with that slice."""
+    """Fault-recovery accounting for the reader runtime.
+
+    One instance per reader set (``SessionMetrics.recovery``), merged into
+    a Director-lifetime aggregate on session close — the observables of the
+    recovery layer, proving what it absorbed instead of letting faults pass
+    silently:
+
+    * ``respawns`` / ``reissues`` — recovery events by kind: a dead or
+      watchdog-killed worker replaced by a fresh process attached to the
+      *same* arena, vs its unfinished splinters re-read supervisor-side.
+      ``reissued_splinters`` / ``reissued_bytes`` total the re-routed work
+      for both kinds (a respawn also re-issues the unfinished tail, just
+      to a new process).
+    * ``io_retries`` / ``retried_errnos`` — transient pread errors absorbed
+      by the posix backoff layer *in this process*; ``worker_io_retries`` /
+      ``worker_suppressed`` — the same counters folded in from reader
+      worker processes through their ring headers.
+    * ``suppressed_errors`` — advisory (fadvise-class) errors swallowed by
+      design but counted, never silent.
+    * ``watchdog_kills`` — hung workers killed by the supervisor's
+      no-progress watchdog (each then flows through respawn/reissue).
+    * ``recovery_latency_s`` — summed seconds from failure detection to
+      restored read capacity (replacement gate-open, or the re-issued tail
+      fully landed).
+    * ``degraded_mode`` — this session ran on the thread backend because
+      ``backend="process"`` setup failed and ``fallback_backend`` allowed
+      the downgrade.
+
+    Duck-typing: ``record_io_retry``/``record_suppressed`` match the stats
+    protocol of ``io/posix.py``, so a session's RecoveryMetrics can be
+    passed directly as a pread ``stats`` sink.
+    """
 
     lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    respawns: int = 0
+    reissues: int = 0
+    reissued_splinters: int = 0
+    reissued_bytes: int = 0
     io_retries: int = 0
     retried_errnos: Dict[int, int] = field(default_factory=dict)
     suppressed_errors: int = 0
+    worker_io_retries: int = 0
+    worker_suppressed: int = 0
+    watchdog_kills: int = 0
+    recovery_latency_s: float = 0.0
+    degraded_mode: bool = False
     # Direct-I/O tail accounting: sub-block fragments a direct-mode read had
     # to finish through the buffered descriptor (the only legal buffered
     # bytes in an O_DIRECT session — counted, never silent).
     direct_tail_reads: int = 0
     direct_tail_bytes: int = 0
+    # FileSet sessions: re-issued bytes attributed to the shard whose file
+    # they live in (splinters never span shards, so attribution is exact) —
+    # proving a recovery re-read the RIGHT shard, not just the right amount.
+    reissued_bytes_by_shard: Dict[int, int] = field(default_factory=dict)
 
     def record_io_retry(self, err: Optional[int] = None) -> None:
         with self.lock:
@@ -61,26 +99,105 @@ class RecoveryMetrics:
         with self.lock:
             self.suppressed_errors += 1
 
+    def record_respawn(self, nsplinters: int, nbytes: int,
+                       by_shard: Optional[Dict[int, int]] = None) -> None:
+        with self.lock:
+            self.respawns += 1
+            self.reissued_splinters += nsplinters
+            self.reissued_bytes += nbytes
+            self._fold_shards(by_shard)
+
+    def record_reissue(self, nsplinters: int, nbytes: int,
+                       by_shard: Optional[Dict[int, int]] = None) -> None:
+        with self.lock:
+            self.reissues += 1
+            self.reissued_splinters += nsplinters
+            self.reissued_bytes += nbytes
+            self._fold_shards(by_shard)
+
+    def _fold_shards(self, by_shard: Optional[Dict[int, int]]) -> None:
+        """Caller holds ``self.lock``."""
+        if by_shard:
+            for sh, nb in by_shard.items():
+                self.reissued_bytes_by_shard[sh] = (
+                    self.reissued_bytes_by_shard.get(sh, 0) + nb)
+
+    def record_watchdog_kill(self) -> None:
+        with self.lock:
+            self.watchdog_kills += 1
+
+    def record_recovery_latency(self, seconds: float) -> None:
+        with self.lock:
+            self.recovery_latency_s += max(seconds, 0.0)
+
+    def add_worker_io(self, retries: int, suppressed: int,
+                      tail_reads: int = 0, tail_bytes: int = 0) -> None:
+        """Fold one worker ring's header counters in (once per ring), with
+        the direct tails its report names."""
+        with self.lock:
+            self.worker_io_retries += retries
+            self.worker_suppressed += suppressed
+            self.direct_tail_reads += tail_reads
+            self.direct_tail_bytes += tail_bytes
+
+    def mark_degraded(self) -> None:
+        with self.lock:
+            self.degraded_mode = True
+
+    def recoveries(self) -> int:
+        with self.lock:
+            return self.respawns + self.reissues
+
     def merge(self, other: "RecoveryMetrics") -> None:
         """Fold ``other`` (a finished session's counters) into this one."""
         with other.lock:
-            retries, errnos = other.io_retries, dict(other.retried_errnos)
-            suppressed = other.suppressed_errors
-            tails, tail_bytes = other.direct_tail_reads, other.direct_tail_bytes
+            snap = (
+                other.respawns, other.reissues, other.reissued_splinters,
+                other.reissued_bytes, other.io_retries,
+                dict(other.retried_errnos), other.suppressed_errors,
+                other.worker_io_retries, other.worker_suppressed,
+                other.watchdog_kills, other.recovery_latency_s,
+                other.degraded_mode,
+                dict(other.reissued_bytes_by_shard),
+                other.direct_tail_reads, other.direct_tail_bytes,
+            )
         with self.lock:
-            self.io_retries += retries
-            for err, c in errnos.items():
+            self.respawns += snap[0]
+            self.reissues += snap[1]
+            self.reissued_splinters += snap[2]
+            self.reissued_bytes += snap[3]
+            self.io_retries += snap[4]
+            for err, c in snap[5].items():
                 self.retried_errnos[err] = self.retried_errnos.get(err, 0) + c
-            self.suppressed_errors += suppressed
-            self.direct_tail_reads += tails
-            self.direct_tail_bytes += tail_bytes
+            self.suppressed_errors += snap[6]
+            self.worker_io_retries += snap[7]
+            self.worker_suppressed += snap[8]
+            self.watchdog_kills += snap[9]
+            self.recovery_latency_s += snap[10]
+            self.degraded_mode = self.degraded_mode or snap[11]
+            self._fold_shards(snap[12])
+            self.direct_tail_reads += snap[13]
+            self.direct_tail_bytes += snap[14]
 
     def summary(self) -> Dict[str, float]:
         with self.lock:
-            return {"io_retries": float(self.io_retries),
-                    "suppressed_errors": float(self.suppressed_errors),
-                    "direct_tail_reads": float(self.direct_tail_reads),
-                    "direct_tail_bytes": float(self.direct_tail_bytes)}
+            return {
+                "respawns": float(self.respawns),
+                "reissues": float(self.reissues),
+                "recoveries": float(self.respawns + self.reissues),
+                "reissued_splinters": float(self.reissued_splinters),
+                "reissued_bytes": float(self.reissued_bytes),
+                "io_retries": float(self.io_retries),
+                "worker_io_retries": float(self.worker_io_retries),
+                "suppressed_errors": float(self.suppressed_errors),
+                "worker_suppressed": float(self.worker_suppressed),
+                "watchdog_kills": float(self.watchdog_kills),
+                "recovery_latency_s": self.recovery_latency_s,
+                "degraded_mode": float(self.degraded_mode),
+                "shards_reissued": float(len(self.reissued_bytes_by_shard)),
+                "direct_tail_reads": float(self.direct_tail_reads),
+                "direct_tail_bytes": float(self.direct_tail_bytes),
+            }
 
 
 @dataclass
@@ -136,6 +253,16 @@ class SessionMetrics:
     submit_backend: str = ""
     direct_io: bool = False
     inflight_hwm: int = 0
+    # Process backend: worker processes spawned at session start, the pids
+    # their rings reported at the attach barrier, and the seconds from the
+    # first spawn to the opened start gates (all 0 / empty for threads).
+    workers: int = 0
+    worker_pids: List[int] = field(default_factory=list)
+    worker_attach_s: float = 0.0
+    # ... and, from the workers' reports at shutdown, the longest exec ->
+    # interpreter's first line, and first line -> imports and spec read.
+    worker_boot_s: float = 0.0
+    worker_import_s: float = 0.0
     _piece_seq: int = 0               # sampling counter (racy by design)
 
     def session_started(self, nbytes: int, num_readers: int) -> None:
@@ -152,6 +279,14 @@ class SessionMetrics:
             self.readahead_bytes = int(readahead_bytes)
             self.submit_backend = backend
             self.direct_io = bool(direct_io)
+
+    def record_workers_attached(self, pids: List[int],
+                                attach_s: float) -> None:
+        """Process backend: every worker attached and its gate opened."""
+        with self.lock:
+            self.workers = len(pids)
+            self.worker_pids = list(pids)
+            self.worker_attach_s = float(attach_s)
 
     def record_inflight_hwm(self, hwm: int) -> None:
         """Fold one reader's in-flight high-water mark in (max across)."""
@@ -268,6 +403,10 @@ class SessionMetrics:
             "readahead_bytes": float(self.readahead_bytes),
             "inflight_hwm": float(self.inflight_hwm),
             "direct_io": float(self.direct_io),
+            "workers": float(self.workers),
+            "worker_attach_s": self.worker_attach_s,
+            "worker_boot_s": self.worker_boot_s,
+            "worker_import_s": self.worker_import_s,
         }
 
 
@@ -627,7 +766,7 @@ class ServeMetrics:
     # -- Director observer -----------------------------------------------------
     def record_session(self, m: "SessionMetrics") -> None:
         # pooled_sessions stays 0: the port has no ReaderService yet
-        # (the process backend and service slice, ROADMAP.md Queue A).
+        # (the reader service slice, ROADMAP.md Queue A).
         with self.lock:
             self.ingest_sessions += 1
             self.ingest_bytes += m.bytes_read
@@ -684,3 +823,113 @@ class ServeMetrics:
         out["sessions_per_s"] = self.sessions_per_s()
         out["mean_occupancy"] = self.mean_occupancy()
         return out
+
+
+@dataclass
+class LocalityMetrics:
+    """Memory-locality accounting for the topology-aware reader runtime.
+
+    One instance per ``BufferReaderSet`` (merged into a Director-lifetime
+    aggregate on session close), proving — not assuming — the locality
+    levers:
+
+    * ``same_domain_bytes`` / ``cross_domain_bytes`` — delivered piece
+      bytes split by whether the owning reader's NUMA domain matches the
+      consuming PE's domain. Recorded **only when a Topology is
+      configured** — topology-less runs keep their locality signal in
+      ``SessionMetrics.cross_node_bytes`` (node granularity), and these
+      counters stay 0. Cross-domain bytes are what NUMA-aware placement
+      (``near_consumers``/``domain_spread`` + domain-coalesced pieces)
+      exists to reduce; ``benchmarks/perf_numa.py`` gates on them.
+    * per-reader splinter histograms — splinter-size → count per reader,
+      the observable of per-reader adaptive sizing (a straggling stripe
+      alone showing fine splinters).
+    * ``prefault_pages`` — arena pages first-touch-faulted by reader
+      threads on their own domain (the ``prefault_arena`` NUMA hook);
+      ``pinned_threads`` / ``pin_failures`` — ``numa_pin`` outcomes.
+    """
+
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    same_domain_bytes: int = 0
+    cross_domain_bytes: int = 0
+    pieces_same_domain: int = 0
+    pieces_cross_domain: int = 0
+    prefault_pages: int = 0
+    pinned_threads: int = 0
+    pin_failures: int = 0
+    # reader -> {splinter_bytes: count}
+    splinter_hist: Dict[int, Dict[int, int]] = field(default_factory=dict)
+
+    def record_delivery(self, nbytes: int, same_domain: bool) -> None:
+        with self.lock:
+            if same_domain:
+                self.same_domain_bytes += nbytes
+                self.pieces_same_domain += 1
+            else:
+                self.cross_domain_bytes += nbytes
+                self.pieces_cross_domain += 1
+
+    def record_splinter(self, reader: int, nbytes: int) -> None:
+        with self.lock:
+            hist = self.splinter_hist.setdefault(reader, {})
+            hist[nbytes] = hist.get(nbytes, 0) + 1
+
+    def record_prefault(self, pages: int) -> None:
+        with self.lock:
+            self.prefault_pages += pages
+
+    def record_pin(self, ok: bool) -> None:
+        with self.lock:
+            if ok:
+                self.pinned_threads += 1
+            else:
+                self.pin_failures += 1
+
+    def merge(self, other: "LocalityMetrics") -> None:
+        """Fold ``other`` (a finished session's counters) into this one."""
+        with other.lock:
+            snap = (
+                other.same_domain_bytes, other.cross_domain_bytes,
+                other.pieces_same_domain, other.pieces_cross_domain,
+                other.prefault_pages, other.pinned_threads,
+                other.pin_failures,
+                {r: dict(h) for r, h in other.splinter_hist.items()},
+            )
+        with self.lock:
+            self.same_domain_bytes += snap[0]
+            self.cross_domain_bytes += snap[1]
+            self.pieces_same_domain += snap[2]
+            self.pieces_cross_domain += snap[3]
+            self.prefault_pages += snap[4]
+            self.pinned_threads += snap[5]
+            self.pin_failures += snap[6]
+            for r, h in snap[7].items():
+                hist = self.splinter_hist.setdefault(r, {})
+                for n, c in h.items():
+                    hist[n] = hist.get(n, 0) + c
+
+    # -- derived -------------------------------------------------------------
+    def cross_domain_fraction(self) -> float:
+        with self.lock:
+            total = self.same_domain_bytes + self.cross_domain_bytes
+            return self.cross_domain_bytes / total if total else 0.0
+
+    def reader_splinter_sizes(self) -> Dict[int, List[int]]:
+        """Distinct splinter sizes seen per reader (sorted)."""
+        with self.lock:
+            return {r: sorted(h) for r, h in self.splinter_hist.items()}
+
+    def summary(self) -> Dict[str, float]:
+        frac = self.cross_domain_fraction()
+        with self.lock:
+            return {
+                "same_domain_bytes": float(self.same_domain_bytes),
+                "cross_domain_bytes": float(self.cross_domain_bytes),
+                "pieces_same_domain": float(self.pieces_same_domain),
+                "pieces_cross_domain": float(self.pieces_cross_domain),
+                "cross_domain_fraction": frac,
+                "prefault_pages": float(self.prefault_pages),
+                "pinned_threads": float(self.pinned_threads),
+                "pin_failures": float(self.pin_failures),
+                "readers_observed": float(len(self.splinter_hist)),
+            }

@@ -63,6 +63,35 @@ reference package raises ``DirectIOError`` for a window off the grid
 instead); the batch, the staged chunks and the counters cover the window
 alone. Batches are bit-identical in every mode.
 
+Reader worker processes and NUMA placement
+-------------------------------------------
+With ``FileOptions(backend="process")`` each step session's arena is a
+shared-memory segment (``ipc/shm.py``) that reader worker processes fill
+(``preadv`` straight into the mapping) and this process consumes through
+the same borrowed views: every mode above (host zero-copy, whole-window
+device ingest, streamed staging) runs unchanged, with splinter events
+arriving over cross-process rings. ``bytes_copied`` stays 0 in this
+process. A view into the segment is valid until its session closes, as on
+the thread backend; ``_host_tensor`` aliases the mapping, and a staged
+step's references keep its pages alive until the next ``get_batch*``
+(closing the segment tolerates the live export). The arena is pageable, so
+the rule in ``_to_device`` holds unchanged. Workers open the corpus, each
+shard of a ``FileSet`` included, by path; an ``O_DIRECT`` step session
+starts at the block below its window on this backend too. A worker that
+dies after the start gate is replaced (``recovery="respawn"``) or its
+unread splinters are read here (``"reissue"``), bit-identically; with
+``recovery="none"`` (the default) ``get_batch*`` raises the
+``WorkerCrashed`` that names it, which ``train/fault.py``'s supervisor
+counts as a reader failure and replays.
+
+``FileOptions(topology=..., numa_pin=..., prefault_arena=True)`` places
+each stripe's pages on its reader's NUMA domain by first touch (on the
+reader thread or worker process, pinned to the domain's CPUs with
+``numa_pin``); pieces coalesce per domain and every delivered byte is
+classified same- or cross-domain in ``LocalityMetrics``
+(``pipe.ck.director.locality`` after the sessions close). Batches are
+bit-identical on either backend, under every placement.
+
 Not carried by this slice (each raises ``NotImplementedError``): a reader
 ``service`` and ``sharding``.
 """
@@ -78,7 +107,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import CkIO, Client, FileOptions, Session
+from repro_torch.core import CkIO, Client, FileOptions, Session, WorkerCrashed
 from repro_torch.core.buffers import SplinterEvent
 from repro_torch.core.futures import CkCallback, CkFuture
 from repro_torch.core.metrics import IngestMetrics, StreamMetrics
@@ -173,7 +202,7 @@ class CkIOPipeline:
         device="cuda",
     ):
         if service is not None:
-            raise _later("service=", "process backend and service")
+            raise _later("service=", "reader service")
         if sharding is not None:
             raise _later("sharding=", "sharding")
         self.device = resolve_device(device)
@@ -311,7 +340,11 @@ class CkIOPipeline:
 
                 self.ck.read_notify(
                     session, nbytes, abs_off,
-                    CkCallback(window_resident, pe=0))
+                    CkCallback(window_resident, pe=0),
+                    # The splinter stream classifies this window's bytes
+                    # per event (against the routed consumer's domain);
+                    # the residency probe must not classify them again.
+                    classify_locality=False)
                 return
             # Consumers collectively read disjoint slices of the window.
             n = self.num_consumers
@@ -727,11 +760,26 @@ class CkIOPipeline:
                 torch.as_tensor(np.ascontiguousarray(labels), device=self.device))
 
     def close(self) -> None:
+        # A crashed reader worker in a *prefetched* session surfaces as a
+        # raising task the moment anything pumps the scheduler. Teardown
+        # still runs to completion (sessions stopped, shm unmapped, the
+        # file closed): close catches those, finishes, and re-raises the
+        # first one at the end.
+        surfaced: List[BaseException] = []
+
+        def pump_all() -> None:
+            while True:
+                try:
+                    self.ck.pump()
+                    return
+                except WorkerCrashed as e:   # finite: <= 1 task a session
+                    surfaced.append(e)
+
         # Flush queued session starts before tearing down streams: a
         # prefetch session that starts during this pump subscribes (and may
         # stage) then. Every reader thread of this file is joined before the
         # fd goes away.
-        self.ck.pump()
+        pump_all()
         for buf in list(self._bufs.values()):
             if buf.stream is not None:
                 self._abort_stream(buf)
@@ -747,4 +795,11 @@ class CkIOPipeline:
             raise RuntimeError(
                 "pipeline close: reader thread(s) still running after stop "
                 "timeout; file left open")
-        self.ck.close_sync(self.file)
+        while True:
+            try:
+                self.ck.close_sync(self.file)
+                break
+            except WorkerCrashed as e:
+                surfaced.append(e)
+        if surfaced:
+            raise surfaced[0]

@@ -461,18 +461,22 @@ class ShardedFile:
     shard_id)``: bytes ``[global_start, global_start + nbytes)`` of the
     global space live at file offset ``file_base`` of ``path``. Segments
     must be ascending and contiguous (no gaps); zero-byte shards are simply
-    omitted from the table (their ``shard_id``s stay reserved).
+    omitted from the table (their ``shard_id``s stay reserved). The table is
+    a plain tuple of primitives, so reader worker processes receive it in
+    their spec (``worker_segments``) and open their own descriptors by path
+    (``from_segments``) — never an inherited fd.
 
-    It carries the part of the ``PosixFile`` surface the reader runtime
-    uses (``pread_into``, ``advise_sequential``, ``block_size``, ``size``,
-    ``path``, ``direct_io``, ``close``), with ``PosixFile``'s semantics:
-    positional reads from any thread, short-read/EOF behaviour (a torn shard
-    body returns short, it does not raise), per-shard transient-error retry
-    (each underlying handle keeps its own ``RetryPolicy``). Session plans pin
+    It carries the ``PosixFile`` surface the reader runtime uses
+    (``pread_into``, ``pread``, ``advise_sequential``, ``block_size``,
+    ``size``, ``path``, ``direct_io``, ``fault``, refcounted
+    ``addref``/``close``), with ``PosixFile``'s semantics: positional reads
+    from any thread, short-read/EOF behaviour (a torn shard body returns
+    short, it does not raise), per-shard transient-error retry (each
+    underlying handle keeps its own ``RetryPolicy``). Session plans pin
     interior shard starts as hard stripe bounds (``bounds_in``), so no
     splinter spans a shard; a read that crosses one anyway is split at it.
-    The ``fault`` injection hook is forwarded to the per-shard reads and
-    observes *shard-file* offsets.
+    The ``fault`` injection hook (per call, else the handle's) is forwarded
+    to the per-shard reads and observes *shard-file* offsets.
 
     ``direct_io=True`` opens every shard ``O_DIRECT``; a shard whose data
     region (``file_base``) or, for interior shards, whose ``global_start``
@@ -501,6 +505,9 @@ class ShardedFile:
         self.path = (f"fileset[{len(segs)} shards: {segs[0][0]} .. "
                      f"{segs[-1][0]}]")
         self.direct_io = bool(direct_io)
+        self.fault: Optional[object] = None
+        self._lock = threading.Lock()
+        self._refcount = 1
         # One descriptor per unique path (a path may legally back several
         # segments); opened here, owned by this handle alone.
         self._by_path: Dict[str, PosixFile] = {}
@@ -535,6 +542,17 @@ class ShardedFile:
                     f"block-aligned shard data regions and block-multiple "
                     f"shard sizes")
 
+    @classmethod
+    def from_segments(cls, segments, *, direct_io: bool = False
+                      ) -> "ShardedFile":
+        """Rebuild from a pickled segment table (worker-process side)."""
+        return cls(segments, direct_io=direct_io)
+
+    @property
+    def worker_segments(self) -> Tuple[Tuple[str, int, int, int, int], ...]:
+        """The picklable table a reader worker rebuilds this handle from."""
+        return self.segments
+
     # -- shard resolution -------------------------------------------------
     def _seg_at(self, global_off: int) -> int:
         i = bisect_right(self._starts, global_off) - 1
@@ -555,6 +573,10 @@ class ShardedFile:
         return [g for g in self._starts[1:] if offset < g < end]
 
     # -- PosixFile surface -------------------------------------------------
+    def addref(self) -> None:
+        with self._lock:
+            self._refcount += 1
+
     def pread_into(self, offset: int, view: memoryview, *,
                    stats=None, fault=None) -> int:
         """Positional read of the global space into ``view``; loops across
@@ -563,6 +585,7 @@ class ShardedFile:
         want = len(view)
         if want <= 0:
             return 0
+        hook = fault if fault is not None else self.fault
         total = 0
         i = self._seg_at(offset)
         while total < want and i < len(self.segments):
@@ -574,12 +597,19 @@ class ShardedFile:
             take = min(want - total, n - seg_off)
             got = self._files[i].pread_into(
                 b + seg_off, view[total: total + take],
-                stats=stats, fault=fault)
+                stats=stats, fault=hook)
             total += got
             if got < take:              # torn shard body — stop short
                 break
             i += 1
         return total
+
+    def pread(self, offset: int, nbytes: int, *, stats=None) -> bytes:
+        if nbytes <= 0:
+            return b""
+        buf = bytearray(min(nbytes, max(0, self.size - offset)))
+        got = self.pread_into(offset, memoryview(buf), stats=stats)
+        return bytes(buf[:got])
 
     def advise_sequential(self, offset: int, nbytes: int, *,
                           stats=None) -> bool:
@@ -593,6 +623,10 @@ class ShardedFile:
         return ok
 
     def close(self) -> None:
+        with self._lock:
+            self._refcount -= 1
+            if self._refcount > 0:
+                return
         for f in self._by_path.values():
             f.close()
         self._by_path = {}

@@ -227,8 +227,8 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> ServeRun:
         if getattr(args, name) != unset:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not carried by the port yet: "
-                f"the pooled reader service comes with the process backend "
-                f"and service slice (ROADMAP.md, Queue A)")
+                f"the pooled reader service comes with the reader service "
+                f"slice (ROADMAP.md, Queue A)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:

@@ -18,6 +18,14 @@ written if missing), and ``--direct-io``, ``--queue-depth N``,
 ``core/autotune.py``); the summary's ``read`` and ``shards`` blocks report
 what the sessions ran with and read.
 
+``--backend process --max-workers N`` reads every step window through
+reader worker processes that fill a shared-memory arena (``ipc/``), and
+``--topology {auto,<int>}`` / ``--numa-pin`` / ``--placement
+domain_spread|near_consumers`` place readers and their stripes' pages by
+NUMA domain (``core/placement.py``, ``io/numa.py``); the summary's
+``locality`` block counts same- and cross-domain bytes, pinned threads and
+first-touched pages. Batches are the thread backend's, bit for bit.
+
 Checkpoints hold the train state in the reference's layout
 (``models.convert.train_state_to_reference``, stacked on the host), so
 either package resumes from the other's; ``--resume`` continues from the
@@ -40,7 +48,7 @@ import torch
 
 from repro_torch.configs.base import MAMBA, RGLRU, ModelConfig
 from repro_torch.configs.registry import get_config, smoke_config
-from repro_torch.core import CkIO, FileOptions
+from repro_torch.core import CkIO, FileOptions, Topology
 from repro_torch.core.metrics import SessionMetrics
 from repro_torch.data import CkIOPipeline, FileSet, make_token_file
 from repro_torch.device import resolve_device
@@ -58,9 +66,7 @@ from repro_torch.train import (
 
 # flag -> (value that means "not set", slice that brings it)
 _LATER = {
-    "topology": (None, "NUMA"),
-    "numa_pin": (False, "NUMA"),
-    "service": (False, "process backend and service"),
+    "service": (False, "reader service"),
     "tuned_env": (False, "benchmark legs"),
 }
 
@@ -99,12 +105,37 @@ def _parser() -> argparse.ArgumentParser:
                     help="stage each splinter host->device as its read"
                          " completes and reassemble from the chunk list on"
                          " device (implies --device-ingest)")
+    ap.add_argument("--topology", default=None,
+                    help="NUMA topology for the reader runtime: 'auto'"
+                         " detects the host's NUMA nodes from sysfs (with"
+                         " CPU sets for --numa-pin); an integer subdivides"
+                         " each logical node into that many memory domains."
+                         " Enables domain-coalesced pieces, cross-domain"
+                         " delivery accounting, and first-touch arena"
+                         " striping (each reader faults its own stripe's"
+                         " pages on its own domain)")
+    ap.add_argument("--numa-pin", action="store_true",
+                    help="pin each reader thread or worker process to the"
+                         " host CPUs of its stripe's NUMA domain (requires"
+                         " --topology; best-effort — outcomes are counted"
+                         " in the locality summary)")
     ap.add_argument("--placement", default="node_spread",
                     choices=["round_robin", "node_spread", "domain_spread",
-                             "near_consumers"])
+                             "near_consumers"],
+                    help="reader->PE placement policy (core/placement.py);"
+                         " near_consumers/domain_spread use --topology"
+                         " when given")
     ap.add_argument("--backend", default="thread",
-                    choices=["thread", "process"])
-    ap.add_argument("--max-workers", type=int, default=4)
+                    choices=["thread", "process"],
+                    help="reader backend: 'thread' (helper I/O threads in"
+                         " this process) or 'process' (reader worker"
+                         " processes preadv-ing into a shared-memory arena,"
+                         " splinter events over cross-process rings —"
+                         " repro_torch/ipc); every ingest mode works"
+                         " unchanged")
+    ap.add_argument("--max-workers", type=int, default=4,
+                    help="process backend: cap on reader worker processes"
+                         " per session")
     ap.add_argument("--pool-workers", type=int, default=4)
     ap.add_argument("--queue-depth", type=int, default=0,
                     help="in-flight splinter reads per reader: 0/1 = the"
@@ -141,8 +172,6 @@ def _parser() -> argparse.ArgumentParser:
                     help="round the grads through bf16 before the optimizer"
                          " (what a bf16 DP all-reduce would carry)")
     # Flags of the reference driver whose parts come with later slices.
-    ap.add_argument("--topology", default=None)
-    ap.add_argument("--numa-pin", action="store_true")
     ap.add_argument("--service", action="store_true")
     ap.add_argument("--tuned-env", action="store_true")
     return ap
@@ -173,6 +202,15 @@ def read_summary(sessions: List[SessionMetrics]) -> Dict:
         "queue_depth": span([m.queue_depth for m in sessions]),
         "readahead_bytes": span([m.readahead_bytes for m in sessions]),
         "inflight_hwm": span([m.inflight_hwm for m in sessions]),
+        "workers": span([m.workers for m in sessions]),
+        "worker_attach_ms": span([m.worker_attach_s * 1e3
+                                  for m in sessions if m.workers]),
+        "worker_boot_ms": span([m.worker_boot_s * 1e3
+                                for m in sessions if m.worker_boot_s]),
+        "worker_import_ms": span([m.worker_import_s * 1e3
+                                  for m in sessions if m.worker_import_s]),
+        "degraded_sessions": sum(m.recovery.degraded_mode
+                                 for m in sessions),
         "direct_tail_reads": sum(m.recovery.direct_tail_reads
                                  for m in sessions),
         "direct_tail_bytes": sum(m.recovery.direct_tail_bytes
@@ -205,8 +243,12 @@ def resume(sup: StepSupervisor, state):
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
     _reject_unported(args)
+    if args.numa_pin and not args.topology:
+        ap.error("--numa-pin requires --topology (the topology supplies "
+                 "the domain->CPU map; without it nothing would be pinned)")
     if args.streaming:
         args.device_ingest = True
     cfg = get_config(args.arch)
@@ -237,8 +279,14 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         print(f"fileset: {data_source.describe()}")
     else:
         data_source = args.data[0]
+    # One host: a single scheduler node of num_pes PEs, so the NUMA
+    # topology's node grid matches the scheduler's (a mismatched grid is
+    # rejected by place_readers at session start).
     num_pes = 4
     ckio = CkIO(num_pes=num_pes, pes_per_node=num_pes)
+    topology = (Topology.from_spec(args.topology, num_pes=num_pes,
+                                   pes_per_node=num_pes)
+                if args.topology else None)
     sessions: List[SessionMetrics] = []
     ckio.director.add_observer(sessions.append)
     pipe = CkIOPipeline(
@@ -247,7 +295,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         file_opts=FileOptions(num_readers=args.num_readers,
                               adaptive_splinters=args.adaptive_splinters,
                               placement=args.placement,
+                              topology=topology,
+                              numa_pin=args.numa_pin,
+                              prefault_arena=(topology is not None
+                                              or args.backend == "process"),
                               backend=args.backend,
+                              max_workers=args.max_workers,
                               direct_io=args.direct_io,
                               queue_depth=args.queue_depth,
                               readahead_bytes=args.readahead_mb * (1 << 20),
@@ -312,6 +365,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "ingest": pipe.ingest.summary(),
         "stream": pipe.stream.summary() if args.streaming else None,
         "read": read_summary(sessions),
+        "locality": (ckio.director.locality.summary()
+                     if topology is not None else None),
         "shards": (ckio.director.shards.summary()
                    | {"shard_bytes": dict(ckio.director.shards.shard_bytes)}
                    if len(args.data) > 1 else None),

@@ -9,10 +9,9 @@ borrowed view has landed — the millions-of-users regime of the paper's
 consumer/reader decoupling: session lifetime shrinks from "the whole
 training run" to "one request's queueing time".
 
-The port runs the thread backend; a shared reader service (``service=``)
-comes with the process backend and service slice (ROADMAP.md, Queue A),
-and until then ``ServiceBusy`` is this module's own class (raised by no
-reader tier yet).
+A shared reader service (``service=``) comes with the reader service slice
+(ROADMAP.md, Queue A); until then ``ServiceBusy`` is this module's own
+class (raised by no reader tier yet).
 
 Everything is poll-driven and single-threaded (the split-phase idiom):
 ``submit`` never blocks on I/O, ``poll`` pumps the scheduler, advances
@@ -129,8 +128,7 @@ class RequestIngester:
         if service is not None:
             raise NotImplementedError(
                 "RequestIngester(service=...): the pooled ReaderService comes "
-                "with the process backend and service slice (ROADMAP.md, "
-                "Queue A)")
+                "with the reader service slice (ROADMAP.md, Queue A)")
         self.ck = ck
         self.file = file
         self.meta = meta

@@ -334,11 +334,18 @@ def test_an_explicit_hook_wins_over_the_plan():
         5, flaky_io=True, short_reads=True, stall=True)).reader_options()
     assert opts.io_fault is explicit
     assert isinstance(opts.delay_model, StallReader)
-    # worker and ring hooks act only in reader worker processes, which the
-    # port does not carry yet: set explicitly they raise, from a plan they
-    # do not act (as on the reference's thread backend)
-    for hook in (dict(worker_fault=FaultPlan(5).worker_fault()),
-                 dict(ring_fault=FaultPlan(5, torn_slots=True).ring_fault())):
-        with pytest.raises(NotImplementedError, match="process backend"):
-            FileOptions(**hook).reader_options()
-    FileOptions(fault_plan=FaultPlan(5, torn_slots=True)).reader_options()
+    # worker and ring hooks act in reader worker processes: set explicitly
+    # they win over the plan's, as the I/O hook does
+    crash, torn = FaultPlan(7).worker_fault(), FaultPlan(
+        7, torn_slots=True).ring_fault()
+    opts = FileOptions(worker_fault=crash, ring_fault=torn,
+                       fault_plan=FaultPlan(5, torn_slots=True)
+                       ).reader_options()
+    assert opts.worker_fault is crash and opts.ring_fault is torn
+    planned = FileOptions(fault_plan=FaultPlan(5, torn_slots=True)
+                          ).reader_options()
+    assert planned.worker_fault is not None
+    assert planned.ring_fault is not None
+    for bad in (dict(recovery="retry"), dict(fallback_backend="process")):
+        with pytest.raises(ValueError):
+            FileOptions(**bad).reader_options()

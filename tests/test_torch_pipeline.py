@@ -127,7 +127,7 @@ def test_resize_mid_stream_keeps_batches(corpus):
 
 
 def test_unported_options_and_missing_card_raise(corpus, tmp_path):
-    path, _ = corpus
+    path, raw = corpus
     # A FileSet corpus is carried now (tests/test_torch_fileset_pipeline.py).
     from repro_torch.data import FileSet, write_token_shards
 
@@ -140,9 +140,18 @@ def test_unported_options_and_missing_card_raise(corpus, tmp_path):
         CkIOPipeline(path, 2, 31, sharding=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         CkIOPipeline(path, 2, 31, service=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # The process backend is carried now: its batch is the thread
+    # backend's (tests/test_torch_process_backend.py holds every mode).
+    pipe = CkIOPipeline(path, 2, 31, device="cpu",
+                        file_opts=FileOptions(backend="process",
+                                              max_workers=2))
+    x, y = pipe.get_batch_device(1)
+    np.testing.assert_array_equal(x.numpy(),
+                                  raw[64:128].reshape(2, 32)[:, :-1])
+    pipe.close()
+    with pytest.raises(ValueError, match="unknown reader backend"):
         CkIOPipeline(path, 2, 31, device="cpu",
-                     file_opts=FileOptions(backend="process"))
+                     file_opts=FileOptions(backend="mpi"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             CkIOPipeline(path, 2, 31)                 # device="cuda" default

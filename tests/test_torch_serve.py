@@ -226,10 +226,10 @@ def test_launch_serve_runs_on_cpu(tmp_path, mode):
 
 def test_unported_serving_options_raise():
     with pytest.raises(NotImplementedError,
-                       match="process backend and service slice"):
+                       match="reader service slice"):
         tlaunch.main(["--smoke", "--device", "cpu", "--service"])
     with pytest.raises(NotImplementedError,
-                       match="process backend and service slice"):
+                       match="reader service slice"):
         tserve.RequestIngester(None, None, None, service=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -346,11 +346,42 @@ def test_driver_bf16_compression_runs(tmp_path):
     assert out["steps"] == 2 and np.isfinite(out["final_loss"])
 
 
-@pytest.mark.parametrize("flag", [["--numa-pin"], ["--tuned-env"],
-                                  ["--service"], ["--topology", "auto"]])
+@pytest.mark.parametrize("flag", [["--tuned-env"], ["--service"]])
 def test_driver_flags_of_later_slices_raise(flag):
     with pytest.raises(NotImplementedError):
         port_train.main(["--smoke", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--topology", "auto"],
+    ["--topology", "auto", "--numa-pin", "--placement", "domain_spread"],
+    ["--topology", "2", "--placement", "near_consumers"],
+])
+def test_driver_numa_flags_run(tmp_path, flags):
+    """``--topology`` / ``--numa-pin`` run (they raised before the NUMA
+    slice): the batches are the plain run's, and the summary's locality
+    block counts every delivered byte as same- or cross-domain."""
+    argv = ["--smoke", "--steps", "2", "--global-batch", "2", "--seq", "32",
+            "--microbatches", "1", "--device", "cpu", "--device-ingest",
+            "--num-readers", "2", "--data", str(tmp_path / "tokens.bin"),
+            "--ckpt-dir", str(tmp_path / "ckpt"), "--ckpt-every", "100"]
+    plain, want = _driver_batches(argv)
+    out, got = _driver_batches([*argv, *flags])
+    assert plain["locality"] is None
+    for (xg, yg), (xw, yw) in zip(got, want, strict=True):
+        np.testing.assert_array_equal(xg, xw)
+        np.testing.assert_array_equal(yg, yw)
+    loc = out["locality"]
+    assert loc["same_domain_bytes"] + loc["cross_domain_bytes"] > 0
+    assert loc["prefault_pages"] > 0
+    if "--numa-pin" in flags:
+        assert loc["pinned_threads"] + loc["pin_failures"] > 0
+
+
+def test_driver_numa_pin_needs_a_topology(capsys):
+    with pytest.raises(SystemExit):
+        port_train.main(["--smoke", "--device", "cpu", "--numa-pin"])
+    assert "--numa-pin requires --topology" in capsys.readouterr().err
 
 
 def _driver_batches(argv):
