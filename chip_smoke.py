@@ -196,7 +196,31 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              tail here, both with batches bit-equal to the unbroken run;
              under ``"none"`` ``get_batch_device`` raises ``WorkerCrashed``
              at once and the pipeline closes;
-23. numa     the host's NUMA nodes (``/sys/devices/system/node``) and the
+23. service  the driver of phase 22 with ``--service --pool-workers 4
+             --max-workers 4`` instead: every step session runs on a
+             persistent pool of 4 reader workers (fresh interpreters started
+             once, re-armed per session through shared-memory mailboxes)
+             over arenas recycled from a pool, whole-window and streamed.
+             Batches and the 4 losses must be bit-equal to phase 21's
+             thread-backend runs; one window-kernel launch a step, no table
+             upload; every session that read bytes pooled with 4 workers,
+             none evicted or failed. It prints each session's epoch,
+             checkout (submit -> all attached) and arena hit or miss beside
+             phase 22's spawn -> attached, and ``get_batch_device`` with its
+             share of each step; a re-armed session's checkout must be at
+             least 5x below phase 22's fastest spawn -> attached. Then
+             phi4-mini at full width, all 32 layers, weights from seed 0 as
+             phase 13 makes them, served ``--continuous --service
+             --pool-workers 2`` (3 requests): tokens equal to the
+             sequential oracle's, every request's session pooled, one
+             flash-attention launch a layer a decode call. Then phase 22's
+             fault pipeline on a pool of 4: ``respawn`` (the tail re-armed
+             on another pool worker) and ``reissue`` bit-equal; under
+             ``"none"`` the crashed session fails alone while a sibling
+             session on the same pool completes bit-equal, one worker is
+             evicted, and the next session runs. After every shutdown no
+             ``ckiot-`` name of this process is left in ``/dev/shm``;
+24. numa     the host's NUMA nodes (``/sys/devices/system/node``) and the
              card's PCI ``numa_node``; then the driver with ``--topology
              auto --numa-pin`` under ``--placement domain_spread`` and
              ``near_consumers``, on the thread and the process backend
@@ -205,7 +229,7 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              or workers, pin failures, same- and cross-domain bytes,
              first-touched pages against arena pages). On a host of one
              domain this checks the plumbing only;
-24. profile  only with ``--profile``: two whole-window main-path steps, 16
+25. profile  only with ``--profile``: two whole-window main-path steps, 16
              B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
              recurrentgemma under ``torch.profiler`` (device busy share,
              kernels and copies a call, kernels by device time).
@@ -213,8 +237,9 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
 The launch counts are zeroed just before each main-path run (phases 4-8,
 each mode of phases 13-20, the prefill forwards of phase 14's replay check,
 the two ring-wrap replays, the three driver runs of phase 21, each driver
-run and fault pipeline of phase 22 and each driver run of phase 23) and
-read just after it. The line before the last is a JSON object with one entry per kernel;
+run and fault pipeline of phase 22, each driver run, the serving run and
+each fault pipeline of phase 23 and each driver run of phase 24) and read
+just after it. The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2368,6 +2393,7 @@ class Smoke:
         from repro_torch.core import buffers as B_
         from repro_torch.data import pipeline as P
         from repro_torch.io import posix
+        from repro_torch.ipc.service import ServiceReaderSet
         from repro_torch.kernels import reassemble as K
         from repro_torch.launch import train as T
 
@@ -2380,7 +2406,8 @@ class Smoke:
         spans = spans if spans is not None else [0, 0]
         pread_into = posix.ShardedFile.pread_into
         starts = {cls: cls.start for cls in (B_.BufferReaderSet,
-                                              B_.ProcessReaderSet)}
+                                              B_.ProcessReaderSet,
+                                              ServiceReaderSet)}
 
         def timed(start):
             def timed_start(readers):
@@ -2704,6 +2731,8 @@ class Smoke:
                                "the thread backend's")
                 served = self._served(f"process {name}", rec)
                 attach = [m.worker_attach_s * 1e3 for m in served]
+                self.proc_attach_ms = getattr(self, "proc_attach_ms",
+                                              []) + attach
                 read = rec["summary"]["read"]
                 log(f"process {name}: losses {rec['losses']} (the thread "
                     f"backend's); launches {json.dumps(rec['launches'])}, "
@@ -2867,8 +2896,314 @@ class Smoke:
         if time.perf_counter() - t0 > FAULT_WATCHDOG_S + 30:
             raise AssertionError("process faults none: too slow to fail")
 
+    def service(self):
+        """Phase 23: the pooled reader service. The driver of phase 21 (a)
+        over the same 3 shards with ``--service --pool-workers 4``,
+        whole-window and streamed, held against the fileset phase's
+        thread-backend runs, each session's checkout beside the process
+        phase's spawn -> attached; phi4-mini served ``--continuous
+        --service``; the fault pipeline of phase 22 on the pool; and no
+        ``ckiot-`` name of this process left after the shutdowns."""
+        from repro_torch.io.posix import fs_block_size
+        from repro_torch.ipc.shm import PREFIX, shm_dir
+
+        want = self._thread_runs("service")
+        spawn = getattr(self, "proc_attach_ms", None)
+        if not spawn:
+            raise AssertionError("service: the process phase left no spawn "
+                                 "-> attached times to hold the checkout "
+                                 "against")
+        mark = f"-{os.getpid()}-"
+
+        def own_segments():
+            return sorted(n for n in os.listdir(shm_dir())
+                          if n.startswith(PREFIX) and mark in n)
+
+        before = own_segments()
+        d = os.path.join(self.tmp, "service")
+        os.makedirs(d)
+        try:
+            bs = fs_block_size(d)
+            shards, _, raw, w = self._fileset_corpus(d, bs)
+            flags = [*self.fs_flags, "--service", "--pool-workers",
+                     str(PROC_WORKERS), "--max-workers", str(PROC_WORKERS)]
+            for name, extra in (("window", []), ("streamed", ["--streaming"])):
+                rec = self._driver_run(d, f"service {name}",
+                                       ["--data", *shards, *flags, *extra])
+                self.launches[f"service_{name}"] = rec["launches"]
+                self._same_run(f"service {name}", rec, want[name],
+                               "the thread backend's")
+                self._service_sessions(f"service {name}", rec, spawn)
+            self._service_serve()
+            self._service_faults(d, bs, shards, raw, w)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        left = [n for n in own_segments() if n not in before]
+        log(f"service: after every shutdown, {len(left)} ckiot- names of "
+            f"this process in {shm_dir()}")
+        if left:
+            raise AssertionError(f"service: segments left: {left}")
+
+    def _service_sessions(self, name, rec, spawn):
+        """Checks and prints the pooled sessions of one driver run: every
+        session that read bytes ran on the pool, on 1 to PROC_WORKERS
+        workers (a session queued behind another is armed with the workers
+        idle when one checks in, as the reference's dispatch grants them);
+        each session's epoch, checkout and arena; a re-armed session's
+        checkout at least 5x below the process phase's fastest spawn ->
+        attached; ``get_batch_device`` and its share of each step. A
+        session counts as re-armed when it was submitted after the pool's
+        first attach: the sessions the pipeline starts at its construction
+        wait for the pool's one-time start (the reference's
+        ``perf_service`` drops its first session for the same reason)."""
+        from repro_torch.ipc.service import ServiceReaderSet
+
+        readers = [r for r, _ in rec["starts"]]
+        if not readers or not all(isinstance(r, ServiceReaderSet)
+                                  for r in readers):
+            raise AssertionError(f"{name}: sessions on "
+                                 f"{sorted({type(r).__name__ for r in readers})}")
+        served = [r.metrics for r in readers if r.metrics.bytes_read]
+        for m in served:
+            pids = set(m.worker_pids)
+            if (not m.pooled or not 1 <= m.workers <= PROC_WORKERS
+                    or len(pids) != m.workers or os.getpid() in pids
+                    or 0 in pids or m.recovery.degraded_mode):
+                raise AssertionError(f"{name}: a session pooled {m.pooled}, "
+                                     f"{m.workers} workers {m.worker_pids}")
+        if len(served) < STEPS // 2:
+            raise AssertionError(f"{name}: {len(served)} sessions read bytes")
+        svc, read = rec["summary"]["service"], rec["summary"]["read"]
+        if svc["workers_evicted"] or svc["sessions_failed"] or \
+                svc["rejected"] or read["inflight_hwm"][1] > FS_DEPTH:
+            raise AssertionError(f"{name}: service {svc}, read {read}")
+        states = [(r.metrics, r._svc_state) for r in readers
+                  if r.metrics.bytes_read]
+        t_up = min(st.t_submit + m.service_checkout_s for m, st in states)
+        rearmed = [m.service_checkout_s * 1e3 for m, st in states
+                   if st.t_submit >= t_up]
+        first = [m for m in served if m.worker_boot_s]
+        steps = [(round((t1 - t0) * 1e3, 3),
+                  round((t1 - t0) / (e - t0), 4))
+                 for (t0, t1), e in zip(rec["t_batch"], rec["t_step"])]
+        log(f"{name}: losses {rec['losses']} (the thread backend's); "
+            f"launches {json.dumps(rec['launches'])}, chunk-table uploads "
+            f"{rec['uploads']}; sessions (epoch, workers, checkout ms, "
+            f"arena): "
+            f"{[(m.service_epoch, m.workers, round(m.service_checkout_s * 1e3, 3), 'hit' if m.arena_recycled else 'miss') for m in served]}"
+            f"; first sessions' worker exec -> interpreter "
+            f"{[round(m.worker_boot_s * 1e3, 1) for m in first]} ms, imports "
+            f"{[round(m.worker_import_s * 1e3, 1) for m in first]} ms; "
+            f"process phase spawn -> attached {min(spawn):.1f}-"
+            f"{max(spawn):.1f} ms; get_batch_device ms and share of each "
+            f"step {steps} (host clock); service {json.dumps(svc)}; "
+            f"{self.card_line}")
+        if not rearmed:
+            raise AssertionError(f"{name}: no re-armed session")
+        ratio = min(spawn) / max(rearmed)
+        log(f"{name}: {len(rearmed)} re-armed sessions, checkout "
+            f"{min(rearmed):.3f}-{max(rearmed):.3f} ms, {ratio:.1f}x below "
+            f"the process phase's fastest spawn -> attached "
+            f"({min(spawn):.1f} ms)")
+        if ratio < 5:
+            raise AssertionError(f"{name}: checkout only {ratio:.2f}x below "
+                                 f"spawn -> attached")
+
+    def _service_serve(self):
+        """phi4-mini at full width, all 32 layers, random weights from seed
+        0 as the serve phase makes them, served ``--continuous --service
+        --pool-workers 2``: every request's session on the pool, tokens
+        equal to the sequential oracle's, one flash-attention launch a
+        layer a decode call."""
+        import numpy as np
+        import torch
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.launch import serve as L
+        from repro_torch.models import build_model, transformer
+        from repro_torch.serve import sequential_oracle
+
+        cfg = get_config("phi4-mini-3.8b")
+        t0 = time.perf_counter()
+        params = build_model(cfg.replace(param_dtype="float32")).init(
+            0, device=self.dev)
+        torch.cuda.synchronize()
+        log(f"service serve: phi4-mini weights made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        argv = ["--arch", cfg.name, "--batch", str(SLOTS), "--prompt-len",
+                str(PROMPT), "--max-new", str(NEW), "--data",
+                os.path.join(self.tmp, "prompts_service.bin"), "--requests",
+                str(CONT_REQUESTS), "--continuous", "--arrival-rate",
+                str(ARRIVAL_RATE), "--service", "--pool-workers", "2"]
+        decode_step = transformer.decode_step
+        calls = [0]
+
+        def counting(*a, **kw):
+            calls[0] += 1
+            return decode_step(*a, **kw)
+
+        transformer.decode_step = counting
+        try:
+            torch.cuda.synchronize()
+            FA.reset_launch_counts()
+            t = time.perf_counter()
+            run = L.main(argv, params=params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = FA.LAUNCHES["flash_attention"]
+        finally:
+            transformer.decode_step = decode_step
+        self.launches["service_serve"] = {"flash_attention": launches}
+        m = run.metrics
+        if launches != cfg.num_layers * calls[0] or not calls[0]:
+            raise AssertionError(f"service serve: flash_attention launched "
+                                 f"{launches} times in {calls[0]} decode "
+                                 f"calls")
+        if not (run.summary["all_completed"]
+                and m.pooled_sessions == CONT_REQUESTS == len(run.requests)
+                and m.ingest_bytes_copied == 0):
+            raise AssertionError(f"service serve: {run.summary}, pooled "
+                                 f"{m.pooled_sessions}")
+        by_rid = sorted(run.requests, key=lambda r: r.rid)
+        prompts = [run.corpus[r.row_start:r.row_start + r.num_rows]
+                   for r in by_rid]
+        oracle = sequential_oracle(run.engine, prompts, [NEW] * len(by_rid))
+        if [r.result for r in by_rid] != oracle:
+            raise AssertionError("service serve: tokens differ from the "
+                                 "sequential oracle on the same engine")
+        pct = {w: m.latency_percentiles(w)
+               for w in ("ingest", "first_token", "e2e")}
+        log(f"service serve: {len(by_rid)} requests, each session on the "
+            f"pool (pooled_sessions {m.pooled_sessions}), token streams "
+            f"bit-identical to the sequential oracle; {calls[0]} decode "
+            f"calls, flash_attention {launches} = {cfg.num_layers} x "
+            f"{calls[0]}; {run.summary['new_tokens']} new tokens in "
+            f"{wall:.2f} s (host clock); arrival -> "
+            + ", ".join(f"{w} p50 {p['p50']:.4f} s p99 {p['p99']:.4f} s"
+                        for w, p in pct.items())
+            + f"; busy events {m.busy_events}; {self.card_line}")
+        del params, run
+        torch.cuda.empty_cache()
+
+    def _service_faults(self, d, bs, shards, raw, w):
+        """Phase 22's fault pipeline on a pool of PROC_WORKERS workers:
+        ``respawn`` and ``reissue`` bit-equal to the unbroken run; under
+        ``none`` the crashed session fails alone while a sibling session on
+        the same pool completes, and the pool serves the next session."""
+        import numpy as np
+
+        from repro_torch.core import CkIO, FaultPlan, FileOptions, WorkerCrashed
+        from repro_torch.data import CkIOPipeline, FileSet
+        from repro_torch.ipc.service import ReaderService, ServiceOptions
+        from repro_torch.kernels import reassemble as K
+
+        splinter = 3 * bs
+        direct = "--direct-io" in self.fs_flags
+        fs = FileSet.build(shards)
+        fault = FaultPlan(FAULT_SEED, num_readers=FS_READERS,
+                          num_splinters=2 * FS_READERS)
+
+        def opts(**kw):
+            return FileOptions(num_readers=FS_READERS,
+                               splinter_bytes=splinter, backend="process",
+                               max_workers=PROC_WORKERS, direct_io=direct,
+                               **kw)
+
+        for mode in ("respawn", "reissue"):
+            svc = ReaderService(ServiceOptions(pool_workers=PROC_WORKERS))
+            ck = CkIO(num_pes=4, pes_per_node=4)
+            seen = []
+            ck.director.add_observer(seen.append)
+            t0 = time.perf_counter()
+            try:
+                pipe = CkIOPipeline(fs, B, S, ckio=ck, num_consumers=16,
+                                    device=self.dev, service=svc,
+                                    file_opts=opts(recovery=mode,
+                                                   fault_plan=fault))
+                K.reset_launch_counts()
+                try:
+                    for step in range(pipe.num_steps):
+                        x, y = pipe.get_batch_device(step)
+                        win = raw[step * w:(step + 1) * w].reshape(B, S + 1)
+                        if not (np.array_equal(x.cpu().numpy(), win[:, :-1])
+                                and np.array_equal(y.cpu().numpy(),
+                                                   win[:, 1:])):
+                            raise AssertionError(f"service faults {mode}: "
+                                                 f"step {step} differs")
+                finally:
+                    pipe.close()
+                self.launches[f"service_{mode}"] = dict(K.LAUNCHES)
+            finally:
+                svc.shutdown()
+            dt = time.perf_counter() - t0
+            rec = [m for m in seen if m.bytes_read]
+            got = [(m.recovery.respawns, m.recovery.reissues,
+                    m.recovery.reissued_splinters) for m in rec]
+            sm = svc.metrics.summary()
+            log(f"service faults {mode}: {pipe.num_steps} batches bit-equal "
+                f"to the tokens in {dt:.2f} s with the pool's start (host "
+                f"clock); per session (respawns, reissues, splinters re-read)"
+                f" {got}; evicted {sm['workers_evicted']:.0f}, spawned "
+                f"{sm['workers_spawned']:.0f}; {self.card_line}")
+            ok = (m.pooled and (m.recovery.respawns == 1 if mode == "respawn"
+                                else m.recovery.reissues >= 1) for m in rec)
+            if len(rec) != pipe.num_steps or not all(ok) or \
+                    sm["sessions_failed"]:
+                raise AssertionError(f"service faults {mode}: {got}, {sm}")
+        # recovery="none": A crashes, its sibling B completes, C follows.
+        svc = ReaderService(ServiceOptions(pool_workers=PROC_WORKERS))
+        ck = CkIO(num_pes=4, pes_per_node=4)
+        ck.director.attach_service(svc)
+        n = w * 4
+        want = raw[:w].tobytes()
+        try:
+            fh_bad = ck.open_fileset_sync(fs, FileOptions(
+                num_readers=FS_READERS, splinter_bytes=splinter,
+                backend="process", max_workers=2, direct_io=direct,
+                fault_plan=fault))
+            fh_ok = ck.open_fileset_sync(fs, FileOptions(
+                num_readers=FS_READERS, splinter_bytes=splinter,
+                backend="process", max_workers=2, direct_io=direct))
+            t0 = time.perf_counter()
+            sa = ck.start_read_session_sync(fh_bad, n, 0, timeout=120)
+            sb = ck.start_read_session_sync(fh_ok, n, 0, timeout=120)
+            try:
+                ck.read_view_sync(sa, n, 0, timeout=120)
+            except WorkerCrashed as e:
+                log(f"service faults none: session A failed after "
+                    f"{time.perf_counter() - t0:.3f} s (host clock): {e}")
+            else:
+                raise AssertionError("service faults none: no WorkerCrashed")
+            if bytes(ck.read_view_sync(sb, n, 0, timeout=120)) != want:
+                raise AssertionError("service faults none: sibling differs")
+            pooled = (sa.metrics.pooled, sb.metrics.pooled)
+            ck.close_read_session_sync(sa)
+            ck.close_read_session_sync(sb)
+            t1 = time.perf_counter()
+            sc = ck.start_read_session_sync(fh_ok, n, 0, timeout=120)
+            if bytes(ck.read_view_sync(sc, n, 0, timeout=120)) != want:
+                raise AssertionError("service faults none: next differs")
+            mc = sc.metrics
+            ck.close_read_session_sync(sc)
+            ck.close_sync(fh_bad)
+            ck.close_sync(fh_ok)
+        finally:
+            svc.shutdown()
+        sm = svc.metrics.summary()
+        log(f"service faults none: sibling B bit-equal; next session C "
+            f"bit-equal in {time.perf_counter() - t1:.3f} s (host clock; "
+            f"checkout {mc.service_checkout_s * 1e3:.1f} ms, on "
+            f"{mc.workers} workers, the evicted one's replacement started "
+            f"lazily); failed {sm['sessions_failed']:.0f}, evicted "
+            f"{sm['workers_evicted']:.0f}, pool {svc.pool_size()}")
+        if (pooled != (True, True) or not mc.pooled
+                or sm["sessions_failed"] != 1 or sm["workers_evicted"] != 1):
+            raise AssertionError(f"service faults none: pooled {pooled}, "
+                                 f"{mc.pooled}; {sm}")
+
     def numa(self):
-        """Phase 23: the host's NUMA domains, then the driver with
+        """Phase 24: the host's NUMA domains, then the driver with
         ``--topology auto --numa-pin`` under ``domain_spread`` and
         ``near_consumers`` on both backends, held against the fileset
         phase's plain run."""
@@ -3003,6 +3338,7 @@ def main() -> int:
                 sm.phase(name, lambda arch=arch: sm.serve_family(arch))
             sm.phase("fileset", sm.fileset)
             sm.phase("process", sm.process)
+            sm.phase("service", sm.service)
             sm.phase("numa", sm.numa)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)

@@ -2,7 +2,9 @@
 reader/consumer decomposition independence, greedy read sessions,
 splintered I/O, work-stealing straggler mitigation, migratable consumers,
 reader worker processes over a shared-memory arena with respawn/reissue
-recovery, and NUMA-aware reader placement."""
+recovery, the pooled reader service (``ipc/service.py``, attached with
+``Director.attach_service``; its ``ServiceMetrics`` are exported here), and
+NUMA-aware reader placement."""
 from repro_torch.core.api import CkIO
 from repro_torch.core.assembler import ReadComplete
 from repro_torch.core.buffers import BufferReaderSet, NetworkModel, ProcessReaderSet, ReaderOptions, SplinterEvent
@@ -13,6 +15,7 @@ from repro_torch.core.metrics import (
     LocalityMetrics,
     RecoveryMetrics,
     ServeMetrics,
+    ServiceMetrics,
     SessionMetrics,
     StreamMetrics,
     percentile,
@@ -38,6 +41,7 @@ __all__ = [
     "LocalityMetrics",
     "RecoveryMetrics",
     "ServeMetrics",
+    "ServiceMetrics",
     "percentile",
     "SessionMetrics",
     "StreamMetrics",

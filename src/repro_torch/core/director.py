@@ -93,6 +93,23 @@ class Director:
         # splinters, I/O retries, degraded sessions) — same merge-on-close
         # pattern as ``locality``.
         self.recovery = RecoveryMetrics()
+        # Optional persistent reader service (ipc/service.py): when
+        # attached, process-backend sessions run on its pooled workers and
+        # recycled arenas instead of starting workers per session.
+        self.service = None
+
+    def attach_service(self, service) -> None:
+        """Attach a :class:`~repro_torch.ipc.service.ReaderService`:
+        subsequent ``backend="process"`` sessions check workers out of its
+        pool (subject to ``FileOptions.use_service`` routing) and its
+        :class:`~repro_torch.core.metrics.ServiceMetrics` joins the
+        observer path. The caller keeps ownership: the Director never runs
+        ``service.shutdown()``."""
+        if self.service is service:
+            return
+        self.service = service
+        service.director = self
+        self.add_observer(service.metrics.record_session)
 
     def add_observer(self, observe: Callable[[SessionMetrics], None]) -> None:
         """Register a session-close observer on the shared observation path
@@ -281,7 +298,8 @@ class Director:
     def _start_backend(self, file: FileHandle, plan, reader_pes: List[int],
                        opts: FileOptions, ropts) -> Session:
         """Backend dispatch: helper threads, or worker processes over a
-        shared-memory arena (``core/buffers.py`` ``ProcessReaderSet``).
+        shared-memory arena (``core/buffers.py`` ``ProcessReaderSet``), or
+        an attached reader service's pool (:meth:`_build_session`).
 
         Graceful degradation is opt-in: with ``fallback_backend="thread"``
         a process-backend *setup* failure (spawn rejecting an unpicklable
@@ -296,8 +314,8 @@ class Director:
         if degraded:
             ropts = dataclasses.replace(ropts, backend="thread")
         try:
-            session = self._construct_session(file, plan, reader_pes, opts,
-                                              ropts)
+            session = self._build_session(file, plan, reader_pes, opts,
+                                          ropts)
         except Exception as exc:
             if (ropts.backend != "process"
                     or opts.fallback_backend != "thread"):
@@ -311,27 +329,56 @@ class Director:
             opts._fallback_active = True
             degraded = True
             ropts = dataclasses.replace(ropts, backend="thread")
-            session = self._construct_session(file, plan, reader_pes, opts,
-                                              ropts)
+            session = self._build_session(file, plan, reader_pes, opts,
+                                          ropts)
         if degraded:
             session.metrics.recovery.mark_degraded()
         return session
 
+    def _build_session(self, file: FileHandle, plan, reader_pes: List[int],
+                       opts: FileOptions, ropts) -> Session:
+        """Service routing. With a ReaderService attached, process-backend
+        sessions run on the pool; a saturated service (``ServiceBusy`` at
+        admission) falls back to per-session spawn when
+        ``FileOptions.use_service`` is left at auto (None) and surfaces to
+        the caller when the session was pinned (True)."""
+        if (self.service is not None and ropts.backend == "process"
+                and opts.use_service is not False):
+            from repro_torch.ipc.service import ServiceBusy
+            try:
+                return self._construct_session(
+                    file, plan, reader_pes, opts, ropts,
+                    service=self.service)
+            except ServiceBusy:
+                if opts.use_service:
+                    raise
+                # Auto mode: admission queue full — this session pays the
+                # per-session spawn instead of waiting behind the pool.
+        return self._construct_session(file, plan, reader_pes, opts, ropts)
+
     def _construct_session(self, file: FileHandle, plan,
-                           reader_pes: List[int], opts: FileOptions,
-                           ropts) -> Session:
-        """Allocate an id, construct the reader set for ``ropts.backend``,
-        register and start it. On any failure the half-created session is
-        scrubbed from the tables and backend resources released before the
-        exception propagates (so a fallback retry starts clean)."""
+                           reader_pes: List[int], opts: FileOptions, ropts,
+                           service=None) -> Session:
+        """Allocate an id, construct the reader set for ``ropts.backend``
+        (or the attached service), register and start it. On any failure
+        the half-created session is scrubbed from the tables and backend
+        resources released before the exception propagates (so a fallback
+        retry starts clean)."""
         with self._lock:
             sid = next(self._session_ids)
         readers = None
         try:
-            reader_cls = (ProcessReaderSet if ropts.backend == "process"
-                          else BufferReaderSet)
-            readers = reader_cls(file.posix, plan, self.sched, reader_pes,
-                                 ropts)
+            if service is not None:
+                from repro_torch.ipc.service import ServiceReaderSet
+                readers = ServiceReaderSet(file.posix, plan, self.sched,
+                                           reader_pes, ropts,
+                                           service=service,
+                                           tenant=opts.tenant)
+            else:
+                reader_cls = (ProcessReaderSet if ropts.backend == "process"
+                              else BufferReaderSet)
+                readers = reader_cls(file.posix, plan, self.sched,
+                                     reader_pes, ropts)
             session = Session(
                 id=sid,
                 file=file,

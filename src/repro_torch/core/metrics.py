@@ -4,9 +4,8 @@ Everything the paper's evaluation plots (throughput, overlap fraction,
 permutation cost, cross-node traffic) is derived from these counters.
 Thread-safe; negligible overhead (integer adds under a lock). This copy
 keeps the session, recovery, locality, ingest, stream and per-shard
-counters the training path fills on either reader backend, and the serving
-subsystem's ``ServeMetrics``. The reader service's ``ServiceMetrics`` comes
-with that slice.
+counters the training path fills on either reader backend, the reader
+service's ``ServiceMetrics`` and the serving subsystem's ``ServeMetrics``.
 
 Per-piece *timing* (two ``perf_counter`` calls per delivered piece) is the
 one non-negligible probe, so it sits behind ``piece_timing_every``: 0 (the
@@ -263,6 +262,16 @@ class SessionMetrics:
     # interpreter's first line, and first line -> imports and spec read.
     worker_boot_s: float = 0.0
     worker_import_s: float = 0.0
+    # Pooled-service sessions (ipc/service.py): this session ran on checked-
+    # out pool workers (pooled), under service generation service_epoch,
+    # with submit → all-workers-attached latency service_checkout_s (then
+    # also its worker_attach_s; the boot and import times are a worker's
+    # first session's only); arena_recycled marks a recycled arena-pool
+    # segment against a fresh one.
+    pooled: bool = False
+    service_epoch: int = 0
+    service_checkout_s: float = 0.0
+    arena_recycled: bool = False
     _piece_seq: int = 0               # sampling counter (racy by design)
 
     def session_started(self, nbytes: int, num_readers: int) -> None:
@@ -293,6 +302,24 @@ class SessionMetrics:
         with self.lock:
             if hwm > self.inflight_hwm:
                 self.inflight_hwm = hwm
+
+    def record_worker_boot(self, boot_s: float, import_s: float) -> None:
+        """Fold one worker's start-up times in (the slowest worker's)."""
+        with self.lock:
+            self.worker_boot_s = max(self.worker_boot_s, float(boot_s))
+            self.worker_import_s = max(self.worker_import_s, float(import_s))
+
+    def record_service_checkout(self, epoch: int, checkout_s: float,
+                                arena_recycled: bool) -> None:
+        """This session ran on the pooled reader service (one call, at
+        reader-set start): the service generation it was armed as, the
+        submit → all-workers-attached latency, and whether its arena came
+        recycled from the pool."""
+        with self.lock:
+            self.pooled = True
+            self.service_epoch = int(epoch)
+            self.service_checkout_s = float(checkout_s)
+            self.arena_recycled = bool(arena_recycled)
 
     def record_read(self, reader: int, nbytes: int, dt: float) -> None:
         with self.lock:
@@ -407,7 +434,151 @@ class SessionMetrics:
             "worker_attach_s": self.worker_attach_s,
             "worker_boot_s": self.worker_boot_s,
             "worker_import_s": self.worker_import_s,
+            "pooled": float(self.pooled),
+            "service_epoch": float(self.service_epoch),
+            "service_checkout_s": self.service_checkout_s,
+            "arena_recycled": float(self.arena_recycled),
         }
+
+
+@dataclass
+class ServiceMetrics:
+    """Reader-service observables (``ipc/service.py ReaderService``).
+
+    One instance per service, fed from two directions: the service itself
+    (admission, checkout, arena pool, worker lifecycle — recorded when each
+    event happens) and the Director observer path (``record_session`` —
+    per-session roll-ups at close).
+
+    * ``admitted`` / ``queued`` / ``rejected`` / ``completed`` — admission
+      outcomes; ``rejected`` counts ``ServiceBusy`` errors raised at submit.
+    * checkout latency — submit → all-workers-attached per session; the
+      steady-state number the pool exists to shrink (against a per-session
+      worker start).
+    * ``arena_hits`` / ``arena_misses`` — arena-pool recycling: a hit
+      reused a prefaulted segment (no ftruncate, no page faults).
+    * ``stale_events`` — ring events whose epoch matched no live session;
+      dropped, counted, never delivered.
+    * ``workers_spawned`` / ``workers_evicted`` — pool churn; an eviction
+      removes a crashed or errored worker without touching its siblings.
+    * ``rearms`` — park → re-arm transitions (sessions × workers granted).
+    * ``queue_depth_hwm`` / ``occupancy_hwm`` — admission queue and busy
+      workers, high-water marks.
+    """
+
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    admitted: int = 0
+    queued: int = 0
+    rejected: int = 0
+    completed: int = 0
+    sessions_failed: int = 0
+    checkout_count: int = 0
+    checkout_latency_s: float = 0.0
+    checkout_latency_max_s: float = 0.0
+    arena_hits: int = 0
+    arena_misses: int = 0
+    stale_events: int = 0
+    workers_spawned: int = 0
+    workers_evicted: int = 0
+    rearms: int = 0
+    queue_depth_hwm: int = 0
+    occupancy_hwm: int = 0
+
+    def record_admitted(self) -> None:
+        with self.lock:
+            self.admitted += 1
+
+    def record_queued(self, depth: int) -> None:
+        with self.lock:
+            self.queued += 1
+            if depth > self.queue_depth_hwm:
+                self.queue_depth_hwm = depth
+
+    def record_rejected(self) -> None:
+        with self.lock:
+            self.rejected += 1
+
+    def record_checkout(self, latency_s: float) -> None:
+        with self.lock:
+            self.checkout_count += 1
+            self.checkout_latency_s += max(latency_s, 0.0)
+            if latency_s > self.checkout_latency_max_s:
+                self.checkout_latency_max_s = latency_s
+
+    def record_arena(self, recycled: bool) -> None:
+        with self.lock:
+            if recycled:
+                self.arena_hits += 1
+            else:
+                self.arena_misses += 1
+
+    def record_stale_event(self) -> None:
+        with self.lock:
+            self.stale_events += 1
+
+    def record_worker_spawned(self, n: int = 1) -> None:
+        with self.lock:
+            self.workers_spawned += n
+
+    def record_worker_evicted(self) -> None:
+        with self.lock:
+            self.workers_evicted += 1
+
+    def record_rearm(self, nworkers: int) -> None:
+        with self.lock:
+            self.rearms += nworkers
+
+    def record_occupancy(self, busy: int) -> None:
+        with self.lock:
+            if busy > self.occupancy_hwm:
+                self.occupancy_hwm = busy
+
+    def record_session(self, m: "SessionMetrics") -> None:
+        """Director observer hook: fold one closing session's outcome in.
+        Non-pooled sessions (a spawn fallback on a service-attached
+        Director) never touched the pool and are ignored."""
+        if not m.pooled:
+            return
+        with self.lock:
+            self.completed += 1
+
+    def record_session_failed(self) -> None:
+        with self.lock:
+            self.sessions_failed += 1
+
+    def arena_hit_rate(self) -> float:
+        with self.lock:
+            total = self.arena_hits + self.arena_misses
+            return self.arena_hits / total if total else 0.0
+
+    def mean_checkout_s(self) -> float:
+        with self.lock:
+            return (self.checkout_latency_s / self.checkout_count
+                    if self.checkout_count else 0.0)
+
+    def summary(self) -> Dict[str, float]:
+        hit_rate = self.arena_hit_rate()
+        mean_checkout = self.mean_checkout_s()
+        with self.lock:
+            return {
+                "admitted": float(self.admitted),
+                "queued": float(self.queued),
+                "rejected": float(self.rejected),
+                "completed": float(self.completed),
+                "sessions_failed": float(self.sessions_failed),
+                "checkout_count": float(self.checkout_count),
+                "checkout_mean_s": mean_checkout,
+                "checkout_max_s": self.checkout_latency_max_s,
+                "arena_hits": float(self.arena_hits),
+                "arena_misses": float(self.arena_misses),
+                "arena_hit_rate": hit_rate,
+                "stale_events": float(self.stale_events),
+                "workers_spawned": float(self.workers_spawned),
+                "workers_evicted": float(self.workers_evicted),
+                "rearms": float(self.rearms),
+                "queue_depth_hwm": float(self.queue_depth_hwm),
+                "occupancy_hwm": float(self.occupancy_hwm),
+            }
 
 
 @dataclass
@@ -765,12 +936,12 @@ class ServeMetrics:
 
     # -- Director observer -----------------------------------------------------
     def record_session(self, m: "SessionMetrics") -> None:
-        # pooled_sessions stays 0: the port has no ReaderService yet
-        # (the reader service slice, ROADMAP.md Queue A).
         with self.lock:
             self.ingest_sessions += 1
             self.ingest_bytes += m.bytes_read
             self.ingest_bytes_copied += m.bytes_copied
+            if m.pooled:
+                self.pooled_sessions += 1
 
     # -- folds -----------------------------------------------------------------
     def latency_percentiles(self, which: str) -> Dict[str, float]:

@@ -107,6 +107,17 @@ class FileOptions:
     # the Director's QueueTuner from observed throughput; the explicit
     # fields then only seed the first session.
     adaptive_queue: bool = False
+    # -- persistent reader service (ipc/service.py) --------------------------
+    # Routing for process-backend sessions when a ReaderService is attached
+    # to the Director: None ("auto", the default) runs on the service and
+    # falls back to per-session spawn if admission rejects (ServiceBusy);
+    # True pins the session to the service (ServiceBusy surfaces to the
+    # caller); False opts out (always per-session spawn). With no service
+    # attached, every value behaves like False.
+    use_service: Optional[bool] = None
+    # Admission fair-share key: sessions from distinct tenants split the
+    # service's worker pool fairly ("" = the shared default tenant).
+    tenant: str = ""
 
     def reader_options(self) -> ReaderOptions:
         if self.backend not in ("thread", "process"):

@@ -92,8 +92,50 @@ classified same- or cross-domain in ``LocalityMetrics``
 (``pipe.ck.director.locality`` after the sessions close). Batches are
 bit-identical on either backend, under every placement.
 
-Not carried by this slice (each raises ``NotImplementedError``): a reader
-``service`` and ``sharding``.
+Persistent reader service (constructor ``service=``)
+----------------------------------------------------
+Passing a ``repro_torch.ipc.service.ReaderService`` attaches it to this
+pipeline's Director before any step session starts: every
+``backend="process"`` step session then checks its workers out of the
+service's persistent pool and its arena out of the recycled-arena pool,
+instead of starting worker interpreters and creating a fresh shm segment
+per step — the per-step setup drops from a worker start to one mailbox
+write and an attach barrier. Every delivery contract above holds (the
+pooled arena is the same kind of mapped segment: zero-copy views,
+streamed chunk staging, ``bytes_copied == 0``), with these amendments:
+
+  * **View lifetime across arena recycling**: borrowed views still die at
+    step retirement (``ValueError`` on access), but the pages behind them
+    outlive the session — the segment returns to the pool and is recycled
+    into a later session. A view kept alive through invalidation by a live
+    export (an ``np.frombuffer`` array, or a CPU tensor ``torch.from_numpy``
+    made of one) QUARANTINES the segment: the service unlinks it instead of
+    recycling it, so the export can never alias a later step's bytes. Code
+    that keeps views across sessions re-validates with
+    ``SharedArena.check_generation(gen)`` (raises ``StaleArenaView``; the
+    session's generation is ``ServiceReaderSet.arena_generation``). The
+    device copy in ``_to_device`` returns once its pageable source has been
+    consumed, so releasing the session after it is safe; page-locking a
+    pooled segment would need the hold-until-event rule first.
+  * **When ``ServiceBusy`` is raised**: admission rejects a session only
+    when both the inflight cap (``ServiceOptions.max_sessions``) and the
+    FIFO queue (``max_queue``) are full. With ``FileOptions.use_service``
+    left at auto (``None``) the Director catches it and falls back to the
+    per-session spawn path — the step runs and pays the spawn;
+    ``use_service=True`` pins the step to the pool and surfaces
+    ``ServiceBusy`` from the step's futures; ``use_service=False`` (or no
+    service) keeps the per-session path.
+  * **The fallback to spawn** is per session and not sticky — unlike the
+    ``fallback_backend="thread"`` downgrade, the next step tries the pool
+    again.
+  * **Failure containment**: a pooled worker crash evicts that worker
+    only; the step recovers per its own ``FileOptions.recovery`` (or fails
+    alone), and other steps or pipelines sharing the pool are untouched.
+  * **Ownership**: the pipeline never shuts the service down — call
+    ``service.shutdown()`` after the last pipeline using it closes
+    (``/dev/shm`` holds nothing of it only after that).
+
+Not carried by this slice (raises ``NotImplementedError``): ``sharding``.
 """
 from __future__ import annotations
 
@@ -201,8 +243,6 @@ class CkIOPipeline:
         pad_id: int = 0,
         device="cuda",
     ):
-        if service is not None:
-            raise _later("service=", "reader service")
         if sharding is not None:
             raise _later("sharding=", "sharding")
         self.device = resolve_device(device)
@@ -218,6 +258,11 @@ class CkIOPipeline:
         self.seq_len = seq_len
         self.ck = ckio or CkIO(num_pes=num_pes)
         self.file_opts = file_opts or FileOptions()
+        # Attach BEFORE any step session starts, so every process-backend
+        # session checks its workers and arena out of the pool. The caller
+        # keeps ownership of the service and its shutdown.
+        if service is not None:
+            self.ck.director.attach_service(service)
         if is_fileset:
             self.file = self.ck.open_fileset_sync(path, self.file_opts)
         else:

@@ -43,11 +43,22 @@ futex-free):
   before it reports DONE (:meth:`EventRing.set_report`). An ERROR message
   overwrites it.
 
+* **the re-arm words** (pooled workers of ``ipc/service.py``): the session
+  epoch a worker is armed with and the last epoch whose drain it finished
+  (written strictly last, after DONE), so the service can tell "drained
+  and parked" from "still publishing". :meth:`EventRing.rearm_reset` returns
+  a drained ring to its pre-session state for the next session; it
+  truncates the message area, so the service reads a worker's report
+  before it resets the ring.
+
+:class:`CommandRing` is the single-slot mailbox a parked pooled worker
+receives its next session's pickled ``WorkerSpec`` through (same
+stamp-last, CRC-checked discipline).
+
 All fields are 8-byte little-endian words written with ``struct`` into an
 ``mmap`` — no third-party deps, no locks shared across processes. The byte
-layout is the reference package's (``src/repro/ipc/ring.py``), so a ring
-one package writes, the other reads; the two epoch words stay reserved for
-the reader service's pooled workers, which come with that slice.
+layout of both is the reference package's (``src/repro/ipc/ring.py``), so a
+ring or mailbox one package writes, the other reads.
 """
 from __future__ import annotations
 
@@ -249,6 +260,20 @@ class EventRing:
         self._buf[HDR_BYTES : HDR_BYTES + len(raw)] = raw
         self._buf[HDR_BYTES + len(raw)] = 0
 
+    def set_epoch(self, epoch: int) -> None:
+        """Worker-side: record the session generation this worker is now
+        armed with. Written before the worker enters the drain loop for a
+        pooled session, so the supervisor can attribute ring events."""
+        self._set(_OFF_EPOCH, epoch)
+
+    def set_done_epoch(self, epoch: int) -> None:
+        """Worker-side: mark ``epoch``'s drain finished. Written LAST in the
+        pooled session lifecycle — after ``set_io``, the report and
+        ``set_state(DONE)`` — so a supervisor observing ``done_epoch() ==
+        epoch`` knows every event of that generation is already published
+        and may safely re-arm the ring after one final drain."""
+        self._set(_OFF_EPOCH_DONE, epoch)
+
     def set_error(self, message: str) -> None:
         self._set_message(message)
         self._set(_OFF_STATE, ST_ERROR)
@@ -346,3 +371,140 @@ class EventRing:
         """Published-but-unconsumed record count (supervisor diagnostics)."""
         return self._get(_OFF_HEAD) - self._get(_OFF_TAIL)
 
+    def epoch(self) -> int:
+        return self._get(_OFF_EPOCH)
+
+    def done_epoch(self) -> int:
+        return self._get(_OFF_EPOCH_DONE)
+
+    def rearm_reset(self) -> None:
+        """Supervisor-side: return a drained ring to its pre-session state
+        so a parked pooled worker can run another session through it.
+
+        Only called while the worker is parked (state DONE, done_epoch
+        caught up, nothing in flight), so no producer races the reset.
+        Head/tail/capacity/pid survive — sequences keep increasing across
+        sessions, which is what makes a stale slot from a previous lap
+        un-consumable. Lifecycle words (state, go, stop, touch/pin, io
+        counters) and the message area are zeroed so the next session's
+        attach barrier and metric fold-in start clean: the caller reads the
+        worker's report first."""
+        self._set(_OFF_STATE, ST_INIT)
+        self._set(_OFF_GO, 0)
+        self._set(_OFF_STOP, 0)
+        self._set(_OFF_PAGES, 0)
+        self._set(_OFF_IO_RETRIES, 0)
+        self._set(_OFF_IO_SUPPRESSED, 0)
+        self._buf[HDR_BYTES] = 0             # truncate message / report
+
+
+# -- command mailbox (parent -> parked pooled worker) --------------------------
+# One fixed-size single-slot mailbox per pooled worker, carrying the pickled
+# WorkerSpec for the next session. Same self-validating discipline as the
+# event ring: the parent writes payload + length first and the epoch word
+# last (with a CRC keyed by the epoch), the worker CRC-checks before acting
+# and acknowledges by echoing the epoch into the ack word. SPSC by
+# construction — exactly one parent thread sends, one worker receives.
+
+_CMD_OFF_EPOCH = 0       # parent-owned, written LAST: command generation
+_CMD_OFF_ACK = 8         # worker-owned: last epoch read and accepted
+_CMD_OFF_STOP = 16       # parent-owned: retire request (worker exits)
+_CMD_OFF_LEN = 24        # parent-owned: payload byte length
+_CMD_OFF_CRC = 32        # parent-owned: epoch-keyed payload CRC32
+_CMD_OFF_PID = 40        # worker-owned: pid heartbeat for diagnostics
+CMD_HDR_BYTES = 48
+
+
+class CommandRing:
+    """Single-slot command mailbox over a ``memoryview`` of shared memory.
+
+    ``send`` hands a parked worker its next session spec; ``wait_command``
+    is the worker's park loop. The mailbox holds ONE command: a worker must
+    ack epoch N before the parent may send N+1, which the service
+    guarantees by never re-arming a worker whose previous session has not
+    checked back in. A command sent to a worker that is still booting
+    waits here until the worker's first ``wait_command``.
+    """
+
+    def __init__(self, buf: memoryview, create: bool = False):
+        if len(buf) <= CMD_HDR_BYTES:
+            raise ValueError("command ring needs payload capacity")
+        self._buf = buf
+        self.capacity = len(buf) - CMD_HDR_BYTES
+        if create:
+            buf[:CMD_HDR_BYTES] = b"\x00" * CMD_HDR_BYTES
+
+    def _get(self, off: int) -> int:
+        return _WORD.unpack_from(self._buf, off)[0]
+
+    def _set(self, off: int, val: int) -> None:
+        _WORD.pack_into(self._buf, off, val)
+
+    # -- parent side ----------------------------------------------------------
+    def send(self, epoch: int, payload: bytes) -> None:
+        """Publish one command. Caller must ensure the worker is parked
+        (previous command acked); enforced here as a fail-fast check."""
+        if epoch <= 0:
+            raise ValueError("command epoch must be positive")
+        if len(payload) > self.capacity:
+            raise ValueError(
+                f"command payload {len(payload)} bytes exceeds mailbox "
+                f"capacity {self.capacity}")
+        prev = self._get(_CMD_OFF_EPOCH)
+        if prev and self._get(_CMD_OFF_ACK) != prev:
+            raise RuntimeError(
+                f"command epoch {prev} not yet acked; worker not parked")
+        self._buf[CMD_HDR_BYTES: CMD_HDR_BYTES + len(payload)] = payload
+        self._set(_CMD_OFF_LEN, len(payload))
+        self._set(_CMD_OFF_CRC, zlib.crc32(payload, epoch & 0xFFFFFFFF))
+        # Publication point (same stamp-last discipline as EventRing).
+        self._set(_CMD_OFF_EPOCH, epoch)
+
+    def request_stop(self) -> None:
+        self._set(_CMD_OFF_STOP, 1)
+
+    def acked(self, epoch: int) -> bool:
+        return self._get(_CMD_OFF_ACK) == epoch
+
+    def pid(self) -> int:
+        return self._get(_CMD_OFF_PID)
+
+    # -- worker side ----------------------------------------------------------
+    def set_pid(self, pid: int) -> None:
+        self._set(_CMD_OFF_PID, pid)
+
+    def wait_command(
+        self,
+        last_epoch: int,
+        poll_s: float = 100e-6,
+        should_abort: Optional[Callable[[], bool]] = None,
+    ) -> "Optional[tuple[int, bytes]]":
+        """Park until a command newer than ``last_epoch`` arrives.
+
+        Returns ``(epoch, payload)``, or None on a retire request or when
+        ``should_abort()`` turns true (orphaned worker). A CRC mismatch
+        means the payload stores are not all visible yet on a weakly-
+        ordered host — treated exactly like "no command yet" and retried.
+        """
+        pause = poll_s
+        while True:
+            if self._get(_CMD_OFF_STOP):
+                return None
+            if should_abort is not None and should_abort():
+                return None
+            epoch = self._get(_CMD_OFF_EPOCH)
+            if epoch > last_epoch:
+                n = self._get(_CMD_OFF_LEN)
+                payload = bytes(
+                    self._buf[CMD_HDR_BYTES: CMD_HDR_BYTES + n])
+                if (zlib.crc32(payload, epoch & 0xFFFFFFFF)
+                        == self._get(_CMD_OFF_CRC)):
+                    return epoch, payload
+                # torn publication — retry without acking
+            time.sleep(pause)
+            pause = min(pause * 2, 2e-3)
+
+    def ack(self, epoch: int) -> None:
+        """Worker-side: acknowledge ``epoch`` — the spec has been read and
+        arming has begun; the mailbox slot is free for the next send."""
+        self._set(_CMD_OFF_ACK, epoch)

@@ -38,8 +38,27 @@ views of ``SharedArena.ndarray()`` are valid until the owning session
 closes; ``close()`` releases the parent mapping best-effort (a live buffer
 export pins the pages — Python keeps them alive for the exporter, so this
 stays memory-safe) and ``unlink()`` removes the name so the segment dies
-with its last mapping. The reader service's recycled arenas (a generation
-stamp, ``StaleArenaView``) come with that slice.
+with its last mapping.
+
+The reader service (``ipc/service.py``) amends that contract:
+
+* **Recycling**: its ``ArenaPool`` reuses segments across sessions, so a
+  steady-state session faults no page and runs no ``ftruncate``; a
+  recycled segment keeps its first-touch placement. A session hands its
+  pooled arena back to the pool at close instead of unlinking it; the pool
+  quarantines (unlinks) a segment whose borrowed views are still pinned by
+  a live export, such as a CPU tensor made with ``torch.from_numpy``.
+* **Generation stamp**: every pool checkout bumps ``generation``. A view
+  captured under generation G would alias a newer session's bytes once the
+  segment is recycled into G+1; code that keeps views across sessions
+  re-validates with :meth:`SharedArena.check_generation`, which raises
+  :class:`StaleArenaView` instead.
+* **Detach vs close**: a pooled worker releases its mapping with
+  :meth:`SharedArena.detach` (the segment outlives it); ``close()`` stays
+  the owner's teardown.
+
+Pooled segments keep the ``ckiot-`` prefix: ``ckiot-svc-*`` (arenas),
+``ckiot-svc-cmd-*`` (mailboxes) and ``ckiot-svc-ring-*`` (event rings).
 """
 from __future__ import annotations
 
@@ -53,6 +72,12 @@ import numpy as np
 
 _SHM_DIR = "/dev/shm"
 PREFIX = "ckiot-"
+
+
+class StaleArenaView(RuntimeError):
+    """A borrowed view's arena generation no longer matches the segment —
+    the segment was recycled into a newer session and the view would alias
+    that session's data. Raised by ``SharedArena.check_generation``."""
 
 
 def shm_dir() -> str:
@@ -76,6 +101,9 @@ class SharedArena:
         self._mm: Optional[mmap.mmap] = mm
         self._owner = owner        # creator: responsible for unlink
         self._arr: Optional[np.ndarray] = None
+        # Pool-recycling generation: bumped by ArenaPool on every checkout.
+        # 0 = never pooled (per-session arena).
+        self.generation = 0
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -125,6 +153,16 @@ class SharedArena:
             self._arr = np.frombuffer(self._mm, dtype=np.uint8,
                                       count=self.nbytes)
         return self._arr
+
+    def check_generation(self, expected: int) -> None:
+        """Fail fast if the arena has been recycled since ``expected`` was
+        captured (or torn down entirely) — a stale view must never alias a
+        newer session's bytes."""
+        if self._mm is None or self.generation != expected:
+            raise StaleArenaView(
+                f"arena {self.path or '<unlinked>'} is at generation "
+                f"{self.generation if self._mm is not None else '<closed>'}"
+                f", view was captured at generation {expected}")
 
     # -- teardown ------------------------------------------------------------
     def detach(self) -> None:

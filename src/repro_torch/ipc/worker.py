@@ -40,11 +40,28 @@ repro_torch.launch.train`` that imports torch and the models, seconds a
 worker and a session per step. This module and what it imports
 (``repro_torch.io``, ``repro_torch.ipc``, numpy) load no torch.
 
+**Pooled workers** (``ipc/service.py``): :func:`service_worker_main` is the
+long-lived variant — steps 1–5 run per *session* inside a park/re-arm
+loop. A parked worker waits on its :class:`~repro_torch.ipc.ring.
+CommandRing` mailbox; each command carries a pickled :class:`WorkerSpec`
+(or a :class:`SpecSpill` marker for an oversized one) for the next
+session, from which the worker re-opens its own data and arena fds
+(nothing persists across sessions but the process, its event ring and
+its mailbox). It stamps every event and the ring header with the
+command's session *epoch*, writes its report and DONE, and writes
+``done_epoch`` strictly last, so the service can tell "drained and
+parked" from "still publishing". A pooled worker starts the way a
+per-session one does: :class:`WorkerProcess` with
+``entry="_service_child_main"``, its :class:`ServiceWorkerBoot` pickled
+on stdin; the service's ``backend="thread"`` substrate runs
+:func:`service_worker_main` in a thread instead. Its report carries its
+start-up times on its first session only, so a re-armed session's attach
+time is the checkout alone.
+
 Test hooks (picklable): :class:`StallReader` delays a chosen reader (also a
 thread-backend ``delay_model``); :class:`ExitAfter` hard-kills the worker
 mid-session (crash-path tests); :class:`RaiseAfter` exercises the ERROR
-reporting path. ``core/faults.py`` re-exports them. The reader service's
-pooled workers come with that slice.
+reporting path. ``core/faults.py`` re-exports them.
 """
 from __future__ import annotations
 
@@ -66,6 +83,7 @@ from repro_torch.ipc.ring import (
     PIN_OK,
     ST_ATTACHED,
     ST_DONE,
+    CommandRing,
     EventRing,
     RingEvent,
     ring_bytes,
@@ -122,7 +140,8 @@ class WorkerSpec:
     readahead_bytes: int = 0
     submit_mode: str = "auto"
     # Stamped into every published event. Per-session workers leave it 0;
-    # the reader service's pooled workers number their sessions with it.
+    # the reader service's pooled workers number their sessions with it,
+    # so its demux poller routes events and drops stale ones.
     epoch: int = 0
 
 
@@ -245,6 +264,115 @@ def worker_main(spec: WorkerSpec,
         raise SystemExit(1)
 
 
+@dataclass
+class ServiceWorkerBoot:
+    """Everything a POOLED worker needs at start — its mailbox and event
+    ring. Per-session state (file, arena, splinters) arrives later through
+    the mailbox as pickled :class:`WorkerSpec` payloads."""
+
+    worker_id: int
+    cmd_path: str                        # CommandRing shm segment name
+    cmd_bytes: int
+    ring_path: str                       # event-ring shm segment name
+    ring_region_bytes: int
+    ring_offset: int                     # this worker's ring within it
+    ring_slots: int
+    parent_pid: int = 0                  # orphan guard (0 = thread backend)
+
+
+@dataclass
+class SpecSpill:
+    """Mailbox indirection for oversized specs: the service pickles the
+    real ``WorkerSpec`` to a file under the shm dir (tmpfs, not disk) and
+    mails this small marker instead. The worker reads and deletes it."""
+
+    path: str
+    nbytes: int
+
+    def load(self) -> WorkerSpec:
+        with open(self.path, "rb") as fh:
+            raw = fh.read(self.nbytes)
+        try:
+            os.unlink(self.path)
+        except OSError:
+            pass
+        return pickle.loads(raw)
+
+
+def service_worker_main(boot: ServiceWorkerBoot,
+                        t_boot: Optional[Tuple[float, float]] = None) -> None:
+    """Pooled-worker entry point: park on the mailbox, run sessions.
+
+    Lifecycle per command epoch N:
+      wait_command → unpickle WorkerSpec → ack(N) → set_epoch(N) →
+      ``_run_session`` (attach/barrier/drain exactly as a per-session
+      worker) → set_io → report → DONE → **set_done_epoch(N) last** →
+      park again.
+
+    ``t_boot`` is the new interpreter's (first line, imports and boot
+    read) ``perf_counter`` pair; the first session's report carries it.
+    Any session exception reports ERROR on the ring and ends the worker —
+    the service evicts it and lazily checks in a replacement (a worker
+    that failed mid-drain is cheaper to replace than to prove clean).
+    """
+    orphaned = _make_orphan_guard(boot.parent_pid)
+    if boot.parent_pid and orphaned():
+        return
+    cmd_shm = SharedArena.attach(boot.cmd_path, boot.cmd_bytes)
+    rings = SharedArena.attach(boot.ring_path, boot.ring_region_bytes)
+    try:
+        cmd = CommandRing(cmd_shm.buf)
+        cmd.set_pid(os.getpid())
+        ring = EventRing(
+            rings.buf[boot.ring_offset:
+                      boot.ring_offset + ring_bytes(boot.ring_slots)],
+            boot.ring_slots,
+        )
+        ring.set_pid(os.getpid())
+        _serve_sessions(cmd, ring, orphaned, t_boot)
+    finally:
+        cmd = ring = None                    # noqa: F841 (drop the exports)
+        cmd_shm.detach()
+        rings.detach()
+
+
+def _serve_sessions(cmd: CommandRing, ring: EventRing, orphaned,
+                    t_boot: Optional[Tuple[float, float]]) -> None:
+    epoch = 0
+    while True:
+        got = cmd.wait_command(epoch, should_abort=orphaned)
+        if got is None:                      # retired / orphaned
+            return
+        epoch, payload = got
+        spec = pickle.loads(payload)
+        if isinstance(spec, SpecSpill):
+            spec = spec.load()
+        spec.epoch = epoch                   # events carry this generation
+        cmd.ack(epoch)                       # mailbox slot is free again
+        ring.fault = spec.ring_fault
+        io = _IOCounters()
+        try:
+            ring.set_epoch(epoch)
+            _run_session(spec, ring, io, orphaned)
+            ring.set_io(io.retries, io.suppressed)
+            report = io.report()
+            if t_boot is not None:           # first session only
+                report.update(t_boot=f"{t_boot[0]:.6f}",
+                              t_ready=f"{t_boot[1]:.6f}")
+                t_boot = None
+            ring.set_report(report)
+            ring.set_state(ST_DONE)
+            # Written LAST: once the service sees done_epoch == epoch it
+            # knows every event of this generation is already in the ring,
+            # and the post-done drain, the report read and rearm_reset are
+            # race-free.
+            ring.set_done_epoch(epoch)
+        except BaseException as e:
+            ring.set_io(io.retries, io.suppressed)
+            ring.set_error(f"{type(e).__name__}: {e}")
+            raise SystemExit(1)
+
+
 def _drain_async(spec: WorkerSpec, f, arr, ring: EventRing,
                  io: "_IOCounters", orphaned) -> None:
     """Depth-managed drain (``queue_depth >= 2``): the worker-process twin
@@ -351,8 +479,8 @@ class _IOCounters:
 _SRC_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _CHILD = ("import time; t_boot = time.perf_counter(); "
-          "from repro_torch.ipc.worker import _child_main; "
-          "_child_main(t_boot)")
+          "from repro_torch.ipc.worker import {entry}; "
+          "{entry}(t_boot)")
 
 
 def _child_main(t_boot: float) -> None:
@@ -363,20 +491,31 @@ def _child_main(t_boot: float) -> None:
     worker_main(spec, boot=(t_boot, time.perf_counter()))
 
 
+def _service_child_main(t_boot: float) -> None:
+    """A pooled worker's interpreter entry: read the pickled
+    :class:`ServiceWorkerBoot` from stdin and park on the mailbox."""
+    boot = pickle.load(sys.stdin.buffer)
+    sys.stdin.close()
+    service_worker_main(boot, t_boot=(t_boot, time.perf_counter()))
+
+
 class WorkerProcess:
     """A reader worker run as a fresh interpreter (see module docstring),
     with the part of ``multiprocessing.Process`` the supervisor uses:
     ``start``, ``pid``, ``is_alive``, ``exitcode`` (negative: killed by that
     signal), ``join`` and ``kill``.
 
-    The spec is pickled at construction, so an unpicklable hook fails
-    before any process exists; ``send`` writes it to the child's stdin
-    after ``start``. The supervisor starts every worker of a session before
-    it sends any spec, so the interpreters start side by side."""
+    ``spec`` (a :class:`WorkerSpec`, or a :class:`ServiceWorkerBoot` with
+    ``entry="_service_child_main"``) is pickled at construction, so an
+    unpicklable hook fails before any process exists; ``send`` writes it
+    to the child's stdin after ``start``. The supervisor starts every
+    worker of a session before it sends any spec, so the interpreters
+    start side by side."""
 
-    def __init__(self, spec: WorkerSpec, name: str = ""):
+    def __init__(self, spec, name: str = "", entry: str = "_child_main"):
         self.spec = spec
         self.name = name
+        self.entry = entry
         self._payload: Optional[bytes] = pickle.dumps(spec)
         self._p: Optional[subprocess.Popen] = None
         self.t_start = 0.0               # perf_counter just before the exec
@@ -386,8 +525,9 @@ class WorkerProcess:
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (_SRC_ROOT, env.get("PYTHONPATH", "")) if p)
-        self._p = subprocess.Popen([sys.executable, "-c", _CHILD],
-                                   stdin=subprocess.PIPE, env=env)
+        self._p = subprocess.Popen(
+            [sys.executable, "-c", _CHILD.format(entry=self.entry)],
+            stdin=subprocess.PIPE, env=env)
 
     def send(self) -> None:
         """Write the spec to the child (once). A child that died before it

@@ -21,8 +21,11 @@ the RG-LRU kernel in its 18 recurrent layers and the flash-attention kernel
 over a local-window ring in its 8 attention layers). Params in another
 ``param_dtype`` than the config's (gemma3-27b's fp32 params exceed one
 80 GB card; bf16 ones fit) come in through ``main(argv, params=...)``.
-``--service`` and ``--pool-workers`` raise until the reader service is
-ported.
+``--continuous --service --pool-workers N`` runs the request sessions on
+the process backend through a persistent reader service
+(``ipc/service.py``): N pooled workers re-armed per request and recycled
+arenas, each session pinned to the pool (``use_service=True``); the
+summary's ``pooled_sessions`` counts the requests the pool served.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --requests 12 --batch 4
@@ -49,6 +52,7 @@ from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.core import CkIO, FileOptions, ServeMetrics
 from repro_torch.data import FileSet, make_token_file, read_meta, write_token_shards
 from repro_torch.device import resolve_device
+from repro_torch.ipc.service import ReaderService, ServiceOptions
 from repro_torch.models import build_model
 from repro_torch.serve import (
     BatchServer,
@@ -59,10 +63,6 @@ from repro_torch.serve import (
     ServeOverloaded,
     ServeRequest,
 )
-
-# flag -> value that means "not set"; both come with the reader service.
-_LATER = {"service": False, "pool_workers": 2}
-
 
 @dataclass
 class ServeRun:
@@ -138,11 +138,33 @@ def serve_continuous(args, model, params, cfg) -> ServeRun:
     ck = CkIO(num_pes=2)
     metrics = ServeMetrics()
     ck.director.add_observer(metrics.record_session)
-    fh = ck.open_fileset_sync(fs, FileOptions(num_readers=2))
+    service = None
+    if args.service:
+        service = ReaderService(ServiceOptions(
+            pool_workers=args.pool_workers))
+        ck.director.attach_service(service)
+    try:
+        return _serve_continuous(args, model, params, cfg, rng, tokens, fs,
+                                 ck, metrics, service)
+    finally:
+        if service is not None:
+            service.shutdown()
+
+
+def _serve_continuous(args, model, params, cfg, rng, tokens, fs, ck,
+                      metrics, service) -> ServeRun:
+    opts = FileOptions(
+        num_readers=2,
+        backend="process" if service is not None else "thread",
+        max_workers=2,
+        use_service=True if service is not None else None,
+    )
+    fh = ck.open_fileset_sync(fs, opts)
     ingester = RequestIngester(
         ck, fh, fs, metrics,
         max_pending=max(8, args.requests),
         max_inflight_bytes=int(args.max_inflight_mb * (1 << 20)),
+        service=service,
     )
     engine = ModelEngine(model, params, slots=args.batch,
                          seq_budget=args.prompt_len + args.max_new + 8)
@@ -183,6 +205,7 @@ def serve_continuous(args, model, params, cfg) -> ServeRun:
         "new_tokens": total_new,
         "tok_per_s": round(total_new / dt, 1),
         "all_completed": len(done) + len(shed) == args.requests,
+        "pooled_sessions": metrics.pooled_sessions,
     }
     print(json.dumps(summary, indent=2))
     _print_metrics_table(metrics)
@@ -212,9 +235,11 @@ def parser() -> argparse.ArgumentParser:
                     help="ingest backpressure budget (open session bytes)")
     ap.add_argument("--shards", type=int, default=3,
                     help="prompt FileSet shard count (continuous mode)")
-    # Flags of the reference driver whose parts come with a later slice.
-    ap.add_argument("--service", action="store_true")
-    ap.add_argument("--pool-workers", type=int, default=2)
+    ap.add_argument("--service", action="store_true",
+                    help="continuous mode: run the request sessions on the"
+                         " process backend through a pooled ReaderService")
+    ap.add_argument("--pool-workers", type=int, default=2,
+                    help="--service: persistent workers in the pool")
     return ap
 
 
@@ -223,12 +248,6 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> ServeRun:
     already made for this arch on this device, so one process can serve
     both modes from the same model."""
     args = parser().parse_args(argv)
-    for name, unset in _LATER.items():
-        if getattr(args, name) != unset:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not carried by the port yet: "
-                f"the pooled reader service comes with the reader service "
-                f"slice (ROADMAP.md, Queue A)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:

@@ -26,6 +26,14 @@ NUMA domain (``core/placement.py``, ``io/numa.py``); the summary's
 ``locality`` block counts same- and cross-domain bytes, pinned threads and
 first-touched pages. Batches are the thread backend's, bit for bit.
 
+``--service --pool-workers N`` (implies ``--backend process``) runs every
+step session on a persistent reader service (``ipc/service.py``): N
+long-lived workers re-armed per session through shared-memory mailboxes,
+and arenas recycled from a pool, instead of worker interpreters started
+and a fresh segment created each step. The pool starts once, before the
+first session; the summary's ``service`` block holds its
+``ServiceMetrics`` (checkouts, arena hits, rearms, evictions).
+
 Checkpoints hold the train state in the reference's layout
 (``models.convert.train_state_to_reference``, stacked on the host), so
 either package resumes from the other's; ``--resume`` continues from the
@@ -52,6 +60,7 @@ from repro_torch.core import CkIO, FileOptions, Topology
 from repro_torch.core.metrics import SessionMetrics
 from repro_torch.data import CkIOPipeline, FileSet, make_token_file
 from repro_torch.device import resolve_device
+from repro_torch.ipc.service import ReaderService, ServiceOptions
 from repro_torch.kernels import mamba_scan, rglru_scan
 from repro_torch.models import build_model
 from repro_torch.models.convert import train_state_from_reference, train_state_to_reference
@@ -66,7 +75,6 @@ from repro_torch.train import (
 
 # flag -> (value that means "not set", slice that brings it)
 _LATER = {
-    "service": (False, "reader service"),
     "tuned_env": (False, "benchmark legs"),
 }
 
@@ -136,7 +144,17 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-workers", type=int, default=4,
                     help="process backend: cap on reader worker processes"
                          " per session")
-    ap.add_argument("--pool-workers", type=int, default=4)
+    ap.add_argument("--service", action="store_true",
+                    help="run every step session on a persistent reader"
+                         " service (ipc/service.py): pooled long-lived"
+                         " workers re-armed per session through shm"
+                         " mailboxes and recycled arenas, instead of"
+                         " starting worker processes and creating a fresh"
+                         " segment each step. Implies --backend process")
+    ap.add_argument("--pool-workers", type=int, default=4,
+                    help="--service: persistent workers in the pool"
+                         " (sessions check workers out per step; sizing it"
+                         " at --max-workers keeps a step fully parallel)")
     ap.add_argument("--queue-depth", type=int, default=0,
                     help="in-flight splinter reads per reader: 0/1 = the"
                          " blocking loop, >= 2 = depth-managed async"
@@ -171,8 +189,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--compression", default=None, choices=[None, "bf16"],
                     help="round the grads through bf16 before the optimizer"
                          " (what a bf16 DP all-reduce would carry)")
-    # Flags of the reference driver whose parts come with later slices.
-    ap.add_argument("--service", action="store_true")
+    # A flag of the reference driver whose part comes with a later slice.
     ap.add_argument("--tuned-env", action="store_true")
     return ap
 
@@ -209,6 +226,9 @@ def read_summary(sessions: List[SessionMetrics]) -> Dict:
                                 for m in sessions if m.worker_boot_s]),
         "worker_import_ms": span([m.worker_import_s * 1e3
                                   for m in sessions if m.worker_import_s]),
+        "pooled_sessions": sum(m.pooled for m in sessions),
+        "service_checkout_ms": span([m.service_checkout_s * 1e3
+                                     for m in sessions if m.pooled]),
         "degraded_sessions": sum(m.recovery.degraded_mode
                                  for m in sessions),
         "direct_tail_reads": sum(m.recovery.direct_tail_reads
@@ -249,6 +269,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.numa_pin and not args.topology:
         ap.error("--numa-pin requires --topology (the topology supplies "
                  "the domain->CPU map; without it nothing would be pinned)")
+    if args.service:
+        args.backend = "process"
     if args.streaming:
         args.device_ingest = True
     cfg = get_config(args.arch)
@@ -289,6 +311,27 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 if args.topology else None)
     sessions: List[SessionMetrics] = []
     ckio.director.add_observer(sessions.append)
+    service = None
+    if args.service:
+        service = ReaderService(ServiceOptions(
+            pool_workers=args.pool_workers))
+        print(f"reader service: pool of {args.pool_workers} persistent "
+              f"workers (steady-state sessions re-arm, not respawn)")
+    try:
+        summary = _train(args, cfg, model, dev, data_source, ckio, topology,
+                         sessions, service)
+    finally:
+        if service is not None:
+            service.shutdown()
+    print(json.dumps(summary, indent=2))
+    return summary
+
+
+def _train(args, cfg: ModelConfig, model, dev, data_source, ckio: CkIO,
+           topology, sessions: List[SessionMetrics], service) -> Dict:
+    """The pipeline, the state and the supervised loop of :func:`main`;
+    returns the run's summary. The caller owns (and shuts down) the
+    reader ``service``."""
     pipe = CkIOPipeline(
         data_source, args.global_batch, args.seq,
         ckio=ckio, num_consumers=args.num_consumers,
@@ -306,6 +349,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                               readahead_bytes=args.readahead_mb * (1 << 20),
                               submit_mode=args.submit_mode,
                               adaptive_queue=args.adaptive_queue),
+        service=service,
         streaming=args.streaming,
         device=dev,
     )
@@ -370,8 +414,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "shards": (ckio.director.shards.summary()
                    | {"shard_bytes": dict(ckio.director.shards.shard_bytes)}
                    if len(args.data) > 1 else None),
+        "service": (service.metrics.summary() if service is not None
+                    else None),
     }
-    print(json.dumps(summary, indent=2))
     return summary
 
 

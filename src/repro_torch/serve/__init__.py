@@ -3,10 +3,9 @@ sessions.
 
 This package is the repo's "millions of users" scenario — the opposite
 regime from the training pipeline's few long-lived sessions: thousands of
-short-lived prompt-ingest sessions per second (on the thread backend in
-the port; the shared reader service comes with the process backend and
-service slice, ROADMAP.md Queue A),
-driving a continuous-batching decode loop with tail-latency accounting.
+short-lived prompt-ingest sessions per second (on the thread backend, or
+on the pooled workers and recycled arenas of a shared reader service,
+``ipc/service.py``), driving a continuous-batching decode loop with tail-latency accounting.
 
 The contracts, briefly (full versions in each module's docstring):
 

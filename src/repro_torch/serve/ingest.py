@@ -9,9 +9,13 @@ borrowed view has landed — the millions-of-users regime of the paper's
 consumer/reader decoupling: session lifetime shrinks from "the whole
 training run" to "one request's queueing time".
 
-A shared reader service (``service=``) comes with the reader service slice
-(ROADMAP.md, Queue A); until then ``ServiceBusy`` is this module's own
-class (raised by no reader tier yet).
+A shared :class:`~repro_torch.ipc.service.ReaderService` (``service=``,
+attached to the CkIO Director by the caller) serves the sessions of
+``backend="process"`` handles from its pooled workers and recycled arenas:
+a request's session is a mailbox write and an attach barrier, not a
+worker start. The ingester registers a capacity listener on it and starts
+only the sessions that ``admission_snapshot()`` says can run now, so a
+start never waits in the service's own queue.
 
 Everything is poll-driven and single-threaded (the split-phase idiom):
 ``submit`` never blocks on I/O, ``poll`` pumps the scheduler, advances
@@ -40,8 +44,8 @@ Backpressure: when ``ServeOverloaded`` surfaces vs queues
 ---------------------------------------------------------
 Two triggers, one bounded queue, never a stall of the decode loop:
 
-  * the shared reader service raises ``ServiceBusy`` (admission caps
-    hit; none in the port yet), or
+  * the shared reader service is at its inflight-session cap or raises
+    ``ServiceBusy`` (admission caps hit), or
   * inflight ingest bytes (open prompt sessions) would exceed
     ``max_inflight_bytes``.
 
@@ -57,6 +61,7 @@ reader tier. Draining the queue walks the states back down
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -66,11 +71,7 @@ import numpy as np
 
 from repro_torch.core.futures import CkFuture
 from repro_torch.core.metrics import ServeMetrics
-
-
-class ServiceBusy(RuntimeError):
-    """The shared reader tier is at its admission cap (the reference's
-    ``repro.ipc.service.ServiceBusy``); the ingester queues the request."""
+from repro_torch.ipc.service import ServiceBusy
 
 
 class ServeOverloaded(RuntimeError):
@@ -125,10 +126,6 @@ class RequestIngester:
         service: Any = None,
         start_timeout_s: float = 60.0,
     ):
-        if service is not None:
-            raise NotImplementedError(
-                "RequestIngester(service=...): the pooled ReaderService comes "
-                "with the reader service slice (ROADMAP.md, Queue A)")
         self.ck = ck
         self.file = file
         self.meta = meta
@@ -141,6 +138,13 @@ class RequestIngester:
         self._closing: List[Tuple[CkFuture, int]] = []
         self._inflight_bytes = 0
         self.failed: List[ServeRequest] = []
+        self._service = service
+        # Set by the service whenever admission capacity may have freed; a
+        # serving loop may wait on it instead of spinning.
+        self.capacity_event: Optional[threading.Event] = None
+        if service is not None:
+            self.capacity_event = threading.Event()
+            service.add_capacity_listener(self.capacity_event.set)
 
     # -- admission -------------------------------------------------------------
     def submit(self, req: ServeRequest) -> ServeRequest:
@@ -181,6 +185,15 @@ class RequestIngester:
         if self._inflight_bytes + req._nbytes > self.max_inflight_bytes:
             self.metrics.record_over_budget()
             return False
+        if self._service is not None:
+            # Start only what the service can RUN now: a start that lands
+            # in the service's own wait queue would block this sync call
+            # (and the poll loop) until another session ends — the
+            # ingester's bounded queue is the one waiting room.
+            snap = self._service.admission_snapshot()
+            if snap["inflight"] >= snap["max_sessions"]:
+                self.metrics.record_busy()
+                return False
         fh = req.file if req.file is not None else self.file
         try:
             sess = self.ck.start_read_session_sync(

@@ -138,8 +138,23 @@ def test_unported_options_and_missing_card_raise(corpus, tmp_path):
     pipe.close()
     with pytest.raises(NotImplementedError):
         CkIOPipeline(path, 2, 31, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        CkIOPipeline(path, 2, 31, service=object(), device="cpu")
+    # A reader service is carried now: a pipeline on its pool gives the
+    # same batch (tests/test_torch_service.py holds every mode).
+    from repro_torch.ipc.service import ReaderService, ServiceOptions
+
+    svc = ReaderService(ServiceOptions(pool_workers=2, backend="thread"))
+    try:
+        pipe = CkIOPipeline(path, 2, 31, device="cpu", service=svc,
+                            file_opts=FileOptions(backend="process",
+                                                  max_workers=2))
+        x, y = pipe.get_batch_device(1)
+        np.testing.assert_array_equal(x.numpy(),
+                                      raw[64:128].reshape(2, 32)[:, :-1])
+        assert pipe.ck.director.service is svc
+        pipe.close()
+    finally:
+        svc.shutdown()
+    assert svc.metrics.completed >= 1 and svc.metrics.sessions_failed == 0
     # The process backend is carried now: its batch is the thread
     # backend's (tests/test_torch_process_backend.py holds every mode).
     pipe = CkIOPipeline(path, 2, 31, device="cpu",

@@ -224,13 +224,25 @@ def test_launch_serve_runs_on_cpu(tmp_path, mode):
             == oracle
 
 
-def test_unported_serving_options_raise():
-    with pytest.raises(NotImplementedError,
-                       match="reader service slice"):
-        tlaunch.main(["--smoke", "--device", "cpu", "--service"])
-    with pytest.raises(NotImplementedError,
-                       match="reader service slice"):
-        tserve.RequestIngester(None, None, None, service=object())
+def test_unported_serving_options_raise(tmp_path):
+    # The reader service is carried now: --service runs the continuous
+    # ingest on its pool (tests/test_torch_service.py holds the tokens
+    # against the oracle), and RequestIngester(service=) paces on it.
+    run = tlaunch.main(["--smoke", "--device", "cpu", "--continuous",
+                        "--service", "--requests", "3", "--max-new", "2",
+                        "--data", str(tmp_path / "p.bin")])
+    assert run.summary["all_completed"]
+    assert run.summary["pooled_sessions"] == 3
+
+    class Pool:
+        listeners = []
+
+        def add_capacity_listener(self, cb):
+            self.listeners.append(cb)
+
+    pool = Pool()
+    ing = tserve.RequestIngester(None, None, None, service=pool)
+    assert pool.listeners == [ing.capacity_event.set]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tlaunch.main(["--smoke"])

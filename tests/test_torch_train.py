@@ -346,10 +346,31 @@ def test_driver_bf16_compression_runs(tmp_path):
     assert out["steps"] == 2 and np.isfinite(out["final_loss"])
 
 
-@pytest.mark.parametrize("flag", [["--tuned-env"], ["--service"]])
+@pytest.mark.parametrize("flag", [["--tuned-env"]])
 def test_driver_flags_of_later_slices_raise(flag):
     with pytest.raises(NotImplementedError):
         port_train.main(["--smoke", "--device", "cpu", *flag])
+
+
+def test_driver_service_runs_on_the_pool(tmp_path):
+    """``--service`` runs (it raised before the reader service slice): it
+    implies the process backend, every session that read bytes ran on the
+    pool, and the summary carries the service's counters
+    (tests/test_torch_service.py holds batches and losses against the
+    thread backend)."""
+    out = port_train.main(["--smoke", "--steps", "2", "--global-batch", "2",
+                           "--seq", "32", "--microbatches", "1", "--device",
+                           "cpu", "--device-ingest", "--num-readers", "2",
+                           "--max-workers", "2", "--service",
+                           "--pool-workers", "2",
+                           "--data", str(tmp_path / "tokens.bin"),
+                           "--ckpt-dir", str(tmp_path / "ck")])
+    assert out["steps"] == 2 and np.isfinite(out["final_loss"])
+    assert out["read"]["pooled_sessions"] >= 2
+    assert out["read"]["workers"][1] == 2
+    svc = out["service"]
+    assert svc["workers_spawned"] == 2 and svc["completed"] >= 2
+    assert svc["sessions_failed"] == 0 and svc["rejected"] == 0
 
 
 @pytest.mark.parametrize("flags", [
