@@ -75,6 +75,14 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              over a full 1,024-slot ring and over a 1,100-key global
              prefix), at B=1 and B=4, decode rows bit-identical at B=1 and
              B=4 there too, and the time of each served shape beside SDPA's;
+             then the shapes of phases 25-26 (NEW_SHAPES), at B=1 and B=4:
+             qwen2-vl decode (Sq=1, H=12, K=2, hd=128, Sk 1/17/129/2048),
+             whisper's self-attention decode (H=K=16, hd=64, Sk
+             1/17/129/448), its cross-attention (Sq=1 over 1,500 keys, no
+             mask) and its encoder (Sq=Sk=1,500, no mask: 1,500 rows are
+             not a multiple of the tensor-core path's 64-row blocks), decode
+             rows bit-identical at B=1 and B=4, and the served shapes timed
+             beside the plain version, SDPA and the bound;
 11. scan     the literal selective-scan kernel against its plain version
              on the card (1e-4): the four sweep cases of
              tests/test_kernels.py, the falcon-mamba decode shape (B=1, S=1,
@@ -229,7 +237,36 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              or workers, pin failures, same- and cross-domain bytes,
              first-touched pages against arena pages). On a host of one
              domain this checks the plumbing only;
-25. profile  only with ``--profile``: two whole-window main-path steps, 16
+25. serve_vlm qwen2-vl-2b at full width and depth (28 layers, d_model
+             1,536, 12/2 heads at hd 128, M-RoPE sections (16, 24, 24)),
+             random fp32 weights from seed 0, bf16 compute, served through
+             the library, since the serve driver refuses the arch as the
+             reference's does: ``BatchServer`` over one CkIO bulk read (4
+             requests, batch 4) and a ``ContinuousBatcher`` over a
+             ``RequestIngester`` on a 3-shard ``FileSet`` (3 requests, 4
+             slots), 64 prompt and 16 new tokens a request; continuous
+             tokens equal to the sequential oracle's on the same engine, 28
+             flash-attention launches a decode call. A prefill forward of 64
+             patch embeddings at distinct (t, h, w) positions gives finite
+             logits; the embeddings replayed through decode (positions
+             broadcast) give the prefill forward's logits, bf16 and fp32;
+             then a token replay, B=1 decode calls timed and 8 profiled
+             (device time, busy share);
+26. serve_audio whisper-medium at full width and depth (24 encoder and 24
+             decoder layers, d_model 1,024, 16/16 heads at hd 64), the
+             same weights and compute: 1,500 x 1,024 frames written by
+             ``make_embedding_file`` and read onto the card through one CkIO
+             session; ``greedy_generate(frames=)`` for 4 requests at B=4
+             and a ``ModelEngine(frames=)`` behind a ``ContinuousBatcher``
+             (3 requests, 4 slots), tokens equal to the oracle's. Each
+             decode call launches the kernel 48 times (24 self-attention
+             over the ring, 24 cross-attention over the 1,500 frames), each
+             admission 24 times (the encoder, on the tensor-core path, as
+             ``launch_plan`` reports). The decode replay gives
+             ``forward_logits``' last logits (plain attention), bf16 and
+             fp32; an admission is timed, B=1 decode calls timed and 8
+             profiled;
+27. profile  only with ``--profile``: two whole-window main-path steps, 16
              B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
              recurrentgemma under ``torch.profiler`` (device busy share,
              kernels and copies a call, kernels by device time).
@@ -238,8 +275,8 @@ The launch counts are zeroed just before each main-path run (phases 4-8,
 each mode of phases 13-20, the prefill forwards of phase 14's replay check,
 the two ring-wrap replays, the three driver runs of phase 21, each driver
 run and fault pipeline of phase 22, each driver run, the serving run and
-each fault pipeline of phase 23 and each driver run of phase 24) and read
-just after it. The line before the last is a JSON object with one entry per kernel;
+each fault pipeline of phase 23, each driver run of phase 24, and each mode
+and replay of phases 25-26) and read just after it. The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -343,6 +380,29 @@ FAMILY_DECODE = [
     *[(32, 16, sk, G3_WINDOW) for sk in (1, 65, FAM_PROMPT + NEW, 1023,
                                          G3_WINDOW)],
     (32, 16, G3_WINDOW, 0), (32, 16, G3_WRAP_PROMPT, 0),
+]
+# The last two families, served through the library (the serve driver
+# refuses them, as the reference's does): qwen2-vl-2b (28 layers, 12/2
+# heads at hd 128, M-RoPE) and whisper-medium (24 encoder and 24 decoder
+# layers, 16/16 heads at hd 64, 1,500 frames of d 1,024), fp32 params,
+# bf16 compute, FAM_PROMPT-token prompts and NEW new tokens (static: 4
+# requests at batch 4; continuous: 3 requests on 4 slots).
+VLM_H, VLM_KV, VLM_HD, VLM_LAYERS = 12, 2, 128, 28
+AUD_H, AUD_HD, AUD_LAYERS, AUD_FRAMES = 16, 64, 24, 1500
+LIB_STATIC_REQUESTS, LIB_CONT_REQUESTS = 4, 3
+# Their attention shapes (B, H, K, Sq, Sk, hd, causal): decode at the
+# 32/64-key spans' edges and past them, whisper's self-attention up to its
+# 448-token cap, its cross-attention over the 1,500 frames (the last of 24
+# splits holds 28 keys) and its encoder (1,500 rows: not a multiple of the
+# tensor-core path's 64-row blocks).
+NEW_SHAPES = [
+    *[(b, VLM_H, VLM_KV, 1, sk, VLM_HD, True) for b in (1, 4)
+      for sk in (1, 17, 129, 2048)],
+    *[(b, AUD_H, AUD_H, 1, sk, AUD_HD, True) for b in (1, 4)
+      for sk in (1, 17, 129, 448)],
+    *[(b, AUD_H, AUD_H, 1, AUD_FRAMES, AUD_HD, False) for b in (1, 4)],
+    *[(b, AUD_H, AUD_H, AUD_FRAMES, AUD_FRAMES, AUD_HD, False)
+      for b in (1, 4)],
 ]
 # Logits of a prompt replayed through decode (kernel attention) against the
 # plain prefill forward: relative L2 bound by compute dtype. In bf16 each
@@ -1278,6 +1338,7 @@ class Smoke:
         with open(os.path.join(out, fname), "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=60))
+        return busy
 
     # -- 8 ---------------------------------------------------------------------
     def arrival(self):
@@ -1494,6 +1555,8 @@ class Smoke:
             # The five families served since, at B = 1 and B = 4.
             *[(b_, h_, kv_, 1, sk, HD, True, w_) for b_ in (1, 4)
               for h_, kv_, sk, w_ in FAMILY_DECODE],
+            # qwen2-vl and whisper (decode, cross-attention, encoder).
+            *[(*shape, 0) for shape in NEW_SHAPES],
         ]
         for b, h, kv, sq, sk, hd, causal, window in cases:
             for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
@@ -1509,32 +1572,39 @@ class Smoke:
 
         # A decode row gets the same bits alone and inside a batch of 4, and
         # on every run: the split plan depends on (Sk, hd) only.
-        for h, kv, hd, sk in ((H, KV, HD, PROMPT + NEW),
-                              (RG_H, RG_KV, RG_HD, RG_WINDOW),
-                              (32, 32, HD, FAM_PROMPT + NEW),
-                              (40, 10, HD, FAM_PROMPT + NEW),
-                              (16, 16, HD, FAM_PROMPT + NEW),
-                              (32, 16, HD, G3_WINDOW)):
+        for h, kv, hd, sk, causal in (
+                (H, KV, HD, PROMPT + NEW, True),
+                (RG_H, RG_KV, RG_HD, RG_WINDOW, True),
+                (32, 32, HD, FAM_PROMPT + NEW, True),
+                (40, 10, HD, FAM_PROMPT + NEW, True),
+                (16, 16, HD, FAM_PROMPT + NEW, True),
+                (32, 16, HD, G3_WINDOW, True),
+                (VLM_H, VLM_KV, VLM_HD, FAM_PROMPT + NEW, True),
+                (VLM_H, VLM_KV, VLM_HD, 2048, True),
+                (AUD_H, AUD_H, AUD_HD, FAM_PROMPT + NEW, True),
+                (AUD_H, AUD_H, AUD_HD, AUD_FRAMES, False)):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = self._attn_inputs(rng, 4, h, kv, 1, sk, hd, dtype)
-                batch = FA.flash_attention_cuda(q, k, v)
-                again = FA.flash_attention_cuda(q, k, v)
+                kw = {"causal": causal}
+                batch = FA.flash_attention_cuda(q, k, v, **kw)
+                again = FA.flash_attention_cuda(q, k, v, **kw)
                 alone = [FA.flash_attention_cuda(q[i:i + 1], k[i:i + 1],
-                                                 v[i:i + 1]) for i in range(4)]
+                                                 v[i:i + 1], **kw)
+                         for i in range(4)]
                 if not (torch.equal(batch, again) and all(
                         torch.equal(batch[i:i + 1], alone[i])
                         for i in range(4))):
                     raise AssertionError(
                         f"flash_attention: decode rows (H={h}, hd={hd}, "
-                        f"Sk={sk}, {dtype}) differ between B=1 and B=4 or "
-                        f"between runs")
+                        f"Sk={sk}, causal={causal}, {dtype}) differ between "
+                        f"B=1 and B=4 or between runs")
         log("attention: decode rows bit-identical at B=1 and B=4 and across "
             "runs")
 
         # Time at the served decode shapes (the longest prefix the serve
         # phases reach; recurrentgemma's checked prefixes and full ring
         # too) and at the prefill shapes, bf16 as served.
-        for key, h, kv, hd, sq, sk, window in (
+        for key, h, kv, hd, sq, sk, window, *causal in (
                 ("decode", H, KV, HD, 1, PROMPT + NEW, 0),
                 ("prefill", H, KV, HD, 2048, 2048, 0),
                 *[(f"decode_hd256_sk{sk}", RG_H, RG_KV, RG_HD, 1, sk, 0)
@@ -1551,28 +1621,46 @@ class Smoke:
                 ("decode_gemma3", 32, 16, HD, 1, FAM_PROMPT + NEW, G3_WINDOW),
                 ("decode_gemma3_ring", 32, 16, HD, 1, G3_WINDOW, 0),
                 ("decode_gemma3_global", 32, 16, HD, 1, G3_WRAP_PROMPT, 0),
-                ("decode_moe", 16, 16, HD, 1, FAM_PROMPT + NEW, 0)):
+                ("decode_moe", 16, 16, HD, 1, FAM_PROMPT + NEW, 0),
+                # qwen2-vl's and whisper's served shapes: decode at the
+                # longest prefix their phases reach, whisper's
+                # cross-attention and its encoder (no mask).
+                ("decode_qwen2vl", VLM_H, VLM_KV, VLM_HD, 1,
+                 FAM_PROMPT + NEW, 0),
+                ("decode_whisper_self", AUD_H, AUD_H, AUD_HD, 1,
+                 FAM_PROMPT + NEW, 0),
+                ("decode_whisper_cross", AUD_H, AUD_H, AUD_HD, 1, AUD_FRAMES,
+                 0, False),
+                ("encoder_whisper", AUD_H, AUD_H, AUD_HD, AUD_FRAMES,
+                 AUD_FRAMES, 0, False)):
+            causal = causal[0] if causal else True
             q, k, v = self._attn_inputs(rng, 1, h, kv, sq, sk, hd,
                                         torch.bfloat16)
             # Kept (query, key) pairs under the end-aligned causal mask (a
-            # window as long as the sequence keeps them all).
-            pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))
+            # window as long as the sequence keeps them all), or all of
+            # them without a mask.
+            pairs = (sum(min(sk, i + sk - sq + 1) for i in range(sq))
+                     if causal else sq * sk)
             flops = 4 * h * hd * pairs
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
             b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             b_ops = flops / BF16_PEAK * 1e3
+            mask = f"causal window={window}" if causal else "no mask"
             r = {"shape": f"B=1 H={h} K={kv} Sq={sq} Sk={sk} hd={hd} bf16 "
-                          f"causal window={window}", "bytes": nbytes,
+                          f"{mask}", "bytes": nbytes,
                  "flops": flops, "bound_ms": max(b_bytes, b_ops),
-                 "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                 "path": FA.launch_plan(tuple(q.shape), tuple(k.shape),
+                                        q.dtype, window=window)["path"]}
             kernel = lambda: FA.flash_attention_cuda(  # noqa: E731
-                q, k, v, window=window)
-            plain = lambda: ref.attention_ref(q, k, v, window=window)  # noqa: E731
+                q, k, v, causal=causal, window=window)
+            plain = lambda: ref.attention_ref(  # noqa: E731
+                q, k, v, causal=causal, window=window)
             # The yardstick: one PyTorch call for the same function (for
             # Sq = 1 every key is kept, which is no causal mask; a window
             # as long as the sequence masks nothing more than causal).
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=sq > 1, enable_gqa=True)
+                q, k, v, is_causal=causal and sq > 1, enable_gqa=True)
             self._close("sdpa", library(), plain(), 2e-2)
             it = 200 if sq == 1 else 20
             times = alternate({"kernel": kernel, "plain": plain}, it, it, 5)
@@ -3269,6 +3357,418 @@ class Smoke:
             shutil.rmtree(d, ignore_errors=True)
 
     # -- result ----------------------------------------------------------------
+    # -- 25, 26 ----------------------------------------------------------------
+    def _lib_model(self, arch):
+        """``arch`` at full width and depth, fp32 params from seed 0, bf16
+        compute; prints its weights."""
+        import torch
+
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models import build_model
+        from repro_torch.train import leaves
+
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(0, device=self.dev)
+        torch.cuda.synchronize()
+        w_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+        log(f"{arch}: {cfg.num_layers} layers"
+            + (f" + {cfg.encoder_layers} encoder layers" if cfg.is_encdec
+               else "")
+            + f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"heads at hd {cfg.resolved_head_dim}, "
+            f"{cfg.param_counts()['total'] / 1e9:.3f} B params in fp32 "
+            f"({w_bytes / 1e9:.2f} GB), {cfg.dtype} compute; weights made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return cfg, model, params, w_bytes
+
+    def _count(self, module, fn_name, counter):
+        """Wrap ``module.fn_name`` so each call adds one to
+        ``counter[fn_name]``; returns the undo."""
+        real = getattr(module, fn_name)
+
+        def counting(*a, **kw):
+            counter[fn_name] = counter.get(fn_name, 0) + 1
+            return real(*a, **kw)
+
+        setattr(module, fn_name, counting)
+        return lambda: setattr(module, fn_name, real)
+
+    def _lib_continuous(self, name, model, params, prompts, frames=None):
+        """``prompts`` (n, L) as a 3-shard ``FileSet`` under ``build/``,
+        one CkIO session a request through a ``RequestIngester``, served
+        by a ``ContinuousBatcher`` over a ``ModelEngine`` of SLOTS slots
+        (all requests submitted at once); tokens must equal the sequential
+        oracle's on the same engine. Returns the served requests."""
+        from repro_torch.core import CkIO, FileOptions, ServeMetrics
+        from repro_torch.data import FileSet, write_token_shards
+        from repro_torch.serve import (ContinuousBatcher, ModelEngine,
+                                       RequestIngester, ServeRequest,
+                                       sequential_oracle)
+
+        n, L = prompts.shape
+        per = n * L // 3
+        fs = FileSet.build(write_token_shards(
+            os.path.join(self.tmp, f"{name}_prompts"), prompts.reshape(-1),
+            [per, per, n * L - 2 * per]))
+        ck = CkIO(num_pes=2)
+        metrics = ServeMetrics()
+        ck.director.add_observer(metrics.record_session)
+        fh = ck.open_fileset_sync(fs, FileOptions(num_readers=2))
+        engine = ModelEngine(model, params, slots=SLOTS,
+                             seq_budget=L + NEW + 8, frames=frames)
+        ing = RequestIngester(ck, fh, fs, metrics, max_pending=8)
+        bat = ContinuousBatcher(engine, ing)
+        for i in range(n):
+            ing.submit(ServeRequest(rid=i, row_start=i * L, num_rows=L,
+                                    max_new_tokens=NEW))
+        t = time.perf_counter()
+        done = sorted(bat.run(), key=lambda r: r.rid)
+        wall = time.perf_counter() - t
+        ck.close_sync(fh)
+        for which in ("first_token", "e2e"):
+            p = metrics.latency_percentiles(which)
+            log(f"{name} continuous: arrival -> {which} p50 {p['p50']:.4f} s,"
+                f" p99 {p['p99']:.4f} s")
+        oracle = sequential_oracle(engine, list(prompts), [NEW] * n)
+        if [r.result for r in done] != oracle:
+            raise AssertionError(f"{name} continuous: tokens differ from the "
+                                 f"sequential oracle on the same engine")
+        log(f"{name} continuous: {n} requests on {SLOTS} slots, "
+            f"{n * NEW} new tokens in {wall:.2f} s; {n} token streams "
+            f"bit-identical to the sequential oracle")
+        return done
+
+    def _lib_replay(self, name, model, params, steps, feed, tol_dtype,
+                    pre_batch, init):
+        """Replay ``feed(t)``, t < ``steps``, through decode from
+        ``init(model)`` and hold
+        the last logits against ``model.prefill_logits(pre_batch)``
+        (relative L2 under PREFILL_REL_TOL[tol_dtype])."""
+        import torch
+
+        with torch.no_grad():
+            state = init(model)
+            for t in range(steps):
+                logits, state = model.decode(params, state, feed(t))
+            pre = model.prefill_logits(params, pre_batch)
+        a, b = logits.float(), pre.float()
+        rel = ((a - b).norm() / b.norm()).item()
+        tol = PREFILL_REL_TOL[tol_dtype]
+        log(f"{name}: {tol_dtype} decode-replay logits vs the prefill "
+            f"forward: relative L2 {rel:.3e} (bound {tol}), max abs "
+            f"{(a - b).abs().max().item():.3e}, same argmax "
+            f"{bool(a.argmax() == b.argmax())}")
+        if not (rel <= tol and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{name}: {tol_dtype} decode replay differs "
+                                 f"from the prefill forward ({rel})")
+        return state, logits
+
+    def _lib_time(self, name, model, params, state, logits, w_bytes, fname):
+        """NEW synchronized B=1 decode calls past ``state`` (host clock),
+        then 8 more under the profiler: device time a call, and the busy
+        share as that over the synchronized wall time a call (the
+        profiler's own wall time carries its start-up)."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def calls(n):
+            nonlocal state, logits
+            for _ in range(n):
+                tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                logits, state = model.decode(params, state, {"tokens": tok})
+
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            calls(NEW)
+            torch.cuda.synchronize()
+            per_call = (time.perf_counter() - t) / NEW
+            log(f"{name}: B=1 bf16 decode call {per_call * 1e3:.2f} ms (host "
+                f"clock, synchronized) = {1 / per_call:.1f} tokens/s a "
+                f"stream; it reads {w_bytes / 1e9:.2f} GB of fp32 weights -> "
+                f">= {w_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s")
+            t = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                calls(8)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        busy = self._report_profile(prof, wall, 8, "decode call", fname) / 8
+        log(f"{name}: device time {busy * 1e3:.2f} ms a decode call "
+            f"(profiler) = {busy / per_call:.3f} of the synchronized "
+            f"{per_call * 1e3:.2f} ms call")
+
+    def serve_vlm(self):
+        """Phase 25: qwen2-vl-2b through the library (the serve driver
+        refuses it, as the reference's does)."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import CkIO, FileOptions
+        from repro_torch.data import read_meta, write_token_file
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.models import transformer
+        from repro_torch.serve import BatchServer, Request
+
+        cfg, model, params, w_bytes = self._lib_model("qwen2-vl-2b")
+        if (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim) != (VLM_LAYERS, VLM_H, VLM_KV, VLM_HD):
+            raise AssertionError(f"qwen2-vl-2b: {cfg}")
+        rng = np.random.default_rng(21)
+        n_all = LIB_STATIC_REQUESTS + LIB_CONT_REQUESTS
+        prompts = rng.integers(0, cfg.vocab_size, size=(n_all, FAM_PROMPT),
+                               dtype=np.int32)
+        count = {}
+        total = 0
+
+        def run(mode, fn):
+            nonlocal total
+            torch.cuda.synchronize()
+            FA.reset_launch_counts()
+            count.clear()
+            undo = self._count(transformer, "decode_step", count)
+            t = time.perf_counter()
+            try:
+                out = fn()
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            wall = time.perf_counter() - t
+            n, got = count.get("decode_step", 0), FA.LAUNCHES["flash_attention"]
+            if n == 0 or got != VLM_LAYERS * n:
+                raise AssertionError(f"serve_vlm {mode}: flash_attention "
+                                     f"launched {got} times in {n} decode "
+                                     f"calls, not {VLM_LAYERS} a call")
+            log(f"serve_vlm {mode}: {n} decode calls in {wall:.2f} s = "
+                f"{wall / n * 1e3:.2f} ms a call (host clock, mode wall time "
+                f"over calls); flash_attention {got} = {VLM_LAYERS} x {n}")
+            total += got
+            return out
+
+        # Static: BatchServer over one CkIO bulk read of the prompts.
+        path = os.path.join(self.tmp, "vlm_prompts.bin")
+        write_token_file(path, prompts[:LIB_STATIC_REQUESTS].reshape(-1))
+        meta = read_meta(path)
+        ck = CkIO(num_pes=2)
+        fh = ck.open_sync(path, FileOptions(num_readers=2))
+        off, nbytes = meta.byte_range_for_rows(0, meta.num_rows)
+        sess = ck.start_read_session_sync(fh, nbytes, off)
+        buf = np.empty(meta.num_rows, dtype=meta.dtype)
+        ck.read_sync(sess, nbytes, off, memoryview(buf).cast("B"))
+        ck.close_read_session_sync(sess)
+        ck.close_sync(fh)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW)
+                for i, p in enumerate(buf.reshape(-1, FAM_PROMPT))]
+        done = run("static", lambda: BatchServer(
+            model, params, batch_size=SLOTS, bucket=FAM_PROMPT).serve(reqs))
+        if not all(len(r.result) == NEW and all(
+                0 <= int(x) < cfg.vocab_size for x in r.result) for r in done):
+            raise AssertionError("serve_vlm static: incomplete results")
+        log(f"serve_vlm static: {len(done)} requests at batch {SLOTS}, "
+            f"{len(done) * NEW} new tokens")
+        run("continuous", lambda: self._lib_continuous(
+            "serve_vlm", model, params, prompts[LIB_STATIC_REQUESTS:]))
+
+        # Patch embeddings: a prefill forward at distinct (t, h, w)
+        # positions (a 4 x 4 patch grid at each of 4 time steps), then the
+        # embeddings replayed through decode against the prefill forward
+        # over them at broadcast positions.
+        emb = (torch.randn((1, FAM_PROMPT, cfg.d_model), generator=
+                           torch.Generator(device=self.dev).manual_seed(3),
+                           device=self.dev) * 0.02)
+        i = torch.arange(FAM_PROMPT, device=self.dev)
+        pos = torch.stack([i // 16, (i // 4) % 4, i % 4], -1)[None].to(
+            torch.int32)
+        with torch.no_grad():
+            lg = model.prefill_logits(params, {"embeds": emb,
+                                               "positions": pos})
+        if lg.shape != (1, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(lg).all()):
+            raise AssertionError(f"serve_vlm: embeddings prefill {lg.shape}")
+        log(f"serve_vlm: patch-embedding prefill ({FAM_PROMPT} patches, "
+            f"M-RoPE sections {cfg.mrope_sections} at distinct (t, h, w)): "
+            f"finite logits {tuple(lg.shape)}")
+        for dtype in ("bfloat16", "float32"):
+            m = type(model)(cfg.replace(dtype=dtype))
+            state, logits = run(f"embeds replay {dtype}", lambda: self._lib_replay(
+                f"serve_vlm embeds", m, params, FAM_PROMPT,
+                lambda t: {"embeds": emb[:, t:t + 1]}, dtype,
+                {"embeds": emb},
+                lambda m: m.init_decode_state(params, 1, FAM_PROMPT + 2 * NEW
+                                              + 8)))
+        del state, logits
+        state, logits = self._lib_replay(
+            "serve_vlm tokens", model, params, FAM_PROMPT,
+            lambda t: {"tokens": torch.from_numpy(prompts[:1, t:t + 1]).to(
+                self.dev)}, "bfloat16",
+            {"tokens": torch.from_numpy(prompts[:1]).to(self.dev)},
+            lambda m: m.init_decode_state(params, 1, FAM_PROMPT + NEW + 8))
+        self._lib_time("serve_vlm", model, params, state, logits, w_bytes,
+                       "profile_decode_vlm.txt")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"serve_vlm: max_memory_allocated {peak / 2**30:.2f} GiB")
+        if peak >= 80e9:
+            raise AssertionError(f"serve_vlm: peak memory {peak} B")
+        self.launches["serve_vlm"] = {"flash_attention": total}
+        del params, state, logits
+        torch.cuda.empty_cache()
+
+    def serve_audio(self):
+        """Phase 26: whisper-medium through the library (the serve driver
+        refuses it, as the reference's does)."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import CkIO, FileOptions
+        from repro_torch.data import make_embedding_file
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.models import encdec
+        from repro_torch.serve import greedy_generate
+
+        cfg, model, params, w_bytes = self._lib_model("whisper-medium")
+        if (cfg.num_layers, cfg.encoder_layers, cfg.num_heads,
+                cfg.resolved_head_dim, cfg.encoder_seq) != (
+                    AUD_LAYERS, AUD_LAYERS, AUD_H, AUD_HD, AUD_FRAMES):
+            raise AssertionError(f"whisper-medium: {cfg}")
+        # The audio: frames written by make_embedding_file, read onto the
+        # card through one CkIO session.
+        path = os.path.join(self.tmp, "frames.bin")
+        meta = make_embedding_file(path, AUD_FRAMES, cfg.d_model, seed=22)
+        ck = CkIO(num_pes=2)
+        fh = ck.open_sync(path, FileOptions(num_readers=4))
+        off, nbytes = meta.byte_range_for_rows(0, AUD_FRAMES)
+        t = time.perf_counter()
+        sess = ck.start_read_session_sync(fh, nbytes, off)
+        host = np.empty((AUD_FRAMES, cfg.d_model), dtype=np.float32)
+        ck.read_sync(sess, nbytes, off, memoryview(host).cast("B"))
+        ck.close_read_session_sync(sess)
+        ck.close_sync(fh)
+        frames = torch.from_numpy(host).to(self.dev)[None]
+        torch.cuda.synchronize()
+        want = np.fromfile(path, dtype=np.float32, offset=off).reshape(
+            AUD_FRAMES, cfg.d_model)
+        if not np.array_equal(host, want):
+            raise AssertionError("serve_audio: frames differ from the file")
+        log(f"serve_audio: {AUD_FRAMES} x {cfg.d_model} fp32 frames "
+            f"({nbytes / 1e6:.2f} MB) read through one CkIO session onto the "
+            f"card in {(time.perf_counter() - t) * 1e3:.1f} ms (host clock)")
+
+        rng = np.random.default_rng(22)
+        n_all = LIB_STATIC_REQUESTS + LIB_CONT_REQUESTS
+        prompts = rng.integers(0, cfg.vocab_size, size=(n_all, FAM_PROMPT),
+                               dtype=np.int32)
+        count, paths = {}, []
+        total = 0
+        real_fa = FA.flash_attention_cuda
+
+        def planned(q, k, v, **kw):
+            if q.shape[2] == AUD_FRAMES:       # the encoder's Sq
+                paths.append(FA.launch_plan(tuple(q.shape), tuple(k.shape),
+                                            q.dtype)["path"])
+            return real_fa(q, k, v, **kw)
+
+        def run(mode, fn, enc_path="tensor_core"):
+            nonlocal total
+            torch.cuda.synchronize()
+            FA.reset_launch_counts()
+            count.clear()
+            paths.clear()
+            undo = [self._count(encdec, "decode_step", count),
+                    self._count(encdec, "init_decode_state", count)]
+            FA.flash_attention_cuda = planned
+            t = time.perf_counter()
+            try:
+                out = fn()
+                torch.cuda.synchronize()
+            finally:
+                FA.flash_attention_cuda = real_fa
+                for u in undo:
+                    u()
+            wall = time.perf_counter() - t
+            n = count.get("decode_step", 0)
+            adm = count.get("init_decode_state", 0)
+            got = FA.LAUNCHES["flash_attention"]
+            want = 2 * AUD_LAYERS * n + AUD_LAYERS * adm
+            if n == 0 or adm == 0 or got != want or paths != [
+                    enc_path] * (AUD_LAYERS * adm):
+                raise AssertionError(
+                    f"serve_audio {mode}: flash_attention launched {got} "
+                    f"times in {n} decode calls and {adm} admissions, not "
+                    f"{2 * AUD_LAYERS} a call and {AUD_LAYERS} an admission;"
+                    f" encoder paths {sorted(set(paths))}")
+            log(f"serve_audio {mode}: {adm} admissions and {n} decode calls "
+                f"in {wall:.2f} s (host clock); flash_attention {got} = "
+                f"{2 * AUD_LAYERS} x {n} + {AUD_LAYERS} x {adm}, the "
+                f"encoder's {len(paths)} on the {enc_path} path")
+            total += got
+            return out
+
+        # Static: greedy_generate over the 4 prompts at B = 4, each with the
+        # same audio.
+        toks = run("static", lambda: greedy_generate(
+            model, params, torch.from_numpy(prompts[:LIB_STATIC_REQUESTS]).to(
+                self.dev), NEW,
+            frames=frames.expand(LIB_STATIC_REQUESTS, -1, -1)))
+        if toks.shape != (LIB_STATIC_REQUESTS, NEW) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"serve_audio static: tokens {toks.shape}")
+        log(f"serve_audio static: greedy_generate(frames=) {LIB_STATIC_REQUESTS}"
+            f" requests at B={LIB_STATIC_REQUESTS}, {toks.numel()} new tokens")
+        run("continuous", lambda: self._lib_continuous(
+            "serve_audio", model, params, prompts[LIB_STATIC_REQUESTS:],
+            frames=frames))
+
+        # An admission alone (the encoder and 24 layers' cross keys and
+        # values), then the decode replay against forward_logits (plain
+        # attention) over the same frames and prompt, bf16 and fp32.
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.no_grad():
+            model.init_decode_state(params, 1, 8, frames=frames)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(4):
+                model.init_decode_state(params, 1, 8, frames=frames)
+            torch.cuda.synchronize()
+            adm = (time.perf_counter() - t) / 4
+            t = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    model.init_decode_state(params, 1, 8, frames=frames)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        log(f"serve_audio: an admission (encoder over {AUD_FRAMES} frames, "
+            f"{AUD_LAYERS} cross (k, v)) {adm * 1e3:.2f} ms (host clock, "
+            f"synchronized)")
+        busy = self._report_profile(prof, wall, 2, "admission",
+                                    "profile_admission_audio.txt") / 2
+        log(f"serve_audio: device time {busy * 1e3:.2f} ms an admission "
+            f"(profiler) = {busy / adm:.3f} of the synchronized one")
+        prompt = torch.from_numpy(prompts[:1]).to(self.dev)
+        for dtype, enc_path in (("bfloat16", "tensor_core"),
+                                ("float32", "cuda_core")):
+            m = type(model)(cfg.replace(dtype=dtype))
+            state, logits = run(f"replay {dtype}", lambda: self._lib_replay(
+                "serve_audio", m, params, FAM_PROMPT,
+                lambda t: {"tokens": prompt[:, t:t + 1]}, dtype,
+                {"embeds": frames, "tokens": prompt},
+                lambda m: m.init_decode_state(params, 1, FAM_PROMPT + NEW + 8,
+                                              frames=frames)), enc_path)
+            if dtype == "bfloat16":
+                self._lib_time("serve_audio", m, params, state, logits,
+                               w_bytes, "profile_decode_audio.txt")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"serve_audio: max_memory_allocated {peak / 2**30:.2f} GiB")
+        if peak >= 80e9:
+            raise AssertionError(f"serve_audio: peak memory {peak} B")
+        self.launches["serve_audio"] = {"flash_attention": total}
+        del params, state, logits, frames
+        torch.cuda.empty_cache()
+
     def kernel_line(self):
         launches = {}
         for counts in self.launches.values():
@@ -3340,6 +3840,8 @@ def main() -> int:
             sm.phase("process", sm.process)
             sm.phase("service", sm.service)
             sm.phase("numa", sm.numa)
+            sm.phase("serve_vlm", sm.serve_vlm)
+            sm.phase("serve_audio", sm.serve_audio)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)
     finally:

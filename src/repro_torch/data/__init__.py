@@ -9,7 +9,7 @@ from repro_torch.data.packing import (
     window_rows,
 )
 from repro_torch.data.pipeline import CkIOPipeline
-from repro_torch.data.synthetic import make_token_file
+from repro_torch.data.synthetic import make_embedding_file, make_token_file
 from repro_torch.data.tokenfile import TokenFileMeta, decode_rows, read_meta, write_token_file
 
 __all__ = [
@@ -27,5 +27,6 @@ __all__ = [
     "token_gather_from_pieces",
     "window_rows",
     "CkIOPipeline",
+    "make_embedding_file",
     "make_token_file",
 ]

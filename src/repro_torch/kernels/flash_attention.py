@@ -12,6 +12,8 @@ copy). It checks device, dtype, rank and head size, allocates the output
 with ``torch.empty``, launches on the current stream, raises if the
 launcher reports a CUDA error and adds one to :data:`LAUNCHES`. The plain
 version of the same function is ``kernels/ref.py``'s ``attention_ref``.
+The kernel is forward-only: ``ops.flash_attention`` raises
+:data:`FORWARD_ONLY` where autograd would need its gradient.
 
 The kernel takes one of three paths, from the shapes and dtype alone
 (:func:`path`): a split-key decode when the query rows of a kv head fit
@@ -38,6 +40,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 DECODE_ROWS = 16       # query rows of a decode block (kMaxRows)
 SPLIT_TILE = 32        # keys a tile of the decode kernel
 MAX_SPLITS = 64        # kMaxSplits
+FORWARD_ONLY = (
+    "flash_attention: the CUDA attention kernel is forward-only (the "
+    "reference has no backward kernel either); a loss differentiates the "
+    "plain attention, and a decode or an encoder pass runs under "
+    "torch.no_grad()")
 
 # Kernel launches, counted where the wrapper launches the kernel.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}

@@ -71,6 +71,7 @@ def flash_attention(
         raise ValueError("flash_attention: window > 0 needs causal=True")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if _on_cuda(q, k, v):
+        _forward_only((q, k, v), FA.FORWARD_ONLY)
         out = FA.flash_attention_cuda(qt, kt, vt, causal=causal, window=window)
     else:
         out = ref.attention_ref(qt, kt, vt, causal=causal, window=window)

@@ -18,7 +18,11 @@ flash-attention kernel in every attention layer; ``falcon-mamba-7b``
 (attention-free; each decode call through the selective-scan kernel) and
 ``recurrentgemma-2b`` (the reference's default; each decode call through
 the RG-LRU kernel in its 18 recurrent layers and the flash-attention kernel
-over a local-window ring in its 8 attention layers). Params in another
+over a local-window ring in its 8 attention layers). As the reference's
+driver, it refuses ``qwen2-vl-2b`` and ``whisper-medium`` ("serving
+example targets token-input archs"): they are served through the library
+(``BatchServer``, ``greedy_generate(frames=)``, ``ModelEngine(frames=)``
+behind a ``ContinuousBatcher``). Params in another
 ``param_dtype`` than the config's (gemma3-27b's fp32 params exceed one
 80 GB card; bf16 ones fit) come in through ``main(argv, params=...)``.
 ``--continuous --service --pool-workers N`` runs the request sessions on
@@ -252,6 +256,8 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> ServeRun:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if cfg.is_encdec or cfg.input_mode == "embeddings":
+        raise SystemExit("serving example targets token-input archs")
     model = build_model(cfg)
     if params is None:
         params = model.init(0, device=dev)

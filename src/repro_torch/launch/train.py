@@ -41,7 +41,11 @@ latest one in ``--ckpt-dir``. A restore writes the file's values into the
 live state in place (``make_supervisor``). A stack with a recurrent layer
 (``--arch falcon-mamba-7b``, ``recurrentgemma-2b``) trains on the CPU
 only: its scan kernels are forward-only, so on the card the driver raises
-before it builds anything.
+before it builds anything. ``--arch qwen2-vl-2b`` trains on tokens, as the
+reference's driver does (M-RoPE over broadcast positions); the
+encoder-decoder ``whisper-medium`` is refused, since its loss needs encoder
+frames that a token corpus does not hold (the reference's driver fails
+there on a missing ``batch["embeds"]``).
 """
 from __future__ import annotations
 
@@ -278,6 +282,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         cfg = smoke_config(cfg)
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
+    if cfg.is_encdec:
+        raise SystemExit(
+            f"training example targets decoder-only archs: {cfg.name}'s loss "
+            f"needs encoder frames (batch['embeds']), which a token corpus "
+            f"does not hold")
     if torch.device(args.device).type == "cuda":
         for mixer, kernel in ((MAMBA, mamba_scan), (RGLRU, rglru_scan)):
             if any(s.mixer == mixer for s in cfg.block_pattern):

@@ -22,6 +22,14 @@ ring, where the kernel would mask by slot index instead of position. So
 both compute the same function (the reference rounds the probabilities to
 the compute dtype before PV; the kernel keeps them in fp32, and sums the
 keys in slot order).
+
+The encoder-decoder's unmasked attention (``bidirectional_attention``, an
+encoder's self-attention; ``cross_attention`` over precomputed
+``cross_kv``) takes ``kernel``: through ``ops.flash_attention(causal=False)``
+where the reference runs ``_sdpa(mask=None)``, the same function, or
+through ``_sdpa`` itself where autograd must differentiate it: the loss
+and the prefill forward pass ``kernel=False``, the encoder at admission
+and decode ``kernel=True`` (``models/encdec.py``).
 """
 from __future__ import annotations
 
@@ -175,6 +183,56 @@ def attention_train(
                 if causal else None)
         out = _sdpa(q, k, v, mask=mask, softcap=softcap)
     out = shard_act(out, "batch", None, "model", None)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+
+
+def cross_kv(params: dict, enc: torch.Tensor, dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention keys and values of the encoder output ``enc``
+    (B, Sk, d): each (B, Sk, K, hd), biases included."""
+    k = torch.einsum("bsd,dhk->bshk", enc, params["wk"].to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc, params["wv"].to(dtype))
+    if "bk" in params:
+        k = k + params["bk"].to(dtype)
+        v = v + params["bv"].to(dtype)
+    return k, v
+
+
+def _unmasked(q, k, v, kernel: bool) -> torch.Tensor:
+    """Attention with no mask: through ``ops.flash_attention(causal=False)``
+    (the hand-written kernel on CUDA tensors, which reads q, k and v in
+    place; the plain version on CPU ones) with ``kernel``, else the
+    reference's ``_sdpa`` (differentiable: the kernel is forward-only)."""
+    if kernel:
+        return ops.flash_attention(q, k, v, causal=False)
+    return _sdpa(q, k, v, mask=None)
+
+
+def bidirectional_attention(params: dict, x: torch.Tensor, *, dtype,
+                            eps: float, kernel: bool) -> torch.Tensor:
+    """An encoder's self-attention over ``x`` (B, S, d): every position
+    sees every other, no rotary embedding (the reference's
+    ``attention_train(causal=False)`` under its identity rotation)."""
+    q, k, v = _project_qkv(params, x, dtype, eps)
+    out = _unmasked(q, k, v, kernel)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
+
+
+def cross_attention(
+    params: dict,
+    x: torch.Tensor,                       # (B, Sq, d) decoder side
+    kv_src: Tuple[torch.Tensor, torch.Tensor],  # (k, v): (B, Sk, K, hd)
+    *,
+    dtype,
+    kernel: bool,
+) -> torch.Tensor:
+    """Decoder queries over precomputed encoder keys and values, no
+    mask."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dtype))
+    if "bq" in params:
+        q = q + params["bq"].to(dtype)
+    k, v = kv_src
+    out = _unmasked(q, k, v, kernel)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
 
 

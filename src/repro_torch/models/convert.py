@@ -9,7 +9,9 @@ in schedule order, in ``params["layers"]``. Leaves map by name, one to
 one, whatever the layer holds: an MoE layer's ``router`` (d, E + pad), its
 ``gate`` / ``up`` (E + pad, d, f) and ``down`` (E + pad, f, d), and its
 ``shared_*`` experts keep the reference's shapes, padded experts
-included. The param and
+included. An encoder-decoder (whisper) stacks every encoder layer in
+``enc_blocks`` and every decoder layer in ``dec_blocks``; the port keeps
+each as a list of layers, LayerNorm and MLP biases included. The param and
 decode-state functions take and give NumPy arrays on the reference side
 (the caller moves them in and out of JAX), so this module needs neither
 package's arrays; the train-state pair keeps tensors on both sides, since
@@ -26,6 +28,7 @@ import torch
 from repro_torch.configs.base import MAMBA, RGLRU, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVCache
+from repro_torch.models.encdec import EncDecState
 from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.ssm import MambaState
 from repro_torch.models.transformer import DecodeState
@@ -48,9 +51,32 @@ def _zip_map(fn, trees):
     return fn(trees)
 
 
+_ENCDEC_STACKS = (("enc_blocks", "encoder_layers"), ("dec_blocks", "num_layers"))
+
+
+def _first(tree):
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree
+
+
 def _unstack(tree: Dict[str, Any], cfg: ModelConfig, to_t) -> Dict[str, Any]:
     """Reference layout -> the port's per-layer list, each leaf through
-    ``to_t`` (a stacked leaf indexed by its block first)."""
+    ``to_t`` (a stacked leaf indexed by its block first). An
+    encoder-decoder's ``enc_blocks`` and ``dec_blocks`` are stacked over
+    every layer; each becomes a list of layers."""
+    if cfg.is_encdec:
+        out = {k: _map(to_t, v) for k, v in tree.items()
+               if k not in dict(_ENCDEC_STACKS)}
+        for key, n_field in _ENCDEC_STACKS:
+            n = getattr(cfg, n_field)
+            held = _first(tree[key]).shape[0]
+            if held != n:
+                raise ValueError(f"{key} holds {held} layers, config "
+                                 f"{cfg.name} has {n}")
+            out[key] = [_map(lambda a: to_t(a[i]), tree[key])
+                        for i in range(n)]
+        return out
     pattern, nb, tail = cfg.scan_split()
     layers = []
     for bi in range(nb):
@@ -73,7 +99,14 @@ def _restack(params: Dict[str, Any], cfg: ModelConfig, leaf, stack
              ) -> Dict[str, Any]:
     """The port's per-layer list -> reference layout: each block-pattern
     position's layers stacked over a leading axis by ``stack`` (given the
-    layers' leaves), every other leaf through ``leaf``."""
+    layers' leaves), every other leaf through ``leaf``. An
+    encoder-decoder's layer lists are stacked whole."""
+    if cfg.is_encdec:
+        out = {k: _map(leaf, v) for k, v in params.items()
+               if k not in dict(_ENCDEC_STACKS)}
+        for key, _ in _ENCDEC_STACKS:
+            out[key] = _zip_map(stack, params[key])
+        return out
     pattern, nb, tail = cfg.scan_split()
     layers = params["layers"]
     out: Dict[str, Any] = {"embed": _map(leaf, params["embed"]),
@@ -205,21 +238,56 @@ def train_state_from_reference(tree: Dict[str, Any], cfg: ModelConfig, *,
     return {"params": params, "opt": out_opt}
 
 
+def _ring(k, v, slot_pos, pos: int, to_t) -> KVCache:
+    """A reference ring -> the port's. The port's ring keeps no slot_pos:
+    slot s must hold the largest position p < pos with p = s (mod C), or
+    -1 if there is none."""
+    C = slot_pos.shape[0]
+    want = (pos - 1) - (pos - 1 - np.arange(C)) % C
+    want = np.where(want >= 0, want, -1)
+    if not np.array_equal(slot_pos, want):
+        raise NotImplementedError(
+            f"a reference ring whose slots, wrapped or not, do not hold "
+            f"the positions that writing position p at slot p % {C} "
+            f"leaves after {pos} tokens (slot_pos {slot_pos.tolist()}): "
+            f"the port's ring keeps no slot_pos and reads positions from "
+            f"pos alone")
+    return KVCache(k=to_t(k), v=to_t(v))
+
+
 def decode_state_from_reference(state, cfg: ModelConfig, *,
-                                device="cuda") -> DecodeState:
+                                device="cuda"):
     """Reference ``DecodeState`` (NumPy leaves: ``blocks`` a tuple of
     per-pattern-position states stacked over the blocks, ``tail`` a list of
     per-layer states, ``pos`` a scalar) -> the port's, one state per layer
     in schedule order: a ``KVCache`` for an attention layer, a
     ``MambaState`` or ``RGLRUState`` (``h``, ``conv``) for a Mamba or
-    RG-LRU layer. Read by attribute, so the reference's NamedTuples pass as
-    they are. A ring (wrapped or not) converts when its ``slot_pos`` is
-    what writing position ``p`` at slot ``p % C`` leaves; any other layout
-    raises."""
+    RG-LRU layer. For an encoder-decoder config, a reference
+    ``EncDecState`` (``self_caches`` a ``KVCache`` stacked over the decoder
+    layers, ``cross_kv`` a stacked (k, v) pair) -> the port's
+    ``EncDecState``, a ring and a (k, v) pair a layer. Read by attribute,
+    so the reference's NamedTuples pass as they are. A ring (wrapped or
+    not) converts when its ``slot_pos`` is what writing position ``p`` at
+    slot ``p % C`` leaves; any other layout raises."""
     dev = resolve_device(device)
     to_t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
-    pattern, nb, tail = cfg.scan_split()
     pos = int(np.asarray(state.pos))
+    if cfg.is_encdec:
+        sc = state.self_caches
+        k, v, slot_pos = (np.asarray(sc.k), np.asarray(sc.v),
+                          np.asarray(sc.slot_pos))
+        ck, cv = (np.asarray(a) for a in state.cross_kv)
+        if not k.shape[0] == ck.shape[0] == cfg.num_layers:
+            raise ValueError(f"state holds {k.shape[0]} rings and "
+                             f"{ck.shape[0]} cross (k, v) pairs, config "
+                             f"{cfg.name} has {cfg.num_layers} layers")
+        return EncDecState(
+            self_caches=[_ring(k[i], v[i], slot_pos[i], pos, to_t)
+                         for i in range(cfg.num_layers)],
+            cross_kv=[(to_t(ck[i]), to_t(cv[i]))
+                      for i in range(cfg.num_layers)],
+            pos=pos)
+    pattern, nb, tail = cfg.scan_split()
     per_layer = [(spec, state.blocks[i], bi) for bi in range(nb)
                  for i, spec in enumerate(pattern)]
     per_layer += [(spec, st, None) for spec, st in zip(tail, state.tail)]
@@ -233,20 +301,8 @@ def decode_state_from_reference(state, cfg: ModelConfig, *,
             kind = MambaState if spec.mixer == MAMBA else RGLRUState
             layers.append(kind(h=to_t(take(st.h)), conv=to_t(take(st.conv))))
             continue
-        k, v, slot_pos = take(st.k), take(st.v), take(st.slot_pos)
-        # The port's ring keeps no slot_pos: slot s must hold the largest
-        # position p < pos with p = s (mod C), or -1 if there is none.
-        C = slot_pos.shape[0]
-        want = (pos - 1) - (pos - 1 - np.arange(C)) % C
-        want = np.where(want >= 0, want, -1)
-        if not np.array_equal(slot_pos, want):
-            raise NotImplementedError(
-                f"a reference ring whose slots, wrapped or not, do not hold "
-                f"the positions that writing position p at slot p % {C} "
-                f"leaves after {pos} tokens (slot_pos {slot_pos.tolist()}): "
-                f"the port's ring keeps no slot_pos and reads positions from "
-                f"pos alone")
-        layers.append(KVCache(k=to_t(k), v=to_t(v)))
+        layers.append(_ring(take(st.k), take(st.v), take(st.slot_pos), pos,
+                            to_t))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"state holds {len(layers)} layers, config "
                          f"{cfg.name} has {cfg.num_layers}")

@@ -42,6 +42,22 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * (1.0 + params["scale"].float())).to(dt)
 
 
+def layernorm_init(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm with scale and bias, computed in fp32 (the biased
+    variance, as ``jnp.var``)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dt)
+
+
 # -- embeddings / unembedding -------------------------------------------------------
 def embed_init(gen, vocab: int, d: int, dtype, device) -> dict:
     return {"table": normal_init(gen, (vocab, d), 0.02, dtype, device)}
@@ -85,26 +101,35 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_init(gen, d: int, ff: int, act: str, dtype, device) -> dict:
-    if act not in GLU_ACTS:
-        raise NotImplementedError(
-            f"act={act!r}: the port carries the GLU MLPs {GLU_ACTS} so far")
+    if act in GLU_ACTS:
+        return {
+            "gate": fan_in_init(gen, (d, ff), d, dtype, device),
+            "up": fan_in_init(gen, (d, ff), d, dtype, device),
+            "down": fan_in_init(gen, (ff, d), ff, dtype, device),
+        }
+    if act != "gelu":
+        raise ValueError(f"unknown MLP activation {act!r}")
     return {
-        "gate": fan_in_init(gen, (d, ff), d, dtype, device),
-        "up": fan_in_init(gen, (d, ff), d, dtype, device),
-        "down": fan_in_init(gen, (ff, d), ff, dtype, device),
+        "fc1": fan_in_init(gen, (d, ff), d, dtype, device),
+        "fc1_b": torch.zeros((ff,), dtype=dtype, device=device),
+        "fc2": fan_in_init(gen, (ff, d), ff, dtype, device),
+        "fc2_b": torch.zeros((d,), dtype=dtype, device=device),
     }
 
 
 def mlp_apply(params: dict, x: torch.Tensor, act: str, dtype) -> torch.Tensor:
     """SwiGLU (``act="silu"``) or GeGLU (``"gelu_glu"``):
-    ``(act(x W_gate) * (x W_up)) W_down``."""
-    if act not in GLU_ACTS:
-        raise NotImplementedError(
-            f"act={act!r}: the port carries the GLU MLPs {GLU_ACTS} so far")
-    g = x @ params["gate"].to(dtype)
-    u = x @ params["up"].to(dtype)
-    nl = F.silu if act == "silu" else gelu
-    return (nl(g) * u) @ params["down"].to(dtype)
+    ``(act(x W_gate) * (x W_up)) W_down``; or the plain GELU MLP with
+    biases (``"gelu"``, whisper): ``gelu(x fc1 + fc1_b) fc2 + fc2_b``."""
+    if act in GLU_ACTS:
+        g = x @ params["gate"].to(dtype)
+        u = x @ params["up"].to(dtype)
+        nl = F.silu if act == "silu" else gelu
+        return (nl(g) * u) @ params["down"].to(dtype)
+    if act != "gelu":
+        raise ValueError(f"unknown MLP activation {act!r}")
+    h = gelu(x @ params["fc1"].to(dtype) + params["fc1_b"].to(dtype))
+    return h @ params["fc2"].to(dtype) + params["fc2_b"].to(dtype)
 
 
 # -- temporal conv ----------------------------------------------------------------
@@ -127,17 +152,29 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 
 def rope_angles(
-    positions: torch.Tensor,       # (B, S) int
+    positions: torch.Tensor,       # (B, S) int, or (B, S, 3) for M-RoPE
     head_dim: int,
     theta: float,
     mrope_sections: Sequence[int] = (),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (cos, sin), each (B, S, head_dim//2), fp32."""
-    if mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE comes with the qwen2-vl slice (ROADMAP.md, Queue A)")
+    """Returns (cos, sin), each (B, S, head_dim//2), fp32.
+
+    M-RoPE (Qwen2-VL, arXiv:2409.12191): the rotary frequency dims are
+    split into (t, h, w) sections; each section takes its angle from the
+    matching coordinate of the 3-D position ids."""
     freqs = rope_freqs(head_dim, theta, positions.device)     # (half,)
-    angles = positions.float()[..., None] * freqs             # (B, S, half)
+    pos = positions.float()
+    if positions.dim() == 3 and mrope_sections:
+        if sum(mrope_sections) != head_dim // 2:
+            raise ValueError(f"mrope sections {tuple(mrope_sections)} != "
+                             f"head_dim/2 {head_dim // 2}")
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(pos[..., i:i + 1] * freqs[start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)                     # (B, S, half)
+    else:
+        angles = pos[..., None] * freqs                       # (B, S, half)
     return torch.cos(angles), torch.sin(angles)
 
 

@@ -14,15 +14,16 @@ local-window layer, updated in place (``attention_decode``), a
 layer. The next position is a host int, so that picking the cache slots to
 attend over needs no device sync.
 
-Every layer kind of the reference's decoder-only text families is
-carried: global and local attention with a dense SwiGLU or GeGLU MLP
-(phi4-mini, codeqwen, phi3-medium, gemma3), attention with a
-Mixture-of-Experts FFN (qwen2-moe, olmoe; ``models/moe.py``),
-attention-free Mamba-1 blocks (falcon-mamba) and Griffin's RG-LRU blocks
-(recurrentgemma). An MoE layer's router loss is summed over the stack
-(through the checkpointed blocks too) and added to the loss with weight
-``router_aux_coef``, as in the reference. Any other layer kind raises
-``NotImplementedError``.
+Every layer kind of the reference's decoder-only families is carried:
+global and local attention with a dense SwiGLU or GeGLU MLP (phi4-mini,
+codeqwen, phi3-medium, gemma3, and qwen2-vl, whose input may be patch
+embeddings ``{"embeds", "positions"}`` with 3-D M-RoPE positions),
+attention with a Mixture-of-Experts FFN (qwen2-moe, olmoe;
+``models/moe.py``), attention-free Mamba-1 blocks (falcon-mamba) and
+Griffin's RG-LRU blocks (recurrentgemma). An MoE layer's router loss is
+summed over the stack (through the checkpointed blocks too) and added to
+the loss with weight ``router_aux_coef``, as in the reference. Any other
+layer kind raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -208,6 +209,9 @@ def forward_backbone(params, cfg: ModelConfig, x, cos, sin
 
 
 def _positions(batch: Dict[str, torch.Tensor], S: int, B: int, device):
+    """The batch's ``positions`` ((B, S), or (B, S, 3) under M-RoPE), else
+    ``0..S-1``. (B, S) positions under M-RoPE take ``rope_angles``' 1-D
+    rotation, which is every section sharing one coordinate."""
     if "positions" in batch:
         return batch["positions"]
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
@@ -223,9 +227,13 @@ def _rope(cfg: ModelConfig, pos: torch.Tensor):
 
 
 def _input_x(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"input_mode={cfg.input_mode!r} comes with the vlm/audio slices")
+    """(x, B, S): the batch's ``embeds`` (B, S, d) cast to the compute
+    dtype when the config takes embeddings (qwen2-vl's patch embeddings;
+    the vision frontend is a stub, as in the reference), else its
+    ``tokens`` (B, S) looked up in the table."""
+    if cfg.input_mode == "embeddings" and "embeds" in batch:
+        x = batch["embeds"].to(_dtype(cfg))
+        return x, x.shape[0], x.shape[1]
     tokens = batch["tokens"]
     B, S = tokens.shape
     return embed_lookup(params["embed"], tokens, _dtype(cfg)), B, S
@@ -326,9 +334,11 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """One token for every sequence in the batch.
 
-    batch: ``{"tokens": (B, 1)}``. Returns (logits (B, 1, V), new state);
+    batch: ``{"tokens": (B, 1)}``, or ``{"embeds": (B, 1, d)}`` for a
+    config that takes embeddings. Returns (logits (B, 1, V), new state);
     the new state holds the same (updated) caches, the new recurrent states
-    and ``pos + 1``."""
+    and ``pos + 1``. Under M-RoPE every section rotates by the one
+    position, as the reference's broadcast (B, 1, 3) position does."""
     x, B, _ = _input_x(params, cfg, batch)
     pos = state.pos
     cos, sin = _rope(cfg, torch.full((B, 1), pos, dtype=torch.int32,

@@ -137,7 +137,10 @@ class ModelEngine:
         self.params = params
         self.slots = slots
         self.seq_budget = seq_budget
-        self.frames = frames
+        # An enc-dec model's frames (1, S_enc, d), moved to the params'
+        # device once here; each admission runs the encoder over them.
+        self.frames = (None if frames is None
+                       else model.place_frames(params, frames))
         self._device = model.device(params)
         self._decode = make_decode_step(model)
         self._state: List[Optional[Any]] = [None] * slots
@@ -161,8 +164,9 @@ class ModelEngine:
             self._device)
         if toks.numel() == 0:
             raise ValueError("empty prompt")
-        state = self.model.init_decode_state(
-            self.params, 1, self.seq_budget, frames=self.frames)
+        with torch.no_grad():   # an enc-dec model's encoder runs the kernel
+            state = self.model.init_decode_state(
+                self.params, 1, self.seq_budget, frames=self.frames)
         logits = None
         for t in range(toks.numel()):
             logits, state = self._decode(self.params, state,

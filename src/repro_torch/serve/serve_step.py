@@ -40,7 +40,8 @@ def greedy_generate(
     """
     B, S = prompt.shape
     budget = seq_budget or (S + max_new_tokens)
-    state = model.init_decode_state(params, B, budget, frames=frames)
+    with torch.no_grad():     # an enc-dec model's encoder runs the kernel
+        state = model.init_decode_state(params, B, budget, frames=frames)
     decode = make_decode_step(model)
 
     logits = None

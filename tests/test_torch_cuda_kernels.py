@@ -406,6 +406,57 @@ def test_cuda_decode_at_the_served_families_shapes(cuda, H, K, Sk, window, B,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# The last two families: qwen2-vl decode (12/2, G = 6, hd 128), whisper's
+# self-attention decode (16/16 at hd 64, up to its 448-token cap), its
+# cross-attention over the 1,500 frames (Sq = 1, no mask: the last of 24
+# 64-key splits holds 28 keys) and its encoder (Sq = Sk = 1,500, no mask:
+# the tensor-core path in bf16, whose 64-row blocks leave 28 rows in the
+# last one, and the CUDA-core path in fp32).
+LAST_FAMILIES = [
+    *[(12, 2, 1, sk, 128, True) for sk in (1, 17, 80, 129, 2048)],
+    *[(16, 16, 1, sk, 64, True) for sk in (1, 17, 80, 129, 448)],
+    (16, 16, 1, 1500, 64, False),
+    (16, 16, 1500, 1500, 64, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FA_DTYPES)
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("H,K,Sq,Sk,hd,causal", LAST_FAMILIES)
+def test_cuda_attention_at_qwen2_vl_and_whisper_shapes(cuda, H, K, Sq, Sk, hd,
+                                                       causal, B, dtype, tol):
+    q, k, v = _attn_inputs(B, H, K, Sq, Sk, hd, dtype, cuda, seed=Sk + H)
+    want_path = ("decode" if Sq == 1 else
+                 "tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    assert FA.launch_plan(q.shape, k.shape, dtype)["path"] == want_path
+    FA.reset_launch_counts()
+    got = FA.flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if Sq == 1 and B == 4:          # a row's bits do not depend on B
+        alone = FA.flash_attention_cuda(q[2:3], k[2:3], v[2:3], causal=causal)
+        assert torch.equal(got[2:3], alone)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_refuses_autograd(cuda):
+    # (B, H, S, hd) inputs; ops takes (B, S, H, hd) views of them.
+    q, k, v = (t.transpose(1, 2) for t in _attn_inputs(
+        1, 16, 16, 40, 40, 64, torch.bfloat16, cuda, seed=1))
+    FA.reset_launch_counts()
+    with pytest.raises(NotImplementedError) as e:
+        ops.flash_attention(q, k.requires_grad_(), v, causal=False)
+    assert str(e.value) == FA.FORWARD_ONLY and "forward-only" in str(e.value)
+    assert FA.LAUNCHES == {"flash_attention": 0}
+    with torch.no_grad():
+        ops.flash_attention(q, k, v, causal=False)   # no gradient needed
+    assert FA.LAUNCHES == {"flash_attention": 1}
+
+
 def _odd_views(B, H, K, Sq, Sk, hd, dtype, device, how):
     """q, k, v with a dim stride of 2 ("strided") or offset by one element
     from a 16-byte boundary ("misaligned")."""
