@@ -266,7 +266,22 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              ``forward_logits``' last logits (plain attention), bf16 and
              fp32; an admission is timed, B=1 decode calls timed and 8
              profiled;
-27. profile  only with ``--profile``: two whole-window main-path steps, 16
+27. dryrun   ``repro_torch.launch.dryrun.run_cell`` on the 1-card host
+             mesh at phase 4's train configuration (phi4-mini, 4 layers,
+             B = 8 x 2048, 4 microbatches) and at phase 13's B=1 phi4-mini
+             decode call (32 layers, a 144-slot cache, position 143), on
+             the meta device; then that train step and that decode call on
+             the card under the dry run's ``FlopCounterMode``. The meta
+             count must equal the card's aten count plus the registered
+             formula (``kernels/meta.py``) of every kernel the card
+             launched through ctypes, which aten does not see (the decode
+             call's 32 flash-attention launches); the predicted per-device
+             argument + temp bytes must be within 25 % of the step's
+             ``torch.cuda.max_memory_allocated``. The measured step and
+             call times are printed against the roofline's ``step_s``
+             (``launch/roofline.py``, H100 constants) as a share, beside
+             the card's name and power limit;
+28. profile  only with ``--profile``: two whole-window main-path steps, 16
              B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
              recurrentgemma under ``torch.profiler`` (device busy share,
              kernels and copies a call, kernels by device time).
@@ -3769,6 +3784,141 @@ class Smoke:
         del params, state, logits, frames
         torch.cuda.empty_cache()
 
+    # -- 27 ----------------------------------------------------------------------
+    def _dryrun_card(self, name, run, rec, launched):
+        """Run ``run()`` on the card under the dry run's FLOP counter with
+        the flash-attention wrapper recording each launch's formula; hold
+        the meta count (``rec``) to aten's count plus the formulas."""
+        import torch
+
+        from repro_torch.kernels import meta
+        from repro_torch.kernels import ops
+        from repro_torch.launch import dryrun as D
+
+        fa = ops.FA.flash_attention_cuda
+
+        def counted(qt, kt, vt, **kw):      # (B, H, S, hd), as ops passes them
+            launched.append(meta.formula_flops(
+                "flash_attention", (qt.shape[0], qt.shape[2], qt.shape[1],
+                                    qt.shape[3]),
+                (kt.shape[0], kt.shape[2], kt.shape[1], kt.shape[3]),
+                (vt.shape[0], vt.shape[2], vt.shape[1], vt.shape[3])))
+            return fa(qt, kt, vt, **kw)
+
+        fc = D.flop_counter()
+        ops.FA.flash_attention_cuda = counted
+        try:
+            with fc:
+                run()
+            torch.cuda.synchronize()
+        finally:
+            ops.FA.flash_attention_cuda = fa
+        card = fc.get_total_flops()
+        log(f"dryrun {name}: meta {rec['hlo_flops']:.0f} FLOPs; card aten "
+            f"{card} + {len(launched)} kernel launches' formulas "
+            f"{sum(launched)} = {card + sum(launched)}")
+        if rec["hlo_flops"] != card + sum(launched):
+            raise AssertionError(f"dryrun {name}: meta FLOPs "
+                                 f"{rec['hlo_flops']} != card {card} + "
+                                 f"kernels {sum(launched)}")
+
+    def dryrun(self):
+        import torch
+
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch import roofline as R
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import build_model
+
+        mesh = make_host_mesh()
+        if mesh.size != 1:
+            raise AssertionError(f"dryrun: host mesh {mesh.axis_sizes}, one "
+                                 f"card expected")
+        # -- the window phase's train step ---------------------------------
+        cfg, _ = self._corpus()
+        cfg = cfg.replace(num_layers=ARCH_LAYERS)
+        t0 = time.perf_counter()
+        rec = D.run_cell(cfg.name, ShapeConfig("window", S, B, "train"),
+                         mesh=mesh, cfg=cfg, num_microbatches=MICROBATCHES)
+        log(f"dryrun train: meta passes {time.perf_counter() - t0:.1f} s; "
+            f"record {json.dumps(rec)}")
+        _, _, model, params, opt, step_fn = self._trainer()
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                  device=self.dev, dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self._dryrun_card("train", lambda: step_fn(params, opt, batch), rec,
+                          [])
+        peak = torch.cuda.max_memory_allocated()
+        want = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+        log(f"dryrun train: predicted argument + temp {want / 2**30:.3f} GiB "
+            f"({rec['argument_size_in_bytes'] / 2**30:.3f} + "
+            f"{rec['temp_size_in_bytes'] / 2**30:.3f}); the step's "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB; ratio "
+            f"{want / peak:.4f}")
+        if abs(want - peak) > 0.25 * peak:
+            raise AssertionError(f"dryrun train: predicted {want} B, card "
+                                 f"peak {peak} B: more than 25 % apart")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        del params, opt, step_fn, model
+        torch.cuda.empty_cache()
+        self._roofline_share("train", R.analyze_record(rec), times)
+        # -- the serve phase's B=1 decode call -----------------------------
+        cfg = cfg.replace(num_layers=32)
+        shape = ShapeConfig("serve", PROMPT + NEW, 1, "decode")
+        t0 = time.perf_counter()
+        rec = D.run_cell(cfg.name, shape, mesh=mesh, cfg=cfg)
+        log(f"dryrun decode: meta passes {time.perf_counter() - t0:.1f} s; "
+            f"record {json.dumps(rec)}")
+        model = build_model(cfg)
+        params = model.init(0, device=self.dev)
+        state = model.init_decode_state(params, 1, PROMPT + NEW)
+        state = state._replace(pos=PROMPT + NEW - 1)      # the last new token
+        tok = {"tokens": torch.zeros((1, 1), dtype=torch.int32,
+                                     device=self.dev)}
+        launched = []
+        with torch.no_grad():
+            self._dryrun_card("decode", lambda: model.decode(params, state, tok),
+                              rec, launched)
+            if len(launched) != cfg.num_layers:
+                raise AssertionError(f"dryrun decode: {len(launched)} "
+                                     f"flash-attention launches, not "
+                                     f"{cfg.num_layers}")
+            times = []
+            for _ in range(NEW):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                model.decode(params, state, tok)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+        del params, state
+        torch.cuda.empty_cache()
+        self._roofline_share("decode", R.analyze_record(rec), times)
+
+    def _roofline_share(self, name, roof, times):
+        """The roofline's ``step_s`` against the measured time (host clock
+        around a synchronized call; the first call left out)."""
+        steady = times[1:] or times
+        t = sum(steady) / len(steady)
+        log(f"dryrun {name}: {self.card_line}: measured {t * 1e3:.3f} ms "
+            f"(mean of {len(steady)}); roofline step_s {roof.step_s * 1e3:.4f}"
+            f" ms (compute {roof.compute_s * 1e3:.4f}, memory "
+            f"{roof.memory_s * 1e3:.4f}, collective "
+            f"{roof.collective_s * 1e3:.4f}; {roof.dominant}-bound); share "
+            f"{roof.step_s / t:.4f} of the roofline, compute share "
+            f"{roof.compute_s / t:.4f}")
+        self.timing[f"dryrun/{name}"] = {"ms": t * 1e3,
+                                        "step_s": roof.step_s}
+
     def kernel_line(self):
         launches = {}
         for counts in self.launches.values():
@@ -3842,6 +3992,7 @@ def main() -> int:
             sm.phase("numa", sm.numa)
             sm.phase("serve_vlm", sm.serve_vlm)
             sm.phase("serve_audio", sm.serve_audio)
+            sm.phase("dryrun", sm.dryrun)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)
     finally:

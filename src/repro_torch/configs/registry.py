@@ -12,9 +12,9 @@ patch-embedding input) and the encoder-decoder whisper-medium.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as _codeqwen
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.gemma3_27b import CONFIG as _gemma3
@@ -30,11 +30,31 @@ ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in (_qwen2_moe, _olmoe, _qwen2_vl, _codeqwen, _phi4, _phi3,
                         _gemma3, _whisper, _falcon_mamba, _recurrentgemma)}
 
+# long_500k applicability: only sub-quadratic decode families run it
+LONG_CONTEXT_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b")
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def list_archs() -> List[str]:
+    return sorted(ARCHS)
+
+
+def cells(include_long_for_all: bool = False):
+    """Yield every assigned (arch, shape) cell, honouring the long_500k rule."""
+    for name in list_archs():
+        for shape in SHAPES:
+            if (
+                shape.name == "long_500k"
+                and not include_long_for_all
+                and name not in LONG_CONTEXT_ARCHS
+            ):
+                continue
+            yield name, shape
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:

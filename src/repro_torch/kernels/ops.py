@@ -7,9 +7,13 @@ hand-written kernels in ``kernels/reassemble.py``,
 ``kernels/flash_attention.py``, ``kernels/mamba_scan.py`` and
 ``kernels/rglru_scan.py`` (which raise if they cannot launch), CPU
 tensors to the plain PyTorch versions in ``kernels/ref.py``. There is no
-fallback from one to the other. Host metadata (index maps from
-``data/packing.py``) may be passed as NumPy arrays; it is checked on the
-host and uploaded next to the data.
+fallback from one to the other. The five compute entries also take meta
+tensors (the dry run's, ``launch/dryrun.py``): those go to the
+``ckio_meta`` ops of ``kernels/meta.py``, which give shapes, FLOPs and a
+DTensor sharding rule and run nothing; the check is one attribute read,
+ahead of the CUDA and CPU dispatch, which is unchanged. Host metadata
+(index maps from ``data/packing.py``) may be passed as NumPy arrays; it is
+checked on the host and uploaded next to the data.
 """
 from __future__ import annotations
 
@@ -69,6 +73,9 @@ def flash_attention(
     disagree there, and no caller uses it."""
     if window > 0 and not causal:
         raise ValueError("flash_attention: window > 0 needs causal=True")
+    if q.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.flash_attention(q, k, v, causal=causal, window=window)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if _on_cuda(q, k, v):
         _forward_only((q, k, v), FA.FORWARD_ONLY)
@@ -92,6 +99,9 @@ def mamba_scan(
     with S = 1. The CUDA kernel is forward-only: it raises
     ``NotImplementedError`` where autograd would need a gradient through
     it; the plain version on CPU tensors is differentiable."""
+    if Abar.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.mamba_scan(Abar, Bx, C, h0=h0, return_state=return_state)
     ins = (Abar, Bx, C) if h0 is None else (Abar, Bx, C, h0)
     if _on_cuda(*ins):
         _forward_only(ins, MS.FORWARD_ONLY)
@@ -114,6 +124,9 @@ def rglru_scan(
     with S = 1. The CUDA kernel is forward-only: it raises
     ``NotImplementedError`` where autograd would need a gradient through
     it; the plain version on CPU tensors is differentiable."""
+    if a.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.rglru_scan(a, b, h0=h0)
     ins = (a, b) if h0 is None else (a, b, h0)
     if _on_cuda(*ins):
         _forward_only(ins, LRU.FORWARD_ONLY)
@@ -141,6 +154,10 @@ def mamba_scan_fused(
     reference's ``_fused_chunk_scan`` plus its skip and gate. Views (``z``
     of ``xz``, ``proj``'s columns) are read through their strides. The CUDA
     kernel is forward-only, as ``mamba_scan``."""
+    if xin.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.mamba_scan_fused(xin, dt_pre, dt_bias, A_log, proj, Dskip,
+                                     z, h0=h0, return_state=return_state)
     ins = [xin, dt_pre, dt_bias, A_log, proj, Dskip, z]
     if h0 is not None:
         ins.append(h0)
@@ -173,6 +190,10 @@ def rglru_scan_gated(
     softplus(lam) sigmoid(r_pre + b_r))`` and input ``sqrt(1 - a^2)
     sigmoid(i_pre + b_i) xr``. ``xr`` and ``gate`` are read through their
     strides. The CUDA kernel is forward-only, as ``rglru_scan``."""
+    if r_pre.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.rglru_scan_gated(r_pre, i_pre, b_r, b_i, lam, xr, gate,
+                                     h0=h0, return_state=return_state)
     ins = [r_pre, i_pre, b_r, b_i, lam, xr, gate]
     if h0 is not None:
         ins.append(h0)

@@ -1,1 +1,1 @@
-"""Launchers: the train driver."""
+"""Launchers: the train and serve drivers, the dry run and its roofline."""

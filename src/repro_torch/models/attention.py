@@ -63,18 +63,40 @@ def init_cache(batch: int, capacity: int, kv_heads: int, head_dim: int,
 
 
 def attn_init(gen, d: int, heads: int, kv_heads: int, head_dim: int, dtype,
-              device, bias: bool = False, qk_norm: bool = False) -> dict:
+              device, bias: bool = False, qk_norm: bool = False,
+              phys_heads: int = 0, phys_kv: int = 0) -> dict:
+    """``phys_heads``/``phys_kv`` pad (H, K) to TP-divisible physical counts
+    with the same G = H/K (e.g. phi4's (24, 8) -> (48, 16)), as the
+    reference's ``attn_init`` does. Padded slices are zero: padded q, k and
+    v project to zero, their heads' attention output is exactly zero and
+    ``wo``'s padded rows are zero, so the padded model computes the real
+    one's function, and gradients into padded slices vanish. Query head h
+    reads kv head h // G, so the padded query heads read only padded kv
+    heads."""
+    H = phys_heads or heads
+    K = phys_kv or kv_heads
+    if phys_heads or phys_kv:
+        if not (H % K == 0 and H // K == heads // kv_heads
+                and H >= heads and K >= kv_heads):
+            raise ValueError(f"padding must preserve the GQA ratio: "
+                             f"({heads},{kv_heads}) -> ({H},{K})")
     p = {
-        "wq": fan_in_init(gen, (d, heads, head_dim), d, dtype, device),
-        "wk": fan_in_init(gen, (d, kv_heads, head_dim), d, dtype, device),
-        "wv": fan_in_init(gen, (d, kv_heads, head_dim), d, dtype, device),
-        "wo": fan_in_init(gen, (heads, head_dim, d), heads * head_dim, dtype,
+        "wq": fan_in_init(gen, (d, H, head_dim), d, dtype, device),
+        "wk": fan_in_init(gen, (d, K, head_dim), d, dtype, device),
+        "wv": fan_in_init(gen, (d, K, head_dim), d, dtype, device),
+        "wo": fan_in_init(gen, (H, head_dim, d), heads * head_dim, dtype,
                           device),
     }
+    if H > heads:
+        p["wq"][:, heads:] = 0.0
+        p["wo"][heads:] = 0.0
+    if K > kv_heads:
+        p["wk"][:, kv_heads:] = 0.0
+        p["wv"][:, kv_heads:] = 0.0
     if bias:
-        p["bq"] = torch.zeros((heads, head_dim), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((kv_heads, head_dim), dtype=dtype, device=device)
-        p["bv"] = torch.zeros((kv_heads, head_dim), dtype=dtype, device=device)
+        p["bq"] = torch.zeros((H, head_dim), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((K, head_dim), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((K, head_dim), dtype=dtype, device=device)
     if qk_norm:
         p["q_norm"] = rmsnorm_init(head_dim, dtype, device)
         p["k_norm"] = rmsnorm_init(head_dim, dtype, device)
@@ -174,6 +196,9 @@ def attention_train(
     if use_rope:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = shard_act(q, "batch", None, "model", None)
+    k = shard_act(k, "batch", None, "model", None)
+    v = shard_act(v, "batch", None, "model", None)
     S = x.shape[1]
     if q_chunk and S > q_chunk and S % q_chunk == 0 and causal:
         out = _chunked_sdpa(q, k, v, causal=causal, window=window,

@@ -40,6 +40,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_init,
     normal_init,
+    shard_act,
     softmax_xent,
     unembed_logits,
 )
@@ -99,6 +100,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
     eps = cfg.norm_eps
     S = frames.shape[1]
     x = frames.to(dt) + params["enc_pos"][:S].to(dt)
+    x = shard_act(x, "batch", None, None)
     for lp in params["enc_blocks"]:
         x = x + attn_mod.bidirectional_attention(
             lp["attn"], layernorm(lp["norm1"], x, eps), dtype=dt, eps=eps,

@@ -3,7 +3,9 @@
 Conventions follow the reference package:
   * params live in ``param_dtype`` (fp32), compute casts to ``dtype``
     (bf16); norms and the softmax accumulate in fp32;
-  * ``shard_act`` is a no-op: the port runs on one device so far.
+  * activation sharding hints go through ``shard_act`` at the reference's
+    call sites: a redistribution on a DTensor (the dry run's pass B), a
+    no-op on a plain tensor.
 """
 from __future__ import annotations
 
@@ -13,14 +15,47 @@ import torch
 import torch.nn.functional as F
 
 
+BATCH_AXES = ("pod", "data")
+
+
 def shard_act(x: torch.Tensor, *spec) -> torch.Tensor:
-    """Activation sharding hint; a no-op on one device."""
-    return x
+    """The reference's ``with_sharding_constraint`` hint. On a DTensor:
+    redistributed so that dim i is sharded over ``spec[i]`` (an axis name,
+    a tuple of them, ``"batch"`` for the mesh's batch axes, or None) and
+    replicated over every other mesh axis (a partial sum is reduced).
+    Axes the mesh lacks are dropped, and so are axes that do not divide
+    the dim: GSPMD pads such a dim, DTensor cannot reshape an uneven shard
+    (phi4's 24 heads over 16), so the dim stays replicated there. On a
+    plain tensor: returned as it is, after one type check."""
+    if type(x) is torch.Tensor or not hasattr(x, "device_mesh"):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    where = {}
+    for i, s in enumerate(spec):
+        axes = (BATCH_AXES if s == "batch" else (s,) if isinstance(s, str)
+                else tuple(s or ()))
+        axes = [a for a in axes
+                if a in names and mesh.size(names.index(a)) > 1]
+        n = 1
+        for a in axes:
+            n *= mesh.size(names.index(a))
+        if axes and x.shape[i] % n == 0:
+            where.update({a: i for a in axes})
+    return x.redistribute(mesh, [Shard(where[a]) if a in where else
+                                 Replicate() for a in names])
 
 
 # -- initializers ----------------------------------------------------------------
 def normal_init(gen: torch.Generator, shape, scale: float, dtype,
                 device) -> torch.Tensor:
+    """Normal draws from ``gen`` times ``scale``. On the meta device (the
+    dry run's abstract params, ``Model.abstract_params``) only the shape
+    and dtype exist: no number is drawn and ``gen`` is not read."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return (x * scale).to(dtype)
 
@@ -67,12 +102,19 @@ def embed_lookup(params: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of the table cast to ``dtype``. Gathers first and casts the
     gathered rows: the same values as the reference's cast-then-take, without
     a second copy of the (V, d) table."""
-    return F.embedding(tokens, params["table"]).to(dtype)
+    if tokens.device.type == "meta":
+        # the dry run: a lookup that a vocab-sharded DTensor can run
+        from repro_torch.kernels import meta
+        out = meta.embedding(tokens, params["table"])
+    else:
+        out = F.embedding(tokens, params["table"])
+    return shard_act(out.to(dtype), "batch", None, None)
 
 
 def unembed_logits(params: dict, x: torch.Tensor, dtype) -> torch.Tensor:
     """Tied unembedding: ``x @ table.T`` in ``dtype``."""
-    return torch.matmul(x, params["table"].to(dtype).t())
+    return shard_act(torch.matmul(x, params["table"].to(dtype).t()),
+                     "batch", None, "model")
 
 
 # -- dense / MLP ------------------------------------------------------------------
@@ -125,10 +167,12 @@ def mlp_apply(params: dict, x: torch.Tensor, act: str, dtype) -> torch.Tensor:
         g = x @ params["gate"].to(dtype)
         u = x @ params["up"].to(dtype)
         nl = F.silu if act == "silu" else gelu
-        return (nl(g) * u) @ params["down"].to(dtype)
+        h = shard_act(nl(g) * u, "batch", None, "model")
+        return h @ params["down"].to(dtype)
     if act != "gelu":
         raise ValueError(f"unknown MLP activation {act!r}")
     h = gelu(x @ params["fc1"].to(dtype) + params["fc1_b"].to(dtype))
+    h = shard_act(h, "batch", None, "model")
     return h @ params["fc2"].to(dtype) + params["fc2_b"].to(dtype)
 
 
@@ -138,6 +182,10 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     """Depthwise causal conv over seq: x (B, S, c), w (cw, c), b (c,).
     A cross-correlation with cw-1 zeros on the left, as the reference's
     ``conv_general_dilated`` with ``feature_group_count=c`` (no flip)."""
+    if x.device.type == "meta":
+        # the dry run: a conv whose channels a DTensor can shard
+        from repro_torch.kernels import meta
+        return meta.causal_conv(x, w, b)
     cw, c = w.shape
     xt = F.pad(x.transpose(1, 2), (cw - 1, 0))            # (B, c, S+cw-1)
     y = F.conv1d(xt, w.t().unsqueeze(1), groups=c)        # (B, c, S)
@@ -200,11 +248,17 @@ def softmax_xent(
     if mode not in ("gather", "onehot"):
         raise ValueError(f"unknown xent mode {mode!r}")
     lf = logits.float()
-    m = lf.amax(dim=-1, keepdim=True).detach()
-    shifted = lf - m
-    lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    gold = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    # the hints keep the logits vocab-sharded on a DTensor, as GSPMD does
+    m = shard_act(lf.amax(dim=-1, keepdim=True).detach(), "batch", None, None)
+    shifted = shard_act(lf - m, "batch", None, "model")
+    lse = torch.log(shard_act(torch.exp(shifted).sum(dim=-1), "batch", None))
+    if shifted.device.type == "meta":
+        # the dry run: a masked gather that a vocab-sharded DTensor can run
+        from repro_torch.kernels import meta
+        gold = meta.take_labels(shifted, labels)
+    else:
+        gold = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
+    nll = lse - shard_act(gold, "batch", None)
     if valid is not None:
         v = valid.float()
         return (nll * v).sum() / v.sum().clamp_min(1.0)

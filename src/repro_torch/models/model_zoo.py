@@ -2,7 +2,11 @@
 local attention blocks with dense or Mixture-of-Experts FFNs,
 attention-free Mamba-1 blocks and Griffin's RG-LRU blocks; token or
 patch-embedding input) and the encoder-decoder stack (whisper), picked by
-``cfg.is_encdec`` as in the reference."""
+``cfg.is_encdec`` as in the reference.
+
+Also home of ``abstract_params`` / ``input_specs`` / ``decode_state_specs``:
+the stand-ins the dry run (``launch/dryrun.py``) runs the model on, meta
+tensors in the port's own trees (no allocation, no random draw)."""
 from __future__ import annotations
 
 import functools
@@ -11,9 +15,12 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
+from repro_torch.models.attention import init_cache
+
+_META = torch.device("meta")
 
 
 class Model:
@@ -31,6 +38,12 @@ class Model:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         return self._m.init_model(gen, self.cfg, dev)
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The params' tree on the meta device: every leaf's shape and
+        dtype, nothing allocated, no number drawn (``layers.normal_init``
+        reads no generator on meta)."""
+        return self._m.init_model(None, self.cfg, _META)
 
     # -- steps ------------------------------------------------------------------
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -78,6 +91,60 @@ class Model:
         if frames.device.type != "cpu":
             raise ValueError(f"frames on {frames.device}, params on {dev}")
         return frames.to(dev)
+
+    # -- dry-run specs ------------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """The batch of one step of ``shape`` as meta tensors, the
+        reference's ``input_specs``: int32 tokens and labels (as the
+        pipeline delivers them), embeddings in the compute dtype."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        act = transformer._DTYPES[cfg.dtype]
+        d = cfg.d_model
+
+        def ids(*s):
+            return torch.empty(s, dtype=torch.int32, device=_META)
+
+        if shape.kind == "decode":
+            return {"tokens": ids(B, 1)}
+        if cfg.is_encdec:
+            batch = {"embeds": torch.empty((B, cfg.encoder_seq, d), dtype=act,
+                                           device=_META),
+                     "tokens": ids(B, S)}
+        elif cfg.input_mode == "embeddings":
+            batch = {"embeds": torch.empty((B, S, d), dtype=act, device=_META)}
+            if cfg.mrope_sections:
+                batch["positions"] = torch.empty((B, S, 3), dtype=torch.int32,
+                                                 device=_META)
+        else:
+            batch = {"tokens": ids(B, S)}
+        if shape.kind == "train":
+            batch["labels"] = ids(B, S)
+        return batch
+
+    def decode_state_specs(self, shape: ShapeConfig):
+        """The decode state of a ``decode_*`` shape on meta: a cache of
+        ``seq_len`` slots a global layer (the window's a local one) at
+        ``pos = seq_len - 1``, the last slot, so that the step attends over
+        every slot the reference's slot mask keeps. Encoder-decoder: the
+        self-attention rings and each layer's cross (k, v) over
+        ``encoder_seq`` frames, without running the encoder."""
+        if shape.kind != "decode":
+            raise ValueError(f"decode_state_specs of a {shape.kind} shape")
+        cfg = self.cfg
+        B, budget = shape.global_batch, shape.seq_len
+        if not cfg.is_encdec:
+            return transformer.init_decode_state(cfg, B, budget, _META,
+                                                 pos=budget - 1)
+        dt = transformer._DTYPES[cfg.dtype]
+        K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        kv = lambda: torch.empty((B, cfg.encoder_seq, K, hd), dtype=dt,  # noqa: E731
+                                 device=_META)
+        return encdec.EncDecState(
+            self_caches=[init_cache(B, budget, K, hd, dt, _META)
+                         for _ in range(cfg.num_layers)],
+            cross_kv=[(kv(), kv()) for _ in range(cfg.num_layers)],
+            pos=budget - 1)
 
     @staticmethod
     def device(params) -> torch.device:

@@ -23,7 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import fan_in_init
+from repro_torch.models.layers import fan_in_init, shard_act
 
 
 def moe_init(gen: torch.Generator, d: int, num_experts: int, moe_ff: int,
@@ -79,12 +79,13 @@ def _route(
 
     # expert slot -> token (the sentinel column, written by every dropped
     # entry, is cut off)
-    idx_table = torch.full((B, E * C + 1), S, dtype=torch.int64, device=dev)
+    # (``new_*`` of ``dest``: a DTensor's, the dry run's pass B, too)
+    idx_table = dest.new_full((B, E * C + 1), S, dtype=torch.int64)
     idx_table.scatter_(1, dest, tok_sorted)
     idx_table = idx_table[:, :E * C].to(torch.int32)
 
     # (token, choice) -> slot: ``order`` is a permutation of each row
-    slot_of = torch.empty((B, S * k), dtype=torch.int64, device=dev)
+    slot_of = dest.new_empty((B, S * k), dtype=torch.int64)
     slot_of.scatter_(1, order, dest)
     return idx_table, slot_of.to(torch.int32).reshape(B, S, k), top_w, probs
 
@@ -132,12 +133,13 @@ def moe_apply(
     # dispatch: gather the expert inputs (sentinel row S gives zeros)
     xp = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
     xe = torch.gather(xp, 1, idx_table.long()[..., None].expand(B, E * C, d))
-    xe = xe.reshape(B, E, C, d)
+    xe = shard_act(xe.reshape(B, E, C, d), "batch", "model", None, None)
 
     g = torch.einsum("becd,edf->becf", xe, params["gate"].to(dtype))
     u = torch.einsum("becd,edf->becf", xe, params["up"].to(dtype))
     h = F.silu(g) * u
     ye = torch.einsum("becf,efd->becd", h, params["down"].to(dtype))
+    ye = shard_act(ye, "batch", "model", None, None)
 
     # combine: each token's k slot outputs, weighted and summed
     yp = torch.cat([ye.reshape(B, E * C, d), ye.new_zeros((B, 1, d))], dim=1)
@@ -150,5 +152,6 @@ def moe_apply(
     if "shared_gate" in params:
         sg = x @ params["shared_gate"].to(dtype)
         su = x @ params["shared_up"].to(dtype)
-        out = out + (F.silu(sg) * su) @ params["shared_down"].to(dtype)
+        sh = shard_act(F.silu(sg) * su, "batch", None, "model")
+        out = out + sh @ params["shared_down"].to(dtype)
     return out.to(x.dtype), aux

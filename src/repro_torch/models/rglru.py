@@ -31,7 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv, fan_in_init, gelu
+from repro_torch.models.layers import causal_conv, fan_in_init, gelu, shard_act
 
 _C = 8.0
 
@@ -76,10 +76,11 @@ def _recurrence(params: dict, xr: torch.Tensor, gate: torch.Tensor,
 
 def rglru_apply(params: dict, x: torch.Tensor, *, dtype) -> torch.Tensor:
     """Train/prefill forward: x (B, S, d) -> (B, S, d)."""
-    xr = x @ params["wx"].to(dtype)
+    xr = shard_act(x @ params["wx"].to(dtype), "batch", None, "model")
     xr = causal_conv(xr, params["conv_w"].to(dtype), params["conv_b"].to(dtype))
     gate = gelu(x @ params["wy"].to(dtype))
     y, _ = _recurrence(params, xr, gate)
+    y = shard_act(y, "batch", None, "model")
     return y @ params["wo"].to(dtype)
 
 

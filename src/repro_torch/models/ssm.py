@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import causal_conv, fan_in_init
+from repro_torch.models.layers import causal_conv, fan_in_init, shard_act
 
 IMPLS = ("materialized", "fused")
 
@@ -108,6 +108,7 @@ def mamba_apply(params: dict, x: torch.Tensor, *, dtype,
         raise ValueError(f"unknown ssm_impl {impl!r} (expected one of {IMPLS})")
     xz = x @ params["in_proj"].to(dtype)                    # (B, S, 2di)
     xin, z = xz.chunk(2, dim=-1)
+    xin = shard_act(xin, "batch", None, "model")
     xin = F.silu(causal_conv(xin, params["conv_w"].to(dtype),
                              params["conv_b"].to(dtype)))
     if impl == "fused":
@@ -119,6 +120,7 @@ def mamba_apply(params: dict, x: torch.Tensor, *, dtype,
         y = ops.mamba_scan(Abar, Bx, Cc).to(dtype)
         y = y + params["D"].to(dtype) * xin
         y = y * F.silu(z)
+    y = shard_act(y, "batch", None, "model")
     return y @ params["out_proj"].to(dtype)
 
 

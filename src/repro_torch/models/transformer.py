@@ -53,6 +53,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_init,
     rope_angles,
+    shard_act,
     softmax_xent,
     unembed_logits,
 )
@@ -111,7 +112,9 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec, device
     else:
         p["mixer"] = attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
                                cfg.resolved_head_dim, pd, device,
-                               bias=cfg.attn_bias, qk_norm=cfg.qk_norm)
+                               bias=cfg.attn_bias, qk_norm=cfg.qk_norm,
+                               phys_heads=cfg.num_heads_phys,
+                               phys_kv=cfg.num_kv_heads_phys)
     if spec.ffn != NONE:
         p["norm2"] = rmsnorm_init(d, pd, device)
         if spec.ffn == MOE:
@@ -125,9 +128,6 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, spec, device
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, device
                ) -> Dict[str, Any]:
-    if cfg.num_heads_phys or cfg.num_kv_heads_phys:
-        raise NotImplementedError("physical head padding comes with the "
-                                  "sharding slice (ROADMAP.md, Queue A)")
     pd = _pdtype(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, pd, device),
@@ -175,7 +175,7 @@ def apply_layer_train(params, spec, cfg: ModelConfig, x, cos, sin
         x = x + f
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux
+    return shard_act(x, "batch", None, None), aux
 
 
 def forward_backbone(params, cfg: ModelConfig, x, cos, sin
@@ -232,7 +232,7 @@ def _input_x(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     the vision frontend is a stub, as in the reference), else its
     ``tokens`` (B, S) looked up in the table."""
     if cfg.input_mode == "embeddings" and "embeds" in batch:
-        x = batch["embeds"].to(_dtype(cfg))
+        x = shard_act(batch["embeds"].to(_dtype(cfg)), "batch", None, None)
         return x, x.shape[0], x.shape[1]
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -242,7 +242,8 @@ def _input_x(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 def _logits(params, cfg: ModelConfig, x) -> torch.Tensor:
     if cfg.tie_embeddings:
         return unembed_logits(params["embed"], x, _dtype(cfg))
-    return x @ params["lm_head"]["w"].to(_dtype(cfg))
+    return shard_act(x @ params["lm_head"]["w"].to(_dtype(cfg)),
+                     "batch", None, "model")
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
@@ -294,8 +295,8 @@ def init_layer_state(cfg: ModelConfig, spec, batch: int, seq_budget: int,
         return rglru_init_state(batch, cfg.lru_width, cfg.conv_width,
                                 _dtype(cfg), device)
     return init_cache(batch, _layer_capacity(cfg, spec, seq_budget),
-                      cfg.num_kv_heads, cfg.resolved_head_dim, _dtype(cfg),
-                      device)
+                      cfg.num_kv_heads_phys or cfg.num_kv_heads,
+                      cfg.resolved_head_dim, _dtype(cfg), device)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_budget: int, device,

@@ -37,6 +37,16 @@ def leaves(tree: Any) -> List[torch.Tensor]:
     return [t for v in tree for t in leaves(v)]
 
 
+def like_layout(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``ref``'s layout before an in-place update of ``ref``: a
+    DTensor gradient (the dry run's pass B) can be placed otherwise than
+    its accumulator or its ZeRO-1 moment, and an in-place op cannot move
+    it. A plain tensor is returned as it is, after one type check."""
+    if type(t) is torch.Tensor or t.placements == ref.placements:
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
+
+
 def lr_at(cfg: OptConfig, step: int) -> float:
     s = float(step)
     if s < cfg.warmup_steps:
@@ -100,7 +110,7 @@ def adamw_update(
                else [None] * len(ps))
     for p, g, mu, nu, master in zip(ps, grads, leaves(opt_state["mu"]),
                                     leaves(opt_state["nu"]), masters):
-        g = g.float() * scale
+        g = like_layout(g.float() * scale, mu)
         mu.mul_(b1).add_(g, alpha=1 - b1)
         nu.mul_(b2).add_(g.square(), alpha=1 - b2)
         ref = master if master is not None else p.float()

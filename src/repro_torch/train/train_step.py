@@ -15,7 +15,8 @@ import torch
 from repro_torch.models.convert import reference_leaf_groups
 from repro_torch.models.model_zoo import Model
 from repro_torch.train import grad_compress
-from repro_torch.train.optimizer import OptConfig, adamw_update, leaves
+from repro_torch.train.optimizer import (
+    OptConfig, adamw_update, leaves, like_layout)
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], nmb: int
@@ -29,10 +30,13 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], nmb: int
 
 
 def make_loss_and_grads(
-    model: Model, num_microbatches: int = 1, accum_dtype=torch.float32
+    model: Model, num_microbatches: int = 1, accum_dtype=torch.float32,
+    split: Callable = _split_microbatches,
 ) -> Callable:
     """Returns ``loss_and_grads(params, batch) -> (loss, grads, metrics)``;
-    ``grads`` are in ``leaves(params)`` order."""
+    ``grads`` are in ``leaves(params)`` order. ``split(batch, nmb)`` gives
+    the microbatches (the dry run's DTensor pass passes one that keeps each
+    microbatch sharded over the batch axes)."""
 
     def loss_and_grads(params, batch) -> Tuple[torch.Tensor, List, Dict]:
         ps = leaves(params)
@@ -43,14 +47,14 @@ def make_loss_and_grads(
             loss_sum = torch.zeros((), dtype=torch.float32, device=ps[0].device)
             acc = None
             metrics = {}
-            for mb in _split_microbatches(batch, nmb):
+            for mb in split(batch, nmb):
                 loss, metrics = model.loss(params, mb)
                 grads = torch.autograd.grad(loss, ps)
                 if acc is None:
                     acc = [g.to(accum_dtype) for g in grads]
                 else:
                     for a, g in zip(acc, grads):
-                        a.add_(g.to(accum_dtype))
+                        a.add_(like_layout(g.to(accum_dtype), a))
                 loss_sum = loss_sum + loss.detach()
                 del grads, loss
         finally:
@@ -72,6 +76,7 @@ def make_train_step(
     num_microbatches: int = 1,
     accum_dtype=torch.float32,
     compression: Optional[str] = None,        # None|"bf16"|"int8_ef"
+    split: Callable = _split_microbatches,
 ) -> Callable:
     """Returns ``train_step(params, opt_state, batch[, ef_state]) ->
     (params, opt_state, metrics[, ef_state])``; params and optimizer state
@@ -81,7 +86,8 @@ def make_train_step(
     if compression not in (None, "bf16", "int8_ef"):
         raise ValueError(f"unknown compression {compression!r} "
                          f"(expected None, 'bf16' or 'int8_ef')")
-    loss_and_grads = make_loss_and_grads(model, num_microbatches, accum_dtype)
+    loss_and_grads = make_loss_and_grads(model, num_microbatches, accum_dtype,
+                                         split)
     groups: List[List[int]] = []   # int8 scale groups, from the first step
 
     def train_step(params, opt_state, batch, ef_state=None):
