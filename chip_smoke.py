@@ -217,9 +217,11 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              phase 22's spawn -> attached, and ``get_batch_device`` with its
              share of each step; a re-armed session's checkout must be at
              least 5x below phase 22's fastest spawn -> attached. Then
-             phi4-mini at full width, all 32 layers, weights from seed 0 as
-             phase 13 makes them, served ``--continuous --service
-             --pool-workers 2`` (3 requests): tokens equal to the
+             phi4-mini at full width with 4 of its 32 layers (phase 13
+             serves all 32; this run's subject is the pool, so its depth is
+             cut to keep the script's time), weights from seed 0, served
+             ``--continuous --service --pool-workers 2 --layers 4`` (3
+             requests): tokens equal to the
              sequential oracle's, every request's session pooled, one
              flash-attention launch a layer a decode call. Then phase 22's
              fault pipeline on a pool of 4: ``respawn`` (the tail re-armed
@@ -266,7 +268,34 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              ``forward_logits``' last logits (plain attention), bf16 and
              fp32; an admission is timed, B=1 decode calls timed and 8
              profiled;
-27. dryrun   ``repro_torch.launch.dryrun.run_cell`` on the 1-card host
+27. sharded  the constructor-sharded pipeline, on a world-size-1 process
+             group over the card (nccl; gloo if nccl refuses) and a
+             ``("data",)`` ``DeviceMesh``: (a) the main path of phases 4-5
+             (phi4-mini at full width, 4 layers, B=8 x 2048, 4
+             microbatches, 4 steps) from a pipeline built with
+             ``sharding=NamedSharding(mesh, P("data", None))``, whole-window
+             and streamed: each batch's ``to_local()`` and the 4 losses
+             bit-equal to phase 4's, ``ShardMetrics`` exact (window bytes =
+             addressable bytes, 0 cross-host; 4 copies whole-window, more
+             streamed), 4 window-kernel launches a mode, ``get_batch_device``
+             and its share of the step beside phases 4-5's; (b) two ranks on
+             the one card: two processes of this script
+             (``--sharded-rank``), a gloo group over a ``FileStore``, each
+             reading the corpus's first 2 windows whole-window and streamed:
+             each stages its 4-row block alone and counts the other's bytes
+             cross-host, and the two blocks tile phase 4's batches; (c)
+             ``ops.ingest_chunks_block`` and ``ops.ingest_chunks_tokens``
+             over the arrival-ordered splinters of a real session (16 KiB
+             splinters, one chunk each), bit-equal to their plain versions
+             and to ``ops.reassemble_window`` of the file-order window; (d)
+             the phase's params saved and restored by ``restore_sharded``
+             onto ``param_specs`` over the 1-rank mesh, every leaf's local
+             block bit-equal to ``restore_tree``'s, its placements the
+             spec's. The group is destroyed before ``dryrun``;
+28. examples ``examples/torch_serve_lm.py`` at its preset (reduced
+             recurrentgemma, 12 requests, batch 4) on the card, in this
+             process: the gated RG-LRU and flash-attention kernels run;
+29. dryrun   ``repro_torch.launch.dryrun.run_cell`` on the 1-card host
              mesh at phase 4's train configuration (phi4-mini, 4 layers,
              B = 8 x 2048, 4 microbatches) and at phase 13's B=1 phi4-mini
              decode call (32 layers, a 144-slot cache, position 143), on
@@ -281,7 +310,7 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              call times are printed against the roofline's ``step_s``
              (``launch/roofline.py``, H100 constants) as a share, beside
              the card's name and power limit;
-28. profile  only with ``--profile``: two whole-window main-path steps, 16
+30. profile  only with ``--profile``: two whole-window main-path steps, 16
              B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
              recurrentgemma under ``torch.profiler`` (device busy share,
              kernels and copies a call, kernels by device time).
@@ -291,7 +320,9 @@ each mode of phases 13-20, the prefill forwards of phase 14's replay check,
 the two ring-wrap replays, the three driver runs of phase 21, each driver
 run and fault pipeline of phase 22, each driver run, the serving run and
 each fault pipeline of phase 23, each driver run of phase 24, and each mode
-and replay of phases 25-26) and read just after it. The line before the last is a JSON object with one entry per kernel;
+and replay of phases 25-26, each mode of phase 27 (a), each rank and mode
+of (b) in its own process, (c) and the example of phase 28) and read just
+after it. The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -419,6 +450,8 @@ NEW_SHAPES = [
     *[(b, AUD_H, AUD_H, AUD_FRAMES, AUD_FRAMES, AUD_HD, False)
       for b in (1, 4)],
 ]
+# The sharded phase's two-rank check: steps each rank reads a mode.
+RANK_STEPS = 2
 # Logits of a prompt replayed through decode (kernel attention) against the
 # plain prefill forward: relative L2 bound by compute dtype. In bf16 each
 # path is ~2e-2 from the fp32 logits after 32 layers (a CPU run of
@@ -497,15 +530,21 @@ def arrival_row_idx(rng, b: int, s: int, splinter_tokens: int):
     ``s+1`` tokens staged in ``splinter_tokens`` pieces in a shuffled
     arrival order, from ``data.packing.token_gather_from_pieces`` and
     ``row_gather_index``: runs of contiguous staged positions."""
-    import numpy as np
-
-    from repro_torch.data.packing import row_gather_index, token_gather_from_pieces
-
     n = b * (s + 1)
     pieces = [(4 * o, 4 * min(splinter_tokens, n - o))
               for o in range(0, n, splinter_tokens)]
     pieces = [pieces[i] for i in rng.permutation(len(pieces))]
-    g = token_gather_from_pieces(pieces, 0, 4)
+    return pieces_row_idx(pieces, 0, b, s)
+
+
+def pieces_row_idx(pieces, off: int, b: int, s: int):
+    """The token map (``(b, s+1)`` int32) of int32 ``pieces`` (``(byte
+    offset, bytes)``, in staged order) of a window at byte ``off``."""
+    import numpy as np
+
+    from repro_torch.data.packing import row_gather_index, token_gather_from_pieces
+
+    g = token_gather_from_pieces(pieces, off, 4)
     return np.ascontiguousarray(row_gather_index(g, global_batch=b, seq_len=s))
 
 
@@ -614,6 +653,8 @@ class Smoke:
         os.makedirs(build, exist_ok=True)
         self.tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=build)
         self.batches = {}
+        self.losses = {}
+        self.ingest_time = {}      # mode -> (get_batch_device s, step s)
 
     def phase(self, name, fn):
         log(f"== phase {name}")
@@ -822,14 +863,14 @@ class Smoke:
             num_microbatches=MICROBATCHES, compression=compression)
         return cfg, path, model, params, init_opt_state(params), step_fn
 
-    def _pipeline(self, path, streaming: bool):
+    def _pipeline(self, path, streaming: bool, sharding=None):
         from repro_torch.core import CkIO, FileOptions
         from repro_torch.data import CkIOPipeline
 
         return CkIOPipeline(
             path, B, S, ckio=CkIO(num_pes=4, pes_per_node=4),
             num_consumers=16, file_opts=FileOptions(num_readers=4),
-            streaming=streaming, device=self.dev)
+            streaming=streaming, sharding=sharding, device=self.dev)
 
     def main_path(self, streaming: bool):
         import numpy as np
@@ -923,9 +964,11 @@ class Smoke:
                                  f"{uploads} chunk tables (0 expected: the "
                                  f"main path's tables go by value)")
         self.batches[mode] = batches
+        self.losses[mode] = losses
         steady = t_steps[1:] or t_steps
         step_s = sum(steady) / len(steady)
         ingest_s = sum(t_ingest[1:] or t_ingest) / len(steady)
+        self.ingest_time[mode] = (ingest_s, step_s)
         # Model FLOPs of a step (no remat recompute): 6 per matmul param and
         # token (the tied embedding counts once, as the unembedding), plus
         # the attention scores and PV products, fwd + bwd, unmasked.
@@ -3113,11 +3156,12 @@ class Smoke:
                                  f"spawn -> attached")
 
     def _service_serve(self):
-        """phi4-mini at full width, all 32 layers, random weights from seed
-        0 as the serve phase makes them, served ``--continuous --service
-        --pool-workers 2``: every request's session on the pool, tokens
-        equal to the sequential oracle's, one flash-attention launch a
-        layer a decode call."""
+        """phi4-mini at full width with ``ARCH_LAYERS`` of its 32 layers
+        (the depth is the serve phase's subject, the pool this one's),
+        random weights from seed 0, served ``--continuous --service
+        --pool-workers 2 --layers ARCH_LAYERS``: every request's session on
+        the pool, tokens equal to the sequential oracle's, one
+        flash-attention launch a layer a decode call."""
         import numpy as np
         import torch
 
@@ -3127,14 +3171,15 @@ class Smoke:
         from repro_torch.models import build_model, transformer
         from repro_torch.serve import sequential_oracle
 
-        cfg = get_config("phi4-mini-3.8b")
+        cfg = get_config("phi4-mini-3.8b").replace(num_layers=ARCH_LAYERS)
         t0 = time.perf_counter()
         params = build_model(cfg.replace(param_dtype="float32")).init(
             0, device=self.dev)
         torch.cuda.synchronize()
-        log(f"service serve: phi4-mini weights made in "
-            f"{time.perf_counter() - t0:.1f} s")
-        argv = ["--arch", cfg.name, "--batch", str(SLOTS), "--prompt-len",
+        log(f"service serve: phi4-mini ({cfg.num_layers} layers) weights "
+            f"made in {time.perf_counter() - t0:.1f} s")
+        argv = ["--arch", cfg.name, "--layers", str(cfg.num_layers),
+                "--batch", str(SLOTS), "--prompt-len",
                 str(PROMPT), "--max-new", str(NEW), "--data",
                 os.path.join(self.tmp, "prompts_service.bin"), "--requests",
                 str(CONT_REQUESTS), "--continuous", "--arrival-rate",
@@ -3785,6 +3830,350 @@ class Smoke:
         torch.cuda.empty_cache()
 
     # -- 27 ----------------------------------------------------------------------
+    # -- 27, 28 ----------------------------------------------------------------
+    def sharded(self):
+        """The constructor-sharded pipeline on a world-size-1 group over
+        the card: (a) the main path trained from it, whole-window and
+        streamed, against phase 4; (b) two ranks on the one card, each
+        staging its block; (c) the staged-chunk ops over a real session's
+        arrival-ordered splinters; (d) ``restore_sharded``. The group is
+        destroyed before ``dryrun``, whose fake group is process-global."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.launch.sharding import NamedSharding, P
+
+        if dist.is_initialized():
+            raise AssertionError("sharded: a process group already exists")
+        try:
+            dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+            backend = "nccl"
+        except Exception as e:      # noqa: BLE001  (said, then gloo)
+            log(f"sharded: nccl refused a world-size-1 group ({e!r}); gloo")
+            dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+            backend = "gloo"
+        try:
+            mesh = DeviceMesh(self.dev.type, torch.arange(1),
+                              mesh_dim_names=("data",))
+            sh = NamedSharding(mesh, P("data", None))
+            log(f"sharded: {backend} group of 1, {mesh}, spec {sh.spec}, "
+                f"placements {sh.placements}; {self.card_line}")
+            t0 = time.perf_counter()
+            params, cfg = self._sharded_train(sh)
+            t1 = time.perf_counter()
+            self._sharded_ranks()
+            t2 = time.perf_counter()
+            self._staged_ops()
+            t3 = time.perf_counter()
+            self._restore_sharded(params, cfg, mesh)
+            t4 = time.perf_counter()
+            log(f"sharded: {self.card_line}: (a) train {t1 - t0:.1f} s, (b) "
+                f"two ranks {t2 - t1:.1f} s, (c) staged-chunk ops "
+                f"{t3 - t2:.1f} s, (d) restore_sharded {t4 - t3:.1f} s")
+        finally:
+            dist.destroy_process_group()
+
+    def _sharded_train(self, sh):
+        """(a) ``STEPS`` main-path steps from a constructor-sharded pipeline
+        per mode: local batches and losses bit-equal to phase 4's, the
+        stage ledger balanced. Returns the last run's params."""
+        import numpy as np
+        import torch
+
+        from repro_torch.kernels import reassemble as K
+
+        window = STEPS * B * (S + 1) * 4
+        for mode in ("window", "streamed"):
+            cfg, path, _, params, opt, step_fn = self._trainer()
+            pipe = self._pipeline(path, mode == "streamed", sharding=sh)
+            losses, batches, t_steps, t_ingest = [], [], [], []
+            K.reset_launch_counts()
+            try:
+                for step in range(STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    x, y = pipe.get_batch_device(step)
+                    t_ingest.append(time.perf_counter() - t0)
+                    if tuple(x.shape) != (B, S) or x.placements != tuple(
+                            sh.placements):
+                        raise AssertionError(f"sharded {mode}: DTensor "
+                                             f"{x.shape} {x.placements}")
+                    xl, yl = x.to_local(), y.to_local()
+                    params, opt, m = step_fn(params, opt,
+                                             {"tokens": xl, "labels": yl})
+                    losses.append(float(m["loss"]))   # synchronizes
+                    t_steps.append(time.perf_counter() - t0)
+                    batches.append((xl.cpu().numpy(), yl.cpu().numpy()))
+            finally:
+                pipe.close()
+            counts = dict(K.LAUNCHES)
+            self.launches[f"sharded/{mode}"] = counts
+            shards = pipe.ck.director.shards.summary()
+            del opt
+            for step, ((x, y), (xw, yw)) in enumerate(
+                    zip(batches, self.batches["window"])):
+                if not (np.array_equal(x, xw) and np.array_equal(y, yw)):
+                    raise AssertionError(f"sharded {mode} step {step}: batch "
+                                         f"differs from the window phase's")
+            if losses != self.losses["window"]:
+                raise AssertionError(f"sharded {mode}: losses {losses} vs the "
+                                     f"window phase's {self.losses['window']}")
+            puts = shards["device_put_calls"]
+            if not (shards["window_bytes"] == shards["addressable_bytes"]
+                    == window and shards["cross_host_bytes"] == 0
+                    and shards["cross_host_placements"] == 0
+                    and (puts == STEPS if mode == "window" else puts > STEPS)):
+                raise AssertionError(f"sharded {mode}: ShardMetrics {shards}")
+            if counts["reassemble_window"] != STEPS or K.TABLE_UPLOADS:
+                raise AssertionError(f"sharded {mode}: launches {counts}, "
+                                     f"{K.TABLE_UPLOADS} table uploads")
+            steady = t_steps[1:] or t_steps
+            step_s = sum(steady) / len(steady)
+            ingest_s = sum(t_ingest[1:] or t_ingest) / len(steady)
+            plain_in, plain_step = self.ingest_time[mode]
+            log(f"sharded {mode}: losses bit-equal to the window phase's "
+                f"{losses}; batches bit-equal; shards {json.dumps(shards)}; "
+                f"launches {json.dumps(counts)}")
+            log(f"sharded {mode}: {self.card_line}: get_batch_device "
+                f"{ingest_s * 1e3:.3f} ms = {ingest_s / step_s * 100:.3f} % of "
+                f"a {step_s * 1e3:.1f} ms step (host clock, steps 2-{STEPS}); "
+                f"unsharded ({mode} phase) {plain_in * 1e3:.3f} ms = "
+                f"{plain_in / plain_step * 100:.3f} % of {plain_step * 1e3:.1f}"
+                f" ms")
+            self.timing[f"sharded/{mode}"] = {"ingest_ms": ingest_s * 1e3,
+                                             "step_ms": step_s * 1e3}
+            if mode == "window":
+                del params
+                torch.cuda.empty_cache()
+        return params, cfg
+
+    def _sharded_ranks(self):
+        """(b) Two ranks on the one card: two processes, a gloo group over a
+        ``FileStore``, each reading ``RANK_STEPS`` steps whole-window and
+        streamed through ``sharded_rank_main``."""
+        import numpy as np
+
+        from repro_torch.data.tokenfile import write_token_file
+
+        d = os.path.join(self.tmp, "ranks")
+        os.makedirs(d, exist_ok=True)
+        # The corpus's first RANK_STEPS windows alone, so that no step past
+        # them is prefetched and the stage ledger is exact.
+        _, corpus = self._corpus()
+        path = os.path.join(d, "corpus.bin")
+        write_token_file(path, np.fromfile(corpus, dtype=np.uint32,
+                                           offset=4096)[:RANK_STEPS * B * (S + 1)])
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+             str(r), "2", d, path, self.dev.type, str(B), str(S)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"sharded rank {r} exited "
+                                     f"{p.returncode}:\n{out}")
+        rows = B // 2
+        span = RANK_STEPS * rows * (S + 1) * 4
+        for mode in ("window", "streamed"):
+            got = []
+            for r in range(2):
+                with open(os.path.join(d, f"rank{r}_{mode}.json")) as f:
+                    rec = json.load(f)
+                sm = rec["shards"]
+                puts = sm["device_put_calls"]
+                if not (sm["addressable_bytes"] == span
+                        and sm["cross_host_bytes"] == span
+                        and sm["window_bytes"] == 2 * span
+                        and sm["devices_staged"] == 1
+                        and sm["max_device_bytes"] == span
+                        and (puts == RANK_STEPS if mode == "window"
+                             else puts >= RANK_STEPS)):
+                    raise AssertionError(f"sharded rank {r} {mode}: {sm}")
+                if rec["launches"]["reassemble_window"] != RANK_STEPS:
+                    raise AssertionError(f"sharded rank {r} {mode}: launches "
+                                         f"{rec['launches']}")
+                self.launches[f"sharded/rank{r}/{mode}"] = rec["launches"]
+                got.append(np.load(os.path.join(d, f"rank{r}_{mode}.npz")))
+                log(f"sharded rank {r} {mode}: shards {json.dumps(sm)}; "
+                    f"get_batch_device {rec['ingest_ms']} ms")
+            for step in range(RANK_STEPS):
+                xw, yw = self.batches["window"][step]
+                for r in range(2):
+                    x, y = got[r][f"x{step}"], got[r][f"y{step}"]
+                    if not (np.array_equal(x, xw[r * rows:(r + 1) * rows])
+                            and np.array_equal(y, yw[r * rows:(r + 1) * rows])):
+                        raise AssertionError(f"sharded rank {r} {mode} step "
+                                             f"{step}: block differs")
+                if not np.array_equal(np.concatenate(
+                        [got[0][f"x{step}"], got[1][f"x{step}"]]), xw):
+                    raise AssertionError(f"sharded {mode} step {step}: the "
+                                         f"blocks do not tile the batch")
+        log(f"sharded: two ranks on one card: each staged its {rows}-row "
+            f"block ({span} B over {RANK_STEPS} steps) and counted the "
+            f"other's {span} B cross-host; blocks tile the window phase's "
+            f"batches, both modes")
+
+    def _staged_ops(self):
+        """(c) ``ops.ingest_chunks_block`` and ``ops.ingest_chunks_tokens``
+        over a real session's splinters, staged on the card one chunk each
+        in arrival order: bit-equal to their plain versions and to
+        ``ops.reassemble_window`` over the file-order window."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import CkIO, FileOptions
+        from repro_torch.data.packing import (
+            as_block_permutation,
+            pieces_in_arrival_order,
+            token_gather_from_pieces,
+        )
+        from repro_torch.data.tokenfile import read_meta
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import reassemble as K
+
+        _, path = self._corpus()
+        meta = read_meta(path)
+        raw = np.fromfile(path, dtype=np.uint32, offset=4096).view(np.int32)
+        need = B * (S + 1)
+        ck = CkIO(num_pes=4, pes_per_node=4)
+        f = ck.open_sync(path, FileOptions(num_readers=4,
+                                           splinter_bytes=16 * 1024))
+        try:
+            off, nbytes = meta.byte_range_for_rows(0, need)
+            sess = ck.start_read_session_sync(f, nbytes, off)
+            ck.read_view_sync(sess, nbytes, off)
+            pieces = pieces_in_arrival_order(sess.plan.splinters,
+                                             ck.session_arrival_order(sess))
+            host = [raw[(o - 4096) // 4:(o - 4096 + nb) // 4].copy()
+                    for o, nb in pieces]
+            ck.close_read_session_sync(sess)
+        finally:
+            ck.close_sync(f)
+        chunks = [torch.from_numpy(c).to(self.dev) for c in host]
+        cpu = [torch.from_numpy(c) for c in host]
+        T = math.gcd(*[nb // 4 for _, nb in pieces],
+                     *[(o - off) // 4 for o, _ in pieces])
+        perm = as_block_permutation(token_gather_from_pieces(pieces, off, 4), T)
+        row_idx = pieces_row_idx(pieces, off, B, S)
+        file_order = ops.reassemble_window(
+            torch.from_numpy(raw[:need]).to(self.dev), global_batch=B,
+            seq_len=S)
+        K.reset_launch_counts()
+        block = ops.ingest_chunks_block(chunks, perm, global_batch=B, seq_len=S)
+        tokens = ops.ingest_chunks_tokens(chunks, row_idx)
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        self.launches["sharded/ops"] = counts
+        if counts != {"reassemble_window": 1, "reassemble": 1,
+                      "reassemble_tokens": 1}:
+            raise AssertionError(f"staged-chunk ops: launches {counts}")
+        plain_block = ops.ingest_chunks_block(cpu, perm, global_batch=B,
+                                              seq_len=S)
+        plain_tokens = ops.ingest_chunks_tokens(cpu, row_idx)
+        self._same("reassemble", block,
+                   tuple(t.to(self.dev) for t in plain_block))
+        self._same("reassemble", block, file_order)
+        self._same("reassemble_tokens", tokens,
+                   tuple(t.to(self.dev) for t in plain_tokens))
+        self._same("reassemble_tokens", tokens, file_order)
+        log(f"staged-chunk ops: {len(pieces)} arrival-ordered chunks of a "
+            f"session, blocks of {T} tokens; ingest_chunks_block and "
+            f"ingest_chunks_tokens bit-equal to their plain versions and to "
+            f"reassemble_window of the file-order window; launches "
+            f"{json.dumps(counts)}")
+
+    def _restore_sharded(self, params, cfg, mesh):
+        """(d) The phase's params saved, then restored with
+        ``restore_sharded`` onto ``param_specs`` over the 1-rank mesh: every
+        leaf's local block bit-equal to ``restore_tree``'s, its placements
+        the spec's."""
+        import torch
+
+        from repro_torch.launch.mesh import Mesh
+        from repro_torch.launch.sharding import (
+            param_specs,
+            to_named,
+            to_placements,
+            tree_map,
+        )
+        from repro_torch.train import restore_sharded, restore_tree, save_checkpoint
+
+        path = os.path.join(self.tmp, "sharded.ckpt")
+        t0 = time.perf_counter()
+        save_checkpoint(path, params, step=STEPS)
+        t1 = time.perf_counter()
+        specs = param_specs(params, Mesh(("data",), (1,)), cfg)
+        plain, step = restore_tree(path, params)
+        t2 = time.perf_counter()
+        placed, step2 = restore_sharded(path, params, to_named(specs, mesh))
+        t3 = time.perf_counter()
+        if not step == step2 == STEPS:
+            raise AssertionError(f"restore_sharded: steps {step}, {step2}")
+        trio = []
+        tree_map(lambda d, t, sp: trio.append((d, t, sp)), placed, plain,
+                 specs)
+        n = 0
+        for d, t, sp in trio:
+            pl = tuple(to_placements(sp, Mesh(("data",), (1,))))
+            if d.placements != pl or d.shape != t.shape:
+                raise AssertionError(f"restore_sharded: {d.placements} vs "
+                                     f"{pl}, {d.shape} vs {t.shape}")
+            if not torch.equal(d.to_local(), t):
+                raise AssertionError("restore_sharded: a leaf differs from "
+                                     "restore_tree's")
+            n += 1
+        nbytes = os.path.getsize(path)
+        os.remove(path)
+        log(f"restore_sharded: {n} leaves ({nbytes} B file) bit-equal to "
+            f"restore_tree's, placements the spec's; {self.card_line}: save "
+            f"{t1 - t0:.2f} s, restore_tree {t2 - t1:.2f} s, restore_sharded "
+            f"{t3 - t2:.2f} s (host clock)")
+
+    def examples(self):
+        """``examples/torch_serve_lm.py`` at its preset on the card, in this
+        process: recurrentgemma (reduced) decoding through the gated RG-LRU
+        and flash-attention kernels."""
+        import runpy
+
+        import torch
+
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import rglru_scan as LRU
+
+        K = (FA, LRU)
+        for mod in K:
+            mod.reset_launch_counts()
+        argv = sys.argv
+        sys.argv = [os.path.join(ROOT, "examples", "torch_serve_lm.py"),
+                    "--device", str(self.dev),
+                    "--data", os.path.join(self.tmp, "serve_example.bin")]
+        t0 = time.perf_counter()
+        try:
+            runpy.run_path(sys.argv[0], run_name="__main__")
+        finally:
+            sys.argv = argv
+        torch.cuda.synchronize()
+        counts = {}
+        for mod in K:
+            counts.update(mod.LAUNCHES)
+        self.launches["examples/serve"] = counts
+        if counts["flash_attention"] < 1 or counts["rglru_scan_gated"] < 1:
+            raise AssertionError(f"examples: launches {counts}")
+        log(f"examples: torch_serve_lm.py {time.perf_counter() - t0:.1f} s on "
+            f"{torch.cuda.get_device_name(0)}; launches {json.dumps(counts)}")
+
     def _dryrun_card(self, name, run, rec, launched):
         """Run ``run()`` on the card under the dry run's FLOP counter with
         the flash-attention wrapper recording each launch's formula; hold
@@ -3947,7 +4336,66 @@ class Smoke:
         return {"kernels": out}
 
 
+def sharded_rank_main(rank: int, world: int, d: str, path: str,
+                      device_type: str, b: int, s: int) -> None:
+    """One rank of the sharded phase's two-rank check, in a process of its
+    own: a gloo group over a ``FileStore`` in ``d``, a ``("data",)`` mesh of
+    ``world`` ranks (all on ``cuda:0`` for ``device_type`` cuda), and
+    ``RANK_STEPS`` steps of ``(b, s)`` batches of the corpus at ``path``
+    through a constructor-sharded pipeline, whole-window and streamed. Writes each
+    mode's local blocks (``rank{r}_{mode}.npz``) and its ``ShardMetrics``,
+    launches and ``get_batch_device`` times (``rank{r}_{mode}.json``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core import CkIO, FileOptions
+    from repro_torch.data import CkIOPipeline
+    from repro_torch.kernels import reassemble as K
+    from repro_torch.launch.sharding import NamedSharding, P
+
+    dev = torch.device("cuda", 0) if device_type == "cuda" else torch.device(
+        "cpu")
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(d, "store"), world),
+        rank=rank, world_size=world)
+    try:
+        mesh = DeviceMesh(device_type, torch.arange(world),
+                          mesh_dim_names=("data",))
+        sh = NamedSharding(mesh, P("data", None))
+        for mode in ("window", "streamed"):
+            pipe = CkIOPipeline(
+                path, b, s, ckio=CkIO(num_pes=4, pes_per_node=4),
+                num_consumers=16, file_opts=FileOptions(num_readers=4),
+                streaming=mode == "streamed", sharding=sh, device=dev)
+            K.reset_launch_counts()
+            out, ms = {}, []
+            try:
+                for step in range(RANK_STEPS):
+                    t0 = time.perf_counter()
+                    x, y = pipe.get_batch_device(step)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    out[f"x{step}"] = x.to_local().cpu().numpy()
+                    out[f"y{step}"] = y.to_local().cpu().numpy()
+            finally:
+                pipe.close()
+            np.savez(os.path.join(d, f"rank{rank}_{mode}.npz"), **out)
+            with open(os.path.join(d, f"rank{rank}_{mode}.json"), "w") as f:
+                json.dump({"shards": pipe.ck.director.shards.summary(),
+                           "launches": dict(K.LAUNCHES), "ingest_ms": ms}, f)
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--sharded-rank"]:     # one rank of phase 27 (b)
+        rank, world, d, path, device_type, b, s = sys.argv[2:9]
+        sharded_rank_main(int(rank), int(world), d, path, device_type,
+                          int(b), int(s))
+        return 0
     try:
         import torch
     except ImportError:
@@ -3992,6 +4440,8 @@ def main() -> int:
             sm.phase("numa", sm.numa)
             sm.phase("serve_vlm", sm.serve_vlm)
             sm.phase("serve_audio", sm.serve_audio)
+            sm.phase("sharded", sm.sharded)
+            sm.phase("examples", sm.examples)
             sm.phase("dryrun", sm.dryrun)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs.base import SHAPES, ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as _codeqwen
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.gemma3_27b import CONFIG as _gemma3
@@ -95,3 +95,13 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
             for s in pattern
         )
     return cfg.replace(**kw)
+
+
+def smoke_shape(shape: ShapeConfig) -> ShapeConfig:
+    """Tiny shape of the same kind for CPU smoke runs."""
+    return ShapeConfig(
+        name=f"smoke_{shape.name}",
+        seq_len=32,
+        global_batch=2,
+        kind=shape.kind,
+    )

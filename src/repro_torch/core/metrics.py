@@ -583,16 +583,33 @@ class ServiceMetrics:
 
 @dataclass
 class ShardMetrics:
-    """FileSet accounting, the read side: ``merge_session`` rides the
-    Director observer path (``Director.add_observer``), so each closing
-    session's ``SessionMetrics.shard_bytes`` (physical bytes per FileSet
-    shard) folds in here and drivers read one object after many sessions.
-    The reference's stage side (``device_put`` calls and cross-host
-    placements of a sharded pipeline) comes with the sharding slice."""
+    """FileSet / sharded-staging accounting.
+
+    Two feeds, one aggregate:
+
+    * **read side** — ``merge_session`` rides the Director observer path
+      (``Director.add_observer``): each closing session's
+      ``SessionMetrics.shard_bytes`` (physical bytes per FileSet shard)
+      folds in here, so drivers read one object after many sessions.
+    * **stage side** — the constructor-sharded pipeline records every
+      host→device copy it issues (``record_stage``, keyed by the device
+      key's ``str()``) plus, per step, the whole window size against the
+      bytes this rank staged (``record_window``). ``addressable_bytes <
+      window_bytes`` with ``cross_host_placements > 0`` is the multi-rank
+      proof: pieces bound for another rank's device were *placed*
+      (counted) but never staged here. With one rank the two are equal and
+      cross-host stays 0.
+    """
 
     lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
     sessions: int = 0
     shard_bytes: Dict[int, int] = field(default_factory=dict)
+    device_put_calls: int = 0
+    device_bytes: Dict[str, int] = field(default_factory=dict)
+    window_bytes: int = 0             # full (B, S+1) windows, summed
+    addressable_bytes: int = 0        # what THIS rank staged, summed
+    cross_host_placements: int = 0
+    cross_host_bytes: int = 0
 
     def merge_session(self, sm: "SessionMetrics") -> None:
         """Director observer: fold one finished session's per-shard reads."""
@@ -603,12 +620,39 @@ class ShardMetrics:
             for sh, nb in snap.items():
                 self.shard_bytes[sh] = self.shard_bytes.get(sh, 0) + nb
 
+    def record_stage(self, device_key: str, nbytes: int) -> None:
+        """One host→device copy of ``nbytes`` to this rank's device."""
+        with self.lock:
+            self.device_put_calls += 1
+            self.device_bytes[device_key] = (
+                self.device_bytes.get(device_key, 0) + nbytes)
+
+    def record_window(self, window_bytes: int, addressable_bytes: int) -> None:
+        with self.lock:
+            self.window_bytes += window_bytes
+            self.addressable_bytes += addressable_bytes
+
+    def record_cross_host(self, nbytes: int) -> None:
+        """A piece bound for another rank's device: placed, counted, NOT
+        staged here."""
+        with self.lock:
+            self.cross_host_placements += 1
+            self.cross_host_bytes += nbytes
+
     def summary(self) -> Dict[str, float]:
         with self.lock:
+            max_dev = max(self.device_bytes.values(), default=0)
             return {
                 "sessions": float(self.sessions),
                 "shards_read": float(len(self.shard_bytes)),
                 "shard_read_bytes": float(sum(self.shard_bytes.values())),
+                "device_put_calls": float(self.device_put_calls),
+                "devices_staged": float(len(self.device_bytes)),
+                "max_device_bytes": float(max_dev),
+                "window_bytes": float(self.window_bytes),
+                "addressable_bytes": float(self.addressable_bytes),
+                "cross_host_placements": float(self.cross_host_placements),
+                "cross_host_bytes": float(self.cross_host_bytes),
             }
 
 

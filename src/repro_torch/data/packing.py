@@ -51,6 +51,38 @@ def batch_from_tokens(
     return seqs[:, :-1], seqs[:, 1:]
 
 
+def pack_documents(
+    doc_tokens: list, seq_len: int, eos_id: int, pad_id: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy document packing into fixed-length rows with segment ids.
+
+    Returns (packed (N, seq_len), segment_ids (N, seq_len)). Segment ids
+    let attention mask out cross-document positions; unused slots get
+    segment id 0 (= padding).
+    """
+    rows, segs = [], []
+    cur, cur_seg, seg_idx = [], [], 1
+    for doc in doc_tokens:
+        toks = list(doc) + [eos_id]
+        while toks:
+            space = seq_len - len(cur)
+            take = toks[:space]
+            cur.extend(take)
+            cur_seg.extend([seg_idx] * len(take))
+            toks = toks[space:]
+            if len(cur) == seq_len:
+                rows.append(cur)
+                segs.append(cur_seg)
+                cur, cur_seg = [], []
+                seg_idx += 1 if toks else 0
+        seg_idx += 1
+    if cur:
+        pad = seq_len - len(cur)
+        rows.append(cur + [pad_id] * pad)
+        segs.append(cur_seg + [0] * pad)
+    return np.asarray(rows, dtype=np.int32), np.asarray(segs, dtype=np.int32)
+
+
 def token_gather_from_pieces(
     pieces: Sequence[Tuple[int, int]],
     session_abs_off: int,

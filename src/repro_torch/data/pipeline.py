@@ -135,7 +135,41 @@ streamed chunk staging, ``bytes_copied == 0``), with these amendments:
     ``service.shutdown()`` after the last pipeline using it closes
     (``/dev/shm`` holds nothing of it only after that).
 
-Not carried by this slice (raises ``NotImplementedError``): ``sharding``.
+Sharded staging (constructor ``sharding=``)
+-------------------------------------------
+A constructor ``sharding`` (a ``launch.sharding.NamedSharding``: a spec
+over a ``torch.distributed`` ``DeviceMesh``, one rank a process) composes
+with both device paths. Its device blocks over the ``(global_batch,
+seq_len+1)`` window grid are resolved ONCE into contiguous flat-token
+spans (``device_token_spans``: batch-dim shardings only; one that splits
+the sequence dimension raises at construction). With ``streaming=True``
+every arriving splinter is routed to the span(s) it meets by interval
+intersection: the piece inside this rank's span is copied to its device
+straight from the borrowed arena view (``host_permute_bytes`` stays 0),
+and pieces inside another rank's span are *counted*
+(``ShardMetrics.cross_host``) and skipped, so each rank stages its block
+of the window and nothing else. ``get_batch_device`` then proves coverage
+from the event log and runs ``ops.ingest_chunks_window`` over the block's
+token-ordered pieces with the block's rows as the batch and its valid
+tokens as the limit: one window-kernel launch gives the block's ``(inputs,
+labels)``, the remainder pad included (a block is whole rows, and the label
+shift is per row). Each is then bound into a global DTensor
+(``NamedSharding.global_tensor``, ``DTensor.from_local``: metadata only).
+``streaming=False`` with a constructor sharding copies this rank's span of
+the resident window in one transfer and assembles it the same way.
+Batches are bit-identical to the unsharded paths; a caller that trains on
+the local batch calls ``.to_local()``.
+
+A **per-call** ``sharding`` must equal the constructor's (else
+``ValueError``). Without a constructor sharding, a per-call one runs the
+whole-window sharded path for that call; on a streaming pipeline that
+throws away the step's streamed chunks (placed before the sharding was
+known) and so forfeits the read/stage overlap, which the first such call
+says once per pipeline with a ``RuntimeWarning``: pass the sharding at
+construction instead. ``ShardMetrics`` (``pipe.ck.director.shards``)
+carries both sides of the ledger: the read side (bytes a FileSet shard) and
+the stage side (``record_stage`` / ``record_window`` /
+``record_cross_host``, written here).
 """
 from __future__ import annotations
 
@@ -158,10 +192,58 @@ from repro_torch.data.tokenfile import read_meta
 from repro_torch.device import resolve_device
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not carried by this port yet: it comes with the "
-        f"{slice_name} slice (ROADMAP.md, Queue A)")
+def device_token_spans(indices_map, global_batch: int, width: int) -> Dict:
+    """Resolve a sharding's ``devices_indices_map`` over the ``(batch,
+    width)`` window grid into contiguous flat-token spans.
+
+    Returns ``{device: (tok_start, tok_end)}`` in the window's flat token
+    space. Raises ``ValueError`` unless every device block is a contiguous
+    row range × the FULL width — the only layouts whose blocks are
+    contiguous token spans, which is what lets an arriving chunk be routed
+    to its destination device(s) by pure interval intersection (no host
+    permutation). A pure function of the plain ``{device: (row_slice,
+    col_slice)}`` map."""
+    spans: Dict = {}
+    for dev, idx in indices_map.items():
+        if len(idx) != 2:
+            raise ValueError(
+                f"sharded pipeline expects a 2-d (batch, seq+1) sharding; "
+                f"device {dev} has a {len(idx)}-d index")
+        rows, cols = idx
+        r0, r1, rstep = rows.indices(global_batch)
+        c0, c1, cstep = cols.indices(width)
+        if rstep != 1 or cstep != 1:
+            raise ValueError(
+                f"sharded pipeline needs unit-stride device blocks; "
+                f"device {dev} has strides ({rstep}, {cstep})")
+        if (c0, c1) != (0, width):
+            raise ValueError(
+                f"sharding splits the sequence dimension (device {dev} "
+                f"covers columns [{c0},{c1}) of {width}); only batch-dim "
+                f"shardings map to contiguous token spans")
+        spans[dev] = (r0 * width, max(r0, r1) * width)
+    return spans
+
+
+def _resolve_sharding(sharding, global_batch: int, seq_len: int):
+    """``(spans, this rank's key)`` of ``sharding`` over the window grid;
+    this process must drive exactly one of its devices."""
+    if not (hasattr(sharding, "devices_indices_map")
+            and hasattr(sharding, "addressable_devices")
+            and hasattr(sharding, "global_tensor")):
+        raise TypeError(
+            f"sharding of type {type(sharding).__name__}: expected a "
+            f"launch.sharding.NamedSharding (devices_indices_map, "
+            f"addressable_devices, global_tensor)")
+    spans = device_token_spans(
+        sharding.devices_indices_map((global_batch, seq_len + 1)),
+        global_batch, seq_len + 1)
+    addr = list(sharding.addressable_devices)
+    if len(addr) != 1:
+        raise ValueError(f"sharded pipeline: this process addresses "
+                         f"{len(addr)} devices of the sharding; it drives "
+                         f"exactly one (one rank a device)")
+    return spans, addr[0]
 
 
 def _host_tensor(tokens: np.ndarray) -> torch.Tensor:
@@ -191,6 +273,9 @@ class _StreamState:
     t_last_stage: float = 0.0
     stagers: int = 0                       # _stage_group calls in flight
     retired: bool = False
+    # Constructor-sharding mode: pieces are routed per device span at stage
+    # time; dev_pieces collects this rank's [(tok_start, chunk), ...].
+    dev_pieces: List[tuple] = field(default_factory=list)
 
 
 @dataclass
@@ -243,8 +328,15 @@ class CkIOPipeline:
         pad_id: int = 0,
         device="cuda",
     ):
+        # Constructor sharding: the device blocks over the (B, S+1) window
+        # grid resolve into contiguous token spans ONCE, before anything is
+        # opened (ValueError unless the sharding is batch-dim only).
+        self.sharding = sharding
+        self._dev_spans: Optional[Dict] = None
+        self._key = None                   # this rank's device key
         if sharding is not None:
-            raise _later("sharding=", "sharding")
+            self._dev_spans, self._key = _resolve_sharding(
+                sharding, global_batch, seq_len)
         self.device = resolve_device(device)
         # ``path``: a filesystem path (single token file) or a
         # ``data.fileset.FileSet`` manifest (duck-typed — it carries the
@@ -308,6 +400,7 @@ class CkIOPipeline:
             self.stage_chunk_bytes, max_inflight_stage_bytes)
         self.ingest = IngestMetrics()
         self.stream = StreamMetrics()
+        self._warned_stream_sharding = False
         self._t_last_step = time.perf_counter()
         self._bufs: Dict[int, _StepBuffer] = {}
         self._retired: List[Session] = []   # zero-copy sessions pending close
@@ -485,9 +578,11 @@ class CkIOPipeline:
                 st.stagers -= 1
                 self._lock.notify_all()
 
-    def _to_device(self, tokens: np.ndarray) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
-        """One host→device transfer of ``tokens`` (an arena view): returns the
-        device tensor and, on CUDA, an event recorded after the copy.
+    def _to_device(self, tokens: np.ndarray, device=None
+                   ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """One host→device transfer of ``tokens`` (an arena view) to
+        ``device`` (default: the pipeline's): returns the device tensor and,
+        on CUDA, an event recorded after the copy.
 
         The arena is pageable ``np.empty`` memory, and a copy from pageable
         memory returns only once the source has been consumed, so the arena
@@ -495,13 +590,9 @@ class CkIOPipeline:
         page-locks the arena (``cudaHostRegister``) makes the copy truly
         asynchronous: it must then hold each session until that session's
         chunk events have completed."""
-        chunk = _host_tensor(tokens).to(self.device, non_blocking=True,
-                                        copy=True)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        return chunk, done
+        device = self.device if device is None else device
+        chunk = _host_tensor(tokens).to(device, non_blocking=True, copy=True)
+        return chunk, self._record_done(device)
 
     def _stage_group(self, st: _StreamState, group: List[SplinterEvent]) -> None:
         """Copy a group of arrived splinters to the device, one chunk per
@@ -509,6 +600,8 @@ class CkIOPipeline:
         thread while reader threads are still filling the session."""
         if not group:
             return
+        if self.sharding is not None:
+            return self._stage_group_sharded(st, group)
         sess = st.session
         assert sess is not None
         for ev in group:
@@ -542,6 +635,67 @@ class CkIOPipeline:
                 st.pieces.append((off, nb))
                 self._stage_outstanding.append((st, done, nb))
             self.stream.record_chunk(nb, 1, t1 - t0, [t1 - ev.t_arrival])
+
+    def _stage_group_sharded(
+        self, st: _StreamState, group: List[SplinterEvent]
+    ) -> None:
+        """Sharded streamed staging: route each arrived splinter's tokens to
+        the device span(s) they meet by interval intersection and copy the
+        piece inside this rank's span to its device, straight from the
+        arena view (``host_permute_bytes`` stays 0). Pieces inside another
+        rank's span are counted (``ShardMetrics.cross_host``) and skipped."""
+        sess = st.session
+        assert sess is not None
+        itemsize = self.meta.itemsize
+        shards = self.ck.director.shards
+        for ev in group:
+            off = max(ev.offset, st.window[0])
+            nb = min(ev.offset + ev.nbytes, st.window[1]) - off
+            view = sess.readers.borrow_view(off, nb)
+            tokens = np.frombuffer(view, dtype=self.meta.dtype)
+            if tokens.dtype == np.uint32:
+                tokens = tokens.view(np.int32)
+            tok0 = (off - st.window[0]) // itemsize
+            ntok = nb // itemsize
+            t0 = time.perf_counter()
+            staged_bytes = 0
+            npieces = 0
+            for key, (s0, s1) in self._dev_spans.items():
+                lo, hi = max(tok0, s0), min(tok0 + ntok, s1)
+                if lo >= hi:
+                    continue
+                nbk = (hi - lo) * itemsize
+                if key != self._key:
+                    shards.record_cross_host(nbk)
+                    continue
+                self._evict_for(nbk)
+                self.stream.stage_inflight(nbk)
+                try:
+                    chunk, done = self._to_device(tokens[lo - tok0:hi - tok0],
+                                                  key.device)
+                except BaseException:
+                    self.stream.stage_inflight(-nbk)
+                    raise
+                with self._lock:
+                    st.dev_pieces.append((lo, chunk))
+                    self._stage_outstanding.append((st, done, nbk))
+                shards.record_stage(str(key), nbk)
+                staged_bytes += nbk
+                npieces += 1
+            t1 = time.perf_counter()
+            if st.t_first_stage == 0.0:
+                st.t_first_stage = t0
+            st.t_last_stage = t1
+            with self._lock:
+                # The event (and its pinning host refs) is recorded even if
+                # every span it met was another rank's: the coverage proof
+                # at finalize runs over the event log, not the pieces.
+                st.chunk_hosts.append((tokens, view))
+                st.events.append(ev)
+                st.pieces.append((off, nb))
+            if npieces:
+                self.stream.record_chunk(
+                    staged_bytes, npieces, t1 - t0, [t1 - ev.t_arrival])
 
     def _evict_for(self, nbytes: int) -> None:
         """Bounded in-flight budget: make room for an ``nbytes`` transfer by
@@ -592,7 +746,7 @@ class CkIOPipeline:
 
     def _abort_stream(self, buf: _StepBuffer) -> None:
         """Tear down a step's stream without consuming it (host-path fetch,
-        or pipeline close)."""
+        a per-call sharding, or pipeline close)."""
         st = buf.stream
         if st is None:
             return
@@ -605,6 +759,7 @@ class CkIOPipeline:
             while st.stagers:          # drain in-flight _stage_group calls
                 self._lock.wait()
             st.chunks = []
+            st.dev_pieces = []
             st.chunk_hosts = []
             own = [e for e in self._stage_outstanding if e[0] is st]
             self._stage_outstanding = deque(
@@ -694,11 +849,44 @@ class CkIOPipeline:
         padding). Returns int32 tensors ``(inputs, labels)`` on the
         pipeline's device. With ``streaming=True`` the window was staged
         splinter by splinter while its reads were in flight; this call ships
-        the tail and reassembles from the chunk list."""
+        the tail and reassembles from the chunk list.
+
+        With a constructor sharding (or a per-call one) the two are global
+        DTensors of shape ``(B, S)`` whose local blocks hold this rank's
+        rows; see "Sharded staging" in the module docstring."""
         from repro_torch.kernels import ops
 
+        if self.sharding is not None:
+            # The spans were resolved, and streamed pieces placed, against
+            # the constructor's sharding: a per-call one must agree.
+            if sharding is not None and sharding != self.sharding:
+                raise ValueError(
+                    "get_batch_device(sharding=...) differs from the "
+                    "pipeline's constructor sharding; streamed pieces are "
+                    "already placed against the constructor's spans")
+            buf = self._wait_step(step, timeout)
+            if buf.stream is not None:
+                return self._get_batch_device_streamed_sharded(buf)
+            return self._get_batch_device_window_sharded(
+                buf, self.sharding, self._dev_spans, self._key)
         if sharding is not None:
-            raise _later("get_batch_device(sharding=...)", "sharding")
+            spans, key = _resolve_sharding(sharding, self.global_batch,
+                                           self.seq_len)
+            buf = self._wait_step(step, timeout)
+            if buf.stream is not None and not self._warned_stream_sharding:
+                # Explicit, not silent: streamed chunks were placed before
+                # this call-site sharding existed, so the step falls back to
+                # the whole-window path and its chunks are discarded.
+                self._warned_stream_sharding = True
+                warnings.warn(
+                    "get_batch_device(sharding=...) on a streaming pipeline: "
+                    "streamed chunks are placed before a per-call sharding "
+                    "is known; falling back to the whole-window staging "
+                    "path (overlap lost) for every sharded call. Pass the "
+                    "sharding to the constructor instead.",
+                    RuntimeWarning, stacklevel=2)
+            return self._get_batch_device_window_sharded(buf, sharding, spans,
+                                                         key)
         buf = self._wait_step(step, timeout)
         if buf.stream is not None:
             return self._get_batch_device_streamed(buf)
@@ -719,18 +907,34 @@ class CkIOPipeline:
                 # staged refs pin arena + transfer until the next call.
                 self._staged.append(_StagedStep(
                     staged=staged, host_tokens=tokens, host_view=view,
-                    done=self._record_done()))
+                    done=self._record_done(self.device)))
         # Copy mode still pays the session→step-arena host copy.
         self.ingest.record_device_step(
             buf.nbytes, host_bytes=0 if self.zero_copy else buf.nbytes)
         self._t_last_step = time.perf_counter()
         return inputs, labels
 
-    def _record_done(self) -> Optional[torch.cuda.Event]:
-        if self.device.type != "cuda":
+    @staticmethod
+    def _prove_coverage(buf: _StepBuffer, pieces) -> None:
+        """Exactly-once coverage of the step window by ``pieces`` (``(off,
+        nbytes)`` in file order), cheap to prove."""
+        pos = buf.abs_off
+        for off, nb in pieces:
+            if off != pos:
+                raise RuntimeError(
+                    f"streamed pieces corrupt: expected offset {pos}, "
+                    f"got {off}")
+            pos += nb
+        if pos != buf.abs_off + buf.nbytes:
+            raise RuntimeError("streamed pieces do not cover the window")
+
+    @staticmethod
+    def _record_done(device: torch.device) -> Optional[torch.cuda.Event]:
+        """An event recorded on ``device``'s current stream (None off CUDA)."""
+        if device.type != "cuda":
             return None
         ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
+        ev.record(torch.cuda.current_stream(device))
         return ev
 
     def _get_batch_device_streamed(self, buf: _StepBuffer):
@@ -742,21 +946,11 @@ class CkIOPipeline:
         chunks, pieces, st = self._finalize_stream(buf)
         sess = st.session
         valid_tokens = buf.nbytes // self.meta.itemsize
-        abs_off = buf.abs_off
         # The arrival-order→file-order permutation is applied to the chunk
         # handles (host metadata); the kernel reads the chunks in place.
         order = sorted(range(len(pieces)), key=lambda i: pieces[i][0])
-        pieces = [pieces[i] for i in order]
+        self._prove_coverage(buf, [pieces[i] for i in order])
         chunks = [chunks[i] for i in order]
-        pos = abs_off
-        for off, nb in pieces:        # exactly-once coverage, cheap to prove
-            if off != pos:
-                raise RuntimeError(
-                    f"streamed pieces corrupt: expected offset {pos}, "
-                    f"got {off}")
-            pos += nb
-        if pos != abs_off + buf.nbytes:
-            raise RuntimeError("streamed pieces do not cover the window")
         inputs, labels = ops.ingest_chunks_window(
             chunks, global_batch=self.global_batch, seq_len=self.seq_len,
             valid_limit=valid_tokens, pad_id=self.pad_id)
@@ -765,7 +959,7 @@ class CkIOPipeline:
             # Pin the chunk views + chunks until the next step.
             self._staged.append(_StagedStep(
                 staged=chunks, host_tokens=st.chunk_hosts, host_view=None,
-                done=self._record_done()))
+                done=self._record_done(self.device)))
             nchunks = len(st.chunks)
             st.chunks = []
             st.chunk_hosts = []
@@ -781,11 +975,124 @@ class CkIOPipeline:
         self._t_last_step = now
         return inputs, labels
 
-    @staticmethod
-    def _shift(window: torch.Tensor):
-        """Label shift over an assembled ``(B, S+1)`` window: the
-        ``(w[:, :-1], w[:, 1:])`` split of ``batch_from_tokens``."""
-        return window[:, :-1], window[:, 1:]
+    # -- sharded device path ---------------------------------------------------
+    def _assemble_sharded(self, sharding, pieces: List, span: Tuple[int, int],
+                          device: torch.device, valid_tokens: int):
+        """This rank's block of the window from its pieces ``(tok_start,
+        chunk)`` (already on ``device``): sort by token offset, prove the
+        ``span`` is exactly covered, then one ``ops.ingest_chunks_window``
+        over the pieces with the block's rows as the batch and its valid
+        tokens as the limit (remainder pad included), and bind ``(inputs,
+        labels)`` into global DTensors (metadata only). Returns them and
+        the chunks."""
+        from repro_torch.kernels import ops
+
+        s0, s1 = span
+        pieces = sorted(pieces, key=lambda p: p[0])
+        pos = s0
+        for t0, c in pieces:
+            if t0 != pos:
+                raise RuntimeError(
+                    f"sharded pieces corrupt on {device}: expected token "
+                    f"{pos}, got {t0}")
+            pos += c.numel()
+        expected = max(0, min(s1, valid_tokens) - s0)
+        if pos - s0 != expected:
+            raise RuntimeError(
+                f"sharded pieces do not cover {device}'s span: {pos - s0} of "
+                f"{expected} tokens")
+        chunks = [c for _, c in pieces] or [
+            torch.empty(0, dtype=torch.int32, device=device)]
+        x, y = ops.ingest_chunks_window(
+            chunks, global_batch=(s1 - s0) // (self.seq_len + 1),
+            seq_len=self.seq_len, valid_limit=expected, pad_id=self.pad_id)
+        shape = (self.global_batch, self.seq_len)
+        return (sharding.global_tensor(x, shape),
+                sharding.global_tensor(y, shape), chunks)
+
+    def _addressable_window_bytes(self, span: Tuple[int, int],
+                                  valid_tokens: int) -> int:
+        """Bytes of this step's *valid* window in this rank's ``span`` (the
+        staged-bytes ledger's addressable side)."""
+        s0, s1 = span
+        return (max(0, min(s1, valid_tokens) - min(s0, valid_tokens))
+                * self.meta.itemsize)
+
+    def _get_batch_device_streamed_sharded(self, buf: _StepBuffer):
+        """Sharded streamed tail: finalize the chunk stream (this rank's
+        pieces were copied as their splinters arrived), prove window
+        coverage from the event log, assemble the block — no whole-window
+        restage, no ``RuntimeWarning``."""
+        self._close_retired()          # release the previous step's refs
+        _, pieces, st = self._finalize_stream(buf)
+        sess = st.session
+        valid_tokens = buf.nbytes // self.meta.itemsize
+        # From the event log: this rank's pieces are a strict subset of the
+        # window with more than one rank.
+        self._prove_coverage(buf, sorted(pieces))
+        key, span = self._key, self._dev_spans[self._key]
+        inputs, labels, chunks = self._assemble_sharded(
+            self.sharding, st.dev_pieces, span, key.device,
+            valid_tokens)
+        self.ck.director.shards.record_window(
+            buf.nbytes, self._addressable_window_bytes(span, valid_tokens))
+        with self._lock:
+            self._retired.append(sess)
+            # Pin the chunk views + pieces until the next step.
+            self._staged.append(_StagedStep(
+                staged=chunks, host_tokens=st.chunk_hosts, host_view=None,
+                done=self._record_done(key.device)))
+            npieces = len(st.dev_pieces)
+            st.dev_pieces = []
+            st.chunk_hosts = []
+        buf.stream = None
+        self.ingest.record_device_step(
+            buf.nbytes, transfers=npieces, host_bytes=0)
+        now = time.perf_counter()
+        self.stream.record_step(
+            (sess.metrics.t_start, sess.metrics.t_last_read),
+            (st.t_first_stage, st.t_last_stage),
+            now - self._t_last_step,
+        )
+        self._t_last_step = now
+        return inputs, labels
+
+    def _get_batch_device_window_sharded(self, buf: _StepBuffer, sharding,
+                                         spans: Dict, key):
+        """Whole-window sharded path: copy this rank's span of the resident
+        window (an arena view, no host copy in zero-copy mode) to its device
+        in one transfer, count the other ranks' spans, then the same
+        assembly as the streamed path."""
+        tokens, view = self._window_tokens(buf)
+        itemsize = self.meta.itemsize
+        valid_tokens = buf.nbytes // itemsize
+        shards = self.ck.director.shards
+        pieces = []
+        for k, (s0, s1) in spans.items():
+            lo, hi = min(s0, valid_tokens), min(s1, valid_tokens)
+            if k != key:
+                shards.record_cross_host((hi - lo) * itemsize)
+            elif hi > lo:
+                chunk, _ = self._to_device(tokens[lo:hi], key.device)
+                pieces.append((lo, chunk))
+                shards.record_stage(str(key), (hi - lo) * itemsize)
+        shards.record_window(
+            buf.nbytes, self._addressable_window_bytes(spans[key],
+                                                       valid_tokens))
+        inputs, labels, chunks = self._assemble_sharded(
+            sharding, pieces, spans[key], key.device, valid_tokens)
+        if self.zero_copy:
+            with self._lock:
+                # _window_tokens queued the session for retirement; the
+                # staged refs pin arena + transfer until the next call.
+                self._staged.append(_StagedStep(
+                    staged=chunks, host_tokens=tokens, host_view=view,
+                    done=self._record_done(key.device)))
+        self.ingest.record_device_step(
+            buf.nbytes, transfers=len(pieces),
+            host_bytes=0 if self.zero_copy else buf.nbytes)
+        self._t_last_step = time.perf_counter()
+        return inputs, labels
 
     def idle(self, seconds: float) -> int:
         """Pump pipeline tasks for ``seconds`` (call while the device step
@@ -798,9 +1105,12 @@ class CkIOPipeline:
 
     # -- device hand-off ---------------------------------------------------------
     def to_device(self, inputs: np.ndarray, labels: np.ndarray, sharding=None):
-        """Host-path batch → tensors on the pipeline's device."""
+        """Host-path batch → tensors on the pipeline's device, or, with a
+        ``sharding``, global DTensors of which this rank's block alone is
+        copied to its device."""
         if sharding is not None:
-            raise _later("to_device(sharding=...)", "sharding")
+            return tuple(sharding.put(torch.as_tensor(np.ascontiguousarray(a)))
+                         for a in (inputs, labels))
         return (torch.as_tensor(np.ascontiguousarray(inputs), device=self.device),
                 torch.as_tensor(np.ascontiguousarray(labels), device=self.device))
 

@@ -1,9 +1,27 @@
 """Synthetic dataset generators for examples, tests, and benchmarks."""
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from repro_torch.data.tokenfile import TokenFileMeta, write_token_file
+
+
+def make_opaque_file(path: str, nbytes: int, seed: int = 0) -> None:
+    """Raw bytes for the I/O microbenchmarks (paper Figs. 1/2/4/7), written
+    16 MiB at a time."""
+    rng = np.random.default_rng(seed)
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    chunk = 16 * 1024 * 1024
+    with open(path, "wb") as f:
+        left = nbytes
+        while left > 0:
+            n = min(chunk, left)
+            f.write(rng.integers(0, 256, size=n, dtype=np.uint8).tobytes())
+            left -= n
 
 
 def make_token_file(

@@ -427,6 +427,18 @@ class ReaderService:
                 "idle_workers": len(self._idle),
             }
 
+    def would_admit(self) -> bool:
+        """Advisory pre-check: would :meth:`submit` (probably) not raise
+        :class:`ServiceBusy` right now? Racy by design — a ``True`` here can
+        still lose to a concurrent submit, so callers must keep handling
+        ``ServiceBusy``; the point is to let pacing loops (the serve
+        ingester) avoid exception-driven churn in the common case."""
+        with self._lock:
+            if self._shutdown:
+                return False
+            return (len(self._running) < self.opts.max_sessions
+                    or len(self._waitq) < self.opts.max_queue)
+
     def add_capacity_listener(self, cb) -> None:
         """Register ``cb()`` to fire (outside the service lock, poller or
         caller thread) whenever admission capacity may have freed — a

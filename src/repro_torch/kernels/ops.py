@@ -263,6 +263,48 @@ def ingest_chunks_window(
     return ref.window_chunks_ref(chunks, **kw)
 
 
+def staged_concat(chunks: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Concatenate streamed staging chunks into one device-resident buffer:
+    the arrival-ordered staged layout the gather index maps describe (the
+    contiguous buffer of the reference's multi-host layout). One chunk
+    is returned as it is."""
+    chunks = list(chunks)
+    if not chunks:
+        raise ValueError("staged_concat: no chunks")
+    if len(chunks) == 1:
+        return chunks[0]
+    return torch.cat(chunks)
+
+
+def ingest_chunks_block(
+    chunks: Sequence[torch.Tensor],
+    perm,                         # (NB,) file-order block -> staged block
+    *,
+    global_batch: int,
+    seq_len: int,
+    window_tok_off: int = 0,
+    valid_limit: int | None = None,
+    pad_id: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform-block arrival-order chunks -> (inputs, labels): the
+    concatenation, the block unpermute (``reassemble``) and the window
+    kernel, as the reference composes them."""
+    staged = staged_concat(chunks)
+    nb = perm.shape[0]
+    T = staged.shape[0] // nb
+    linear = reassemble(staged[: nb * T].reshape(nb, T), perm).reshape(-1)
+    return reassemble_window(
+        linear, global_batch=global_batch, seq_len=seq_len,
+        window_tok_off=window_tok_off, valid_limit=valid_limit, pad_id=pad_id)
+
+
+def ingest_chunks_tokens(chunks: Sequence[torch.Tensor], row_idx, *,
+                         pad_id: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Non-uniform arrival-order chunks -> (inputs, labels): the
+    concatenation, then the token-level gather."""
+    return reassemble_tokens(staged_concat(chunks), row_idx, pad_id=pad_id)
+
+
 def device_ingest(
     staged: torch.Tensor,         # (L,) staged tokens on device
     gather=None,                  # np.ndarray token map or None (file order)

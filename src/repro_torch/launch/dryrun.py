@@ -316,9 +316,10 @@ def _fake_store():
 
 
 @contextlib.contextmanager
-def fake_process_group(world_size: int):
-    """A fake process group of ``world_size`` ranks, this process rank 0,
-    for the duration of the block; refused where a group exists."""
+def fake_process_group(world_size: int, *, rank: int = 0):
+    """A fake process group of ``world_size`` ranks, this process ``rank``
+    (0 by default), for the duration of the block; refused where a group
+    exists."""
     import torch.distributed as dist
 
     store = _fake_store()
@@ -328,7 +329,9 @@ def fake_process_group(world_size: int):
         raise RuntimeError("a process group already exists: the dry run "
                            "creates its own fake group and will not run "
                            "beside another")
-    dist.init_process_group("fake", store=store(), rank=0,
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside a world of {world_size}")
+    dist.init_process_group("fake", store=store(), rank=rank,
                             world_size=world_size)
     try:
         yield

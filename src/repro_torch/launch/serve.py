@@ -9,7 +9,8 @@ with a ``ServeMetrics`` summary table (arrival→ingested / →first-token /
 →e2e p50/p99/p999, occupancy, sessions/sec, backpressure counters).
 
 The flags are the reference driver's plus ``--device`` (default ``cuda``;
-``cpu`` runs the plain PyTorch path). ``--arch`` takes the families the
+``cpu`` runs the plain PyTorch path) and ``--layers`` (the config's width
+at a cut depth, as the train driver's). ``--arch`` takes the families the
 port carries: ``phi4-mini-3.8b`` (the default), ``codeqwen1.5-7b``,
 ``phi3-medium-14b`` and ``gemma3-27b`` (dense attention; gemma3's local
 layers over 1,024-slot rings), ``qwen2-moe-a2.7b`` and ``olmoe-1b-7b``
@@ -221,6 +222,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="phi4-mini-3.8b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers (its"
+                         " width is kept)")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--batch", type=int, default=4,
                     help="static batch size / continuous decode slots")
@@ -256,6 +260,8 @@ def main(argv: Optional[List[str]] = None, *, params=None) -> ServeRun:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
     if cfg.is_encdec or cfg.input_mode == "embeddings":
         raise SystemExit("serving example targets token-input archs")
     model = build_model(cfg)

@@ -26,10 +26,15 @@ per-device bytes are counted from the stacked specs, which is exact
 
 A spec is a :class:`P`: one entry per dim, an axis name, a tuple of axis
 names (major to minor) or None. :func:`to_placements` maps one to DTensor
-placements over a ``DeviceMesh`` of the same axes.
+placements over a ``DeviceMesh`` of the same axes. :class:`NamedSharding`
+(with :func:`to_named`) puts a spec on a real ``DeviceMesh``: the
+device blocks the constructor-sharded ``CkIOPipeline`` stages into and
+``train.checkpoint.restore_sharded`` restores onto.
 """
 from __future__ import annotations
 
+import itertools
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -426,3 +431,123 @@ def to_placements(spec: P, mesh: Mesh) -> list:
                 where[a] = i
     return [Shard(where[a]) if a in where else Replicate()
             for a in mesh.axis_names]
+
+
+# -- placement onto devices (the reference's ``NamedSharding``) ---------------------
+@dataclass(frozen=True)
+class DeviceKey:
+    """One mesh position's device: the rank that drives it and, for this
+    process's rank, its ``torch.device`` (another rank's device is that
+    process's own business, so its key carries the mesh's device type
+    alone). ``str()`` is the key of ``ShardMetrics.device_bytes``."""
+    rank: int
+    device: torch.device
+
+    def __str__(self) -> str:
+        return f"rank{self.rank}:{self.device}"
+
+
+class NamedSharding:
+    """A spec over a ``torch.distributed`` ``DeviceMesh``: the reference's
+    ``jax.sharding.NamedSharding``, with what the pipeline and
+    ``restore_sharded`` read of one.
+
+    One process drives one device, as is the torch idiom, so
+    ``addressable_devices`` holds this rank's key only and another rank's
+    block is what the reference calls another host's. This rank's device
+    is the current CUDA device on a ``"cuda"`` mesh, the CPU on a ``"cpu"``
+    one. A dim sharded over several axes takes
+    them major to minor; they must come in the mesh's order, since DTensor
+    shards in that order. Blocks are cut as ``torch.chunk`` cuts (the
+    last one short, or empty, where a dim does not divide), which is
+    DTensor's ``Shard``; an axis the mesh lacks has size 1."""
+
+    def __init__(self, mesh, spec: P):
+        self.mesh = mesh
+        self.spec = P(*spec)
+        names = tuple(mesh.mesh_dim_names or ())
+        if len(names) != mesh.ndim:
+            raise ValueError("NamedSharding needs a DeviceMesh with "
+                             "mesh_dim_names")
+        self._names = names
+        self._sizes = dict(zip(names, mesh.mesh.shape))
+        for entry in self.spec:
+            axes = [a for a in _axes(entry) if a in self._sizes]
+            if axes != sorted(axes, key=names.index):
+                raise ValueError(f"spec {self.spec}: the axes of one dim must "
+                                 f"follow the mesh's order {names}")
+        self.placements = to_placements(
+            self.spec, Mesh(names, tuple(self._sizes[a] for a in names)))
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else
+                  torch.device(mesh.device_type))
+        self.rank = mesh.get_rank()
+        self.local_key = DeviceKey(self.rank, device)
+        self.addressable_devices = frozenset({self.local_key})
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding) and self.mesh == other.mesh
+                and self.spec == other.spec)
+
+    def __hash__(self) -> int:
+        return hash((self.mesh, self.spec))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh}, {self.spec!r})"
+
+    def _key(self, rank: int) -> DeviceKey:
+        if rank == self.rank:
+            return self.local_key
+        return DeviceKey(rank, torch.device(self.mesh.device_type))
+
+    def devices_indices_map(self, shape) -> Dict[DeviceKey, Tuple[slice, ...]]:
+        """``{device key: index}`` for a tensor of ``shape``: each mesh
+        position's block, one slice a dim. Positions that differ only on
+        axes the spec does not name get the same block."""
+        ranks = self.mesh.mesh
+        out = {}
+        for coord in itertools.product(*(range(n) for n in ranks.shape)):
+            at = dict(zip(self._names, coord))
+            index = []
+            for i, dim in enumerate(shape):
+                entry = self.spec[i] if i < len(self.spec) else None
+                start, length = 0, dim
+                for a in _axes(entry):
+                    if a not in at:
+                        continue
+                    c = -(-length // self._sizes[a])
+                    lo = min(at[a] * c, length)
+                    start, length = start + lo, min(lo + c, length) - lo
+                index.append(slice(start, start + length) if length < dim
+                             else slice(None))
+            out[self._key(int(ranks[coord]))] = tuple(index)
+        return out
+
+    def global_tensor(self, local: torch.Tensor, shape):
+        """The DTensor of global ``shape`` whose block on this rank is
+        ``local``: metadata only, no communication (the reference's
+        ``make_array_from_single_device_arrays``)."""
+        from torch.distributed.tensor import DTensor
+
+        shape = tuple(shape)
+        stride, n = [], 1
+        for d in reversed(shape):
+            stride.append(n)
+            n *= d
+        return DTensor.from_local(local, self.mesh, self.placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=tuple(reversed(stride)))
+
+    def put(self, host: torch.Tensor):
+        """``host`` (a tensor on the CPU) placed onto this sharding: this
+        rank's block alone is copied to its device."""
+        block = host[self.devices_indices_map(host.shape)[self.local_key]]
+        return self.global_tensor(
+            block.to(self.local_key.device, copy=True).contiguous(),
+            host.shape)
+
+
+def to_named(spec_tree, mesh):
+    """A :class:`NamedSharding` over the ``DeviceMesh`` ``mesh`` for each
+    :class:`P` leaf of ``spec_tree`` (the reference's ``to_named``)."""
+    return tree_map(lambda s: NamedSharding(mesh, s), spec_tree)

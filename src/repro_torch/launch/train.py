@@ -5,8 +5,9 @@ path, or device ingest with on-device reassembly) -> microbatched AdamW
 step on one device -> async packed checkpoints -> restart supervisor. The
 flags are the reference driver's plus ``--device`` (default ``cuda``;
 ``cpu`` runs the plain PyTorch path) and ``--layers`` (the config's width
-at a cut depth). Flags for parts that this port does not carry yet raise;
-see ROADMAP.md, Queue A.
+at a cut depth). ``--tuned-env`` re-executes the driver through
+``scripts/env.sh`` (allocator preload, quiet logs) once, as the
+reference's does.
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 6 \
       --global-batch 8 --seq 128 --streaming --ckpt-every 2
@@ -52,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import tempfile
 import time
 from typing import Dict, List, Optional
@@ -76,12 +78,6 @@ from repro_torch.train import (
     make_train_step,
     restore_tree,
 )
-
-# flag -> (value that means "not set", slice that brings it)
-_LATER = {
-    "tuned_env": (False, "benchmark legs"),
-}
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
@@ -193,17 +189,32 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--compression", default=None, choices=[None, "bf16"],
                     help="round the grads through bf16 before the optimizer"
                          " (what a bf16 DP all-reduce would carry)")
-    # A flag of the reference driver whose part comes with a later slice.
-    ap.add_argument("--tuned-env", action="store_true")
+    ap.add_argument("--tuned-env", action="store_true",
+                    help="re-exec once through scripts/env.sh (allocator"
+                         " preload and the runtime knobs it exports) before"
+                         " anything else runs")
     return ap
 
 
-def _reject_unported(args) -> None:
-    for name, (unset, slice_name) in _LATER.items():
-        if getattr(args, name) != unset:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not carried by the port yet: "
-                f"it comes with the {slice_name} slice (ROADMAP.md, Queue A)")
+def _reexec_tuned(argv: List[str]) -> None:
+    """Re-exec ``python -m repro_torch.launch.train argv`` through
+    ``scripts/env.sh`` so that ``LD_PRELOAD`` and the rest exist before the
+    interpreter starts. ``env.sh`` exports ``CKIO_TUNED_ENV=1``, which
+    breaks the loop; this package's source root is put on ``PYTHONPATH`` so
+    that ``-m`` finds it. Returns (after a note on stderr) where the script
+    is missing."""
+    src = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+    env_sh = os.path.join(os.path.dirname(src), "scripts", "env.sh")
+    if not os.path.exists(env_sh):
+        print(f"--tuned-env: {env_sh} not found; continuing untuned",
+              file=sys.stderr)
+        return
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv]
+    refs = " ".join(['"$0"'] + [f'"${{{i}}}"' for i in range(1, len(cmd))])
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=f"{src}:{path}" if path else src)
+    os.execvpe("bash", ["bash", "-c", f'source "{env_sh}" && exec {refs}',
+                        *cmd], env)
 
 
 def read_summary(sessions: List[SessionMetrics]) -> Dict:
@@ -268,8 +279,10 @@ def resume(sup: StepSupervisor, state):
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     ap = _parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
-    _reject_unported(args)
+    if args.tuned_env and not os.environ.get("CKIO_TUNED_ENV"):
+        _reexec_tuned(argv)
     if args.numa_pin and not args.topology:
         ap.error("--numa-pin requires --topology (the topology supplies "
                  "the domain->CPU map; without it nothing would be pinned)")

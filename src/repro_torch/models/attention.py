@@ -261,6 +261,39 @@ def cross_attention(
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
 
 
+def prefill_cache(
+    params: dict,
+    x: torch.Tensor,               # (B, S, d)
+    cos: torch.Tensor, sin: torch.Tensor,
+    capacity: int,
+    *,
+    dtype,
+    eps: float,
+    use_rope: bool = True,
+) -> KVCache:
+    """A decode cache from a full prefill pass over ``x`` (positions 0 ..
+    S-1): the ring ``attention_decode`` would hold after those S steps,
+    slot ``pos % capacity``. With ``capacity >= S`` slots 0 .. S-1 hold the
+    positions and the rest are zero; with ``capacity < S`` the last
+    ``capacity`` positions are kept, rolled so that each sits at its slot.
+    The reference's ``prefill_cache`` without its ``slot_pos``, which
+    follows from the position alone (:class:`KVCache`)."""
+    _, k, v = _project_qkv(params, x, dtype, eps)
+    if use_rope:
+        k = apply_rope(k, cos, sin)
+    S = x.shape[1]
+
+    def ring(t: torch.Tensor) -> torch.Tensor:
+        if capacity >= S:
+            out = t.new_zeros((t.shape[0], capacity) + tuple(t.shape[2:]))
+            out[:, :S] = t
+            return out
+        return torch.roll(t[:, S - capacity:], (S - capacity) % capacity,
+                          dims=1).contiguous()
+
+    return KVCache(k=ring(k).to(dtype), v=ring(v).to(dtype))
+
+
 def attention_decode(
     params: dict,
     x: torch.Tensor,               # (B, 1, d) new token

@@ -37,7 +37,7 @@ kernel on the card, and the sequential oracle both are bit-identical to); metric
 observer path.
 """
 
-from repro_torch.serve.serve_step import greedy_generate, make_decode_step
+from repro_torch.serve.serve_step import greedy_generate, make_decode_step, make_prefill_step
 from repro_torch.serve.batching import (
     BatchServer,
     ContinuousBatcher,
@@ -60,6 +60,7 @@ from repro_torch.serve.ingest import (
 __all__ = [
     "greedy_generate",
     "make_decode_step",
+    "make_prefill_step",
     "BatchServer",
     "Request",
     "ContinuousBatcher",

@@ -1,8 +1,9 @@
-"""Serving steps: the decode call and the greedy generation loop.
+"""Serving steps: the prefill and decode calls and the greedy generation
+loop.
 
-The reference jits its decode step; the port runs eagerly (a CUDA graph
-over the decode call is later work, ROADMAP.md Queue D), so
-``make_decode_step`` only fixes the model and turns autograd off.
+The reference jits its steps; the port runs eagerly (a CUDA graph over the
+decode call is later work, ROADMAP.md Queue D), so ``make_prefill_step``
+and ``make_decode_step`` only fix the model and turn autograd off.
 """
 from __future__ import annotations
 
@@ -11,6 +12,14 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models.model_zoo import Model
+
+
+def make_prefill_step(model: Model):
+    @torch.no_grad()
+    def prefill(params, batch):
+        return model.prefill_logits(params, batch)
+
+    return prefill
 
 
 def make_decode_step(model: Model):

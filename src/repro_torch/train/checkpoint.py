@@ -19,7 +19,8 @@ memory before it returns, then a worker thread writes the file, so the
 training loop runs on; the copy matters because the optimizer updates
 params and moments in place. ``load_into`` writes a restored tree's values
 into the live tensors, so that a restore needs no second copy of the state
-on the device.
+on the device; ``restore_sharded`` places each leaf onto a
+``launch.sharding.NamedSharding``, this rank's block alone.
 """
 from __future__ import annotations
 
@@ -259,16 +260,12 @@ def restore_arrays(
     return out, manifest
 
 
-def restore_tree(path: str, like: Any = None, **kw) -> Tuple[Any, int]:
-    """Restore into the structure of ``like`` (names must match). A tensor
-    leaf of ``like`` gives a tensor of the file's values on its device (its
-    shape and dtype must match); an int leaf gives an int; an array leaf a
-    CPU tensor. Nothing of ``like`` but its structure, devices, shapes and
-    dtypes is read. Without ``like``, the structure comes from the file's
-    leaf names and every leaf is a CPU tensor."""
+def _restore_leaves(path: str, like: Any, **kw
+                    ) -> Tuple[List[Tuple[str, Any]], List[Any], int]:
+    """``like``'s ``(name, leaf)`` pairs, the file's values for them (a
+    tensor leaf gives a CPU tensor, checked against its shape and dtype; an
+    int leaf an int) and the step."""
     arrays, manifest = restore_arrays(path, **kw)
-    if like is None:
-        return _tree_from_names(list(arrays.items())), manifest["step"]
     pairs = _leaf_paths(like)
     missing = [n for n, _ in pairs if n not in arrays]
     if missing:
@@ -281,19 +278,48 @@ def restore_tree(path: str, like: Any = None, **kw) -> Tuple[Any, int]:
                 raise ValueError(f"{path}: leaf {name} is {got.dtype} "
                                  f"{tuple(got.shape)}, expected {leaf.dtype} "
                                  f"{tuple(leaf.shape)}")
-            got = got.to(leaf.device)
         elif isinstance(leaf, int):
             got = int(got)
         new.append(got)
-    return _unflatten(like, iter(new)), manifest["step"]
+    return pairs, new, manifest["step"]
 
 
-def restore_sharded(path: str, like: Any, shardings: Any, **kw) -> Tuple[Any, int]:
-    """Elastic restore onto a multi-GPU sharding: not carried yet."""
-    raise NotImplementedError(
-        "restore_sharded: placing leaves onto a multi-GPU sharding comes "
-        "with the multi-GPU sharding slice (ROADMAP.md, Queue A); "
-        "restore_tree restores onto one device")
+def restore_tree(path: str, like: Any = None, **kw) -> Tuple[Any, int]:
+    """Restore into the structure of ``like`` (names must match). A tensor
+    leaf of ``like`` gives a tensor of the file's values on its device (its
+    shape and dtype must match); an int leaf gives an int; an array leaf a
+    CPU tensor. Nothing of ``like`` but its structure, devices, shapes and
+    dtypes is read. Without ``like``, the structure comes from the file's
+    leaf names and every leaf is a CPU tensor."""
+    if like is None:
+        arrays, manifest = restore_arrays(path, **kw)
+        return _tree_from_names(list(arrays.items())), manifest["step"]
+    pairs, new, step = _restore_leaves(path, like, **kw)
+    new = [got.to(leaf.device) if isinstance(leaf, torch.Tensor) else got
+           for (_, leaf), got in zip(pairs, new)]
+    return _unflatten(like, iter(new)), step
+
+
+def restore_sharded(path: str, like: Any, shardings: Any, **kw
+                    ) -> Tuple[Any, int]:
+    """Elastic restore: ``restore_tree``, then each tensor leaf placed onto
+    its sharding (``shardings`` has ``like``'s structure; a leaf is a
+    ``launch.sharding.NamedSharding`` or None). None gives a plain tensor
+    on the like leaf's device; a sharding gives a global DTensor of which
+    this rank's block alone is copied to its device, from the host copy
+    the restore read (no full copy on the device)."""
+    pairs, new, step = _restore_leaves(path, like, **kw)
+    placements = _leaf_paths(shardings)
+    if len(placements) != len(pairs):
+        raise ValueError(f"restore_sharded: {len(placements)} shardings for "
+                         f"{len(pairs)} leaves; shardings must have like's "
+                         f"structure")
+    out = []
+    for (_, leaf), (_, sh), got in zip(pairs, placements, new):
+        if isinstance(leaf, torch.Tensor):
+            got = got.to(leaf.device) if sh is None else sh.put(got)
+        out.append(got)
+    return _unflatten(like, iter(out)), step
 
 
 class AsyncCheckpointer:

@@ -272,7 +272,16 @@ def test_snapshot_is_not_changed_by_a_later_in_place_step(tmp_path,
 
 
 def test_restore_sharded_raises(tmp_path):
+    """``restore_sharded`` restores now (tests/test_torch_restore_sharded.py
+    holds it against the reference's); it raises where the shardings do not
+    follow ``like``'s structure or a leaf is missing, and a None sharding
+    gives a plain tensor."""
     path = str(tmp_path / "e.ckpt")
-    save_checkpoint(path, {"w": torch.zeros(8)}, step=1)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        restore_sharded(path, {"w": torch.zeros(8)}, {"w": None})
+    save_checkpoint(path, {"w": torch.arange(8.0)}, step=1)
+    with pytest.raises(ValueError, match="like's structure"):
+        restore_sharded(path, {"w": torch.zeros(8)}, {"w": [None, None]})
+    with pytest.raises(KeyError, match="missing leaves"):
+        restore_sharded(path, {"v": torch.zeros(8)}, {"v": None})
+    tree, step = restore_sharded(path, {"w": torch.zeros(8)}, {"w": None})
+    assert step == 1 and type(tree["w"]) is torch.Tensor
+    assert torch.equal(tree["w"], torch.arange(8.0))

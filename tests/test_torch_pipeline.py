@@ -136,7 +136,9 @@ def test_unported_options_and_missing_card_raise(corpus, tmp_path):
     pipe = CkIOPipeline(FileSet.build(shards), 2, 31, device="cpu")
     np.testing.assert_array_equal(pipe.get_batch(1)[0][0], np.arange(64, 95))
     pipe.close()
-    with pytest.raises(NotImplementedError):
+    # A sharding is carried now (tests/test_torch_sharded_pipeline.py); an
+    # object that is not one is refused before anything is opened.
+    with pytest.raises(TypeError, match="devices_indices_map"):
         CkIOPipeline(path, 2, 31, sharding=object(), device="cpu")
     # A reader service is carried now: a pipeline on its pool gives the
     # same batch (tests/test_torch_service.py holds every mode).

@@ -224,6 +224,18 @@ def test_launch_serve_runs_on_cpu(tmp_path, mode):
             == oracle
 
 
+def test_launch_serve_layers_cuts_the_depth(tmp_path):
+    """``--layers`` keeps the config's width at a cut depth, as the train
+    driver's does; the engine's model has that many layers and serves."""
+    run = tlaunch.main(["--smoke", "--device", "cpu", "--layers", "1",
+                        "--requests", "2", "--batch", "2", "--prompt-len", "6",
+                        "--max-new", "2", "--data", str(tmp_path / "p.bin"),
+                        "--continuous"])
+    assert run.summary["all_completed"] and run.summary["new_tokens"] == 4
+    cfg = run.engine.model.cfg
+    assert cfg.num_layers == 1 and cfg.d_model == 64
+
+
 def test_unported_serving_options_raise(tmp_path):
     # The reader service is carried now: --service runs the continuous
     # ingest on its pool (tests/test_torch_service.py holds the tokens

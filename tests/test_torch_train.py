@@ -346,10 +346,37 @@ def test_driver_bf16_compression_runs(tmp_path):
     assert out["steps"] == 2 and np.isfinite(out["final_loss"])
 
 
+class _Exec(Exception):
+    pass
+
+
 @pytest.mark.parametrize("flag", [["--tuned-env"]])
-def test_driver_flags_of_later_slices_raise(flag):
-    with pytest.raises(NotImplementedError):
-        port_train.main(["--smoke", "--device", "cpu", *flag])
+def test_driver_flags_of_later_slices_raise(flag, monkeypatch):
+    """``--tuned-env`` is carried now: the driver re-executes itself once
+    through ``scripts/env.sh`` as ``-m repro_torch.launch.train`` with the
+    same arguments (the exec is intercepted here and raises), and runs on
+    where ``CKIO_TUNED_ENV`` says the environment is already applied."""
+    seen = []
+
+    def execvpe(file, args, env):
+        seen.append((file, args, env))
+        raise _Exec
+
+    monkeypatch.setattr(port_train.os, "execvpe", execvpe)
+    monkeypatch.delenv("CKIO_TUNED_ENV", raising=False)
+    argv = ["--smoke", "--device", "cpu", *flag]
+    with pytest.raises(_Exec):
+        port_train.main(argv)
+    (file, args, env), = seen
+    assert file == "bash" and args[:2] == ["bash", "-c"]
+    assert args[2].startswith('source "') and "scripts/env.sh" in args[2]
+    assert args[3:] == [sys.executable, "-m", "repro_torch.launch.train",
+                        *argv]
+    assert env["PYTHONPATH"].split(":")[0].endswith("src")
+    monkeypatch.setenv("CKIO_TUNED_ENV", "1")
+    with pytest.raises(SystemExit):      # no exec: on to the parser's checks
+        port_train.main([*argv, "--numa-pin"])
+    assert len(seen) == 1
 
 
 def test_driver_service_runs_on_the_pool(tmp_path):
