@@ -82,7 +82,11 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              mask) and its encoder (Sq=Sk=1,500, no mask: 1,500 rows are
              not a multiple of the tensor-core path's 64-row blocks), decode
              rows bit-identical at B=1 and B=4, and the served shapes timed
-             beside the plain version, SDPA and the bound;
+             beside the plain version, SDPA and the bound; then the decode
+             kernel's logit softcap at caps 30 and 50 (decode shapes of
+             phi4-mini and recurrentgemma, span edges, a full ring at B=4,
+             windows; q scaled by 4 in fp32 and 16 in bf16 so that the
+             scores bend) against the plain version;
 11. scan     the literal selective-scan kernel against its plain version
              on the card (1e-4): the four sweep cases of
              tests/test_kernels.py, the falcon-mamba decode shape (B=1, S=1,
@@ -309,11 +313,50 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              ``torch.cuda.max_memory_allocated``. The measured step and
              call times are printed against the roofline's ``step_s``
              (``launch/roofline.py``, H100 constants) as a share, beside
-             the card's name and power limit;
-30. profile  only with ``--profile``: two whole-window main-path steps, 16
-             B=1 decode calls of phi4-mini and 8 each of falcon-mamba and
-             recurrentgemma under ``torch.profiler`` (device busy share,
-             kernels and copies a call, kernels by device time).
+             the card's name and power limit. Then the train steps of
+             phases 31-32 (falcon-mamba at 4 layers in each ``ssm_impl``,
+             recurrentgemma at 6), each predicted argument + temp within
+             25 % of its ``max_memory_allocated``;
+30. profile  only with ``--profile``, last: two whole-window main-path
+             steps, 16 B=1 decode calls of phi4-mini and 8 each of
+             falcon-mamba and recurrentgemma under ``torch.profiler``
+             (device busy share, kernels and copies a call, kernels by
+             device time);
+31. train_ssm falcon-mamba-7b trained on the card. The literal and fused
+             selective-scan backward kernels against their plain backwards
+             (``kernels/ref.py``): fp32 at 1e-4 elementwise, bf16 at 2e-2 of
+             each gradient's largest magnitude, S = 1, 17 and 2048 with and
+             without h0, ``z`` and ``proj`` strided views, ragged D and odd
+             r, and a microbatch of the train step (B=2, S=2048, D=8192,
+             N=16; bf16 with channel-major xin for the fused one); each
+             twice on the same inputs for the same bits, timed at the
+             microbatch beside its plain version and its bound. Then
+             ``launch.train.main`` at full width with 4 of the 64 layers,
+             batch 8 x 2048, 4 microbatches, 4 steps, checkpoints off, once
+             in each ``ssm_impl``: finite losses, one backward-kernel launch
+             a Mamba layer a microbatch (64), the forward kernel twice as
+             often (the activation checkpoint recomputes it), no call into
+             ``kernels/ref.py``; step time (host clock around a
+             synchronized step), tokens/s, peak device memory, and the
+             backward kernels' share of the third step's device time under
+             ``torch.profiler``;
+32. train_hybrid the same for recurrentgemma-2b: the gated RG-LRU backward
+             kernel (fp32 at 1e-5, bf16 at 2e-2 of scale; B=2, S=2048,
+             W=2560 at the microbatch, xr channel-major, ``gate`` a view),
+             then the driver at 6 of its 26 layers (two (RG-LRU, RG-LRU,
+             local) blocks): 64 backward launches, no flash-attention launch
+             (the loss differentiates the plain attention);
+33. layer_kinds a smoke-width model (d_model 64) holding all twelve
+             (mixer, FFN) kinds, attention logits capped at 30, fp32: one
+             train step on the card against the same step on the CPU
+             (params within 1e-4 relative L2; three launches of each of the
+             literal Mamba and gated RG-LRU backward kernels), then a
+             24-token replay through decode (16-slot local rings wrapped,
+             the capped split-key decode kernel on every attention layer)
+             against its prefill forward at capacity factor E/k (1e-4
+             relative L2).
+
+Phases 31-33 run after ``dryrun`` and before ``profile``.
 
 The launch counts are zeroed just before each main-path run (phases 4-8,
 each mode of phases 13-20, the prefill forwards of phase 14's replay check,
@@ -321,8 +364,8 @@ the two ring-wrap replays, the three driver runs of phase 21, each driver
 run and fault pipeline of phase 22, each driver run, the serving run and
 each fault pipeline of phase 23, each driver run of phase 24, and each mode
 and replay of phases 25-26, each mode of phase 27 (a), each rank and mode
-of (b) in its own process, (c) and the example of phase 28) and read just
-after it. The line before the last is a JSON object with one entry per kernel;
+of (b) in its own process, (c) and the example of phase 28, and each
+driver run of phases 31-32) and read just after it. The line before the last is a JSON object with one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -353,6 +396,9 @@ SOURCES = {
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "mamba_scan_fused": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "rglru_scan_gated": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "mamba_scan_backward": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+    "mamba_scan_fused_backward": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+    "rglru_scan_gated_backward": "src/repro_torch/kernels/csrc/rglru_scan.cu",
 }
 REPLACES = {
     "reassemble_window": "src/repro/kernels/reassemble.py:81",
@@ -363,7 +409,20 @@ REPLACES = {
     "rglru_scan": "src/repro/kernels/rglru_scan.py:38",
     "mamba_scan_fused": "src/repro/kernels/mamba_scan.py:44",
     "rglru_scan_gated": "src/repro/kernels/rglru_scan.py:38",
+    # No TPU kernel has a backward: the reference differentiates these
+    # functions with XLA's autodiff.
+    "mamba_scan_backward": "none: XLA's autodiff of "
+                           "src/repro/models/ssm.py:61 (_chunked_scan)",
+    "mamba_scan_fused_backward": "none: XLA's autodiff of "
+                                 "src/repro/models/ssm.py:95 "
+                                 "(_fused_chunk_scan) and the skip and gate "
+                                 "of ssm.py:180-181",
+    "rglru_scan_gated_backward": "none: XLA's autodiff of "
+                                 "src/repro/models/rglru.py:52 (_gates) and "
+                                 "the associative scan of rglru.py:88",
 }
+BWD_KERNELS = ("mamba_scan_backward", "mamba_scan_fused_backward",
+               "rglru_scan_gated_backward")
 # What the two fused entries take in beside the Pallas function.
 FUSES = {
     "mamba_scan_fused": "the discretization of src/repro/models/ssm.py:95 "
@@ -458,6 +517,18 @@ RANK_STEPS = 2
 # d_model 768 put both, and their difference, at 1.9e-2), so the bound is
 # 5e-2; in fp32 the two differ by summation order only.
 PREFILL_REL_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# The SSM and hybrid train steps (train_ssm, train_hybrid): falcon-mamba at
+# 4 of its 64 layers (0.95 B params: params, grads and both moments take
+# 15 GB) and recurrentgemma at 6 of its 26 (two (RG-LRU, RG-LRU, local)
+# blocks, 1.17 B params), both at the window phase's batch of 8 x 2048 in 4
+# microbatches; the backward kernels are held at a microbatch's shape.
+SSM_TRAIN_LAYERS, HYB_TRAIN_LAYERS = 4, 6
+MB = B // MICROBATCHES
+# The layer_kinds phase: a smoke-width model of all twelve (mixer, FFN)
+# kinds with a capped attention logit, a 40-token batch and a 24-token
+# replay (past its 16-slot local rings); its card step is held to the CPU's
+# at this relative L2 (fp32: another summation order on each side).
+KINDS_CAP, KINDS_SEQ, KINDS_REPLAY, KINDS_PARAM_TOL = 30.0, 40, 24, 1e-4
 
 
 def log(*a) -> None:
@@ -645,7 +716,8 @@ class Smoke:
         self.err = {"reassemble_window": 0, "reassemble": 0,
                     "reassemble_tokens": 0, "flash_attention": 0, "sdpa": 0,
                     "mamba_scan": 0, "rglru_scan": 0,
-                    "mamba_scan_fused": 0, "rglru_scan_gated": 0}
+                    "mamba_scan_fused": 0, "rglru_scan_gated": 0,
+                    **{k: 0 for k in BWD_KERNELS}}
         self.launches = {}
         self.main_inputs = {}      # kernel -> args captured from the main path
         self.timing = {}
@@ -1627,6 +1699,36 @@ class Smoke:
         torch.cuda.synchronize()
         log(f"attention: {2 * len(cases)} cases within tolerance of the plain "
             f"version; max abs err {self.err['flash_attention']}")
+
+        # The logit softcap, which the decode path alone computes: caps 30
+        # and 50 at decode shapes (phi4-mini's and recurrentgemma's heads,
+        # keys at the 32/64-key spans' edges, a full ring at B=4, windows),
+        # against the plain version. q is scaled so that the scores bend:
+        # in bf16 by 16 (scores up to about 60, at the cap), in fp32 by 4
+        # (up to about 16, where cap 30's tanh bends them by 8 %). At the
+        # cap an fp32 score of 30-50 carries tanh's ulp, 2-4e-6, into every
+        # softmax weight, past the 1e-5 fp32 limit (1.26e-5 and 1.40e-5 on
+        # an H100 with scores scaled by 16): fp32 rounding, on either side.
+        capped = [(1, H, KV, 1, HD, 0), (1, H, KV, 129, HD, 0),
+                  (1, H, KV, 2048, HD, 100), (1, RG_H, RG_KV, 17, RG_HD, 0),
+                  (1, RG_H, RG_KV, 65, RG_HD, 0),
+                  (4, RG_H, RG_KV, RG_WINDOW, RG_HD, 0),
+                  (1, 32, 16, FAM_PROMPT + NEW, HD, G3_WINDOW)]
+        for cap in (30.0, 50.0):
+            for b, h, kv, sk, hd, window in capped:
+                for dtype, tol, up in ((torch.float32, 1e-5, 4),
+                                       (torch.bfloat16, 2e-2, 16)):
+                    q, k, v = self._attn_inputs(rng, b, h, kv, 1, sk, hd,
+                                                dtype)
+                    q = q * up
+                    self._close("flash_attention", FA.flash_attention_cuda(
+                        q, k, v, window=window, softcap=cap),
+                        ref.attention_ref(q, k, v, window=window,
+                                          softcap=cap), tol)
+        torch.cuda.synchronize()
+        log(f"attention: decode_kernel with softcap 30 and 50, "
+            f"{4 * len(capped)} cases within tolerance of the plain version; "
+            f"max abs err {self.err['flash_attention']}")
 
         # A decode row gets the same bits alone and inside a batch of 4, and
         # on every run: the split plan depends on (Sk, hd) only.
@@ -4292,6 +4394,63 @@ class Smoke:
         del params, state
         torch.cuda.empty_cache()
         self._roofline_share("decode", R.analyze_record(rec), times)
+        # -- the SSM and hybrid train steps: memory --------------------------
+        for arch, layers, impl in (
+                ("falcon-mamba-7b", SSM_TRAIN_LAYERS, "materialized"),
+                ("falcon-mamba-7b", SSM_TRAIN_LAYERS, "fused"),
+                ("recurrentgemma-2b", HYB_TRAIN_LAYERS, None)):
+            self._dryrun_train_memory(mesh, arch, layers, impl)
+
+    def _dryrun_train_memory(self, mesh, arch, layers, impl):
+        """The dry run's per-device argument + temp bytes of a train step
+        of ``arch`` at ``layers`` layers (the window phase's batch) against
+        the same step's ``max_memory_allocated`` on the card: within 25 %.
+        The step's scans save their inputs in the meta ops and in the
+        autograd Functions alike, and recompute the states."""
+        import torch
+
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.configs.registry import get_config
+        from repro_torch.launch import dryrun as D
+        from repro_torch.models import build_model
+        from repro_torch.train import OptConfig, init_opt_state, make_train_step
+
+        cfg = get_config(arch).replace(num_layers=layers)
+        if impl:
+            cfg = cfg.replace(ssm_impl=impl)
+        name = f"{arch}{f' {impl}' if impl else ''} train"
+        t0 = time.perf_counter()
+        rec = D.run_cell(cfg.name, ShapeConfig("window", S, B, "train"),
+                         mesh=mesh, cfg=cfg, num_microbatches=MICROBATCHES)
+        log(f"dryrun {name}: meta passes {time.perf_counter() - t0:.1f} s; "
+            f"record {json.dumps(rec)}")
+        model = build_model(cfg)
+        params = model.init(0, device=self.dev)
+        opt = init_opt_state(params)
+        step_fn = make_train_step(
+            model, OptConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=STEPS),
+            num_microbatches=MICROBATCHES)
+        g = torch.Generator(device=self.dev).manual_seed(0)
+        batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                  device=self.dev, dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del params, opt, step_fn, model, batch
+        torch.cuda.empty_cache()
+        want = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+        log(f"dryrun {name}: predicted argument + temp {want / 2**30:.3f} GiB "
+            f"({rec['argument_size_in_bytes'] / 2**30:.3f} + "
+            f"{rec['temp_size_in_bytes'] / 2**30:.3f}); the step's "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB; ratio "
+            f"{want / peak:.4f}")
+        self.timing[f"dryrun/{name}"] = {"ratio": want / peak}
+        if abs(want - peak) > 0.25 * peak:
+            raise AssertionError(f"dryrun {name}: predicted {want} B, card "
+                                 f"peak {peak} B: more than 25 % apart")
 
     def _roofline_share(self, name, roof, times):
         """The roofline's ``step_s`` against the measured time (host clock
@@ -4308,6 +4467,503 @@ class Smoke:
         self.timing[f"dryrun/{name}"] = {"ms": t * 1e3,
                                         "step_s": roof.step_s}
 
+    # -- 31, 32: the backward kernels and the SSM and hybrid train steps ------
+    def _grads_close(self, name, got, want, tol, scale=False):
+        """Each gradient of ``got`` within ``tol`` of ``want``'s (None where
+        the input had none): elementwise (``_close``), or with ``scale``
+        within ``tol`` of the gradient's largest magnitude, the rule for
+        bf16 gradients. A bf16 gradient such as ``dxin = dyp * Dskip +
+        dx.to(bf16)`` adds operands rounded to bf16 from fp32 sums that the
+        kernel and the plain backward take in other orders: where the two
+        sums straddle a rounding boundary the operands differ by a bf16
+        step, which a cancelling sum keeps whole beside a small result."""
+        for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            if (g is None) != (w is None):
+                raise AssertionError(f"{name}: a gradient is None on one "
+                                     f"side only")
+            if w is None:
+                continue
+            if not scale:
+                self._close(name, g, w, tol)
+                continue
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs "
+                                     f"{w.shape}/{w.dtype}")
+            err = (g.float() - w.float()).abs().max().item() if g.numel() \
+                else 0.0
+            top = w.float().abs().max().item() if w.numel() else 0.0
+            self.err[name] = max(self.err[name], err)
+            if err > tol * top:
+                raise AssertionError(f"{name}: gradient {i} differs from the "
+                                     f"plain version by {err}, beyond {tol} "
+                                     f"of its largest magnitude {top}")
+
+    @staticmethod
+    def _same_bits(name, a, b):
+        import torch
+
+        if not all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(a, b, strict=True)):
+            raise AssertionError(f"{name}: two runs on the same inputs give "
+                                 f"other bits")
+
+    def _bwd_time(self, name, r, kernel, plain):
+        """The kernel's and the plain backward's device time at the
+        microbatch shape (CUDA events behind the spin kernel, in turns)."""
+        times = alternate({"kernel": kernel, "plain": plain}, 5, 1, 1)
+        r["ms"], r["plain_ms"] = times["kernel"], times["plain"]
+        r["library_ms"] = None   # no PyTorch call computes a scan's gradient
+        self.timing[f"{name}/train"] = r
+        log(f"time {name}/train: {self.card_line}: {json.dumps(r)}")
+
+    def _bwd_literal(self):
+        """``scan_bwd_kernel`` against ``ref.ssm_scan_bwd_ref`` (1e-4): S =
+        1, 17 and 2048 with and without h0, and a microbatch of the train
+        step (B=2, S=2048, D=8192, N=16: 2^29 elements an input); twice on
+        the same inputs for the same bits; timed at the microbatch shape."""
+        import torch
+
+        from repro_torch.kernels import mamba_scan as MS
+        from repro_torch.kernels import ref
+
+        dev = self.dev
+        g = torch.Generator(device=dev)
+        g.manual_seed(8)
+        cases = [(None, b, s, d, SSM_N, h) for b, s, d in (
+            (1, 1, 64), (2, 17, 520), (1, S, 256)) for h in (False, True)]
+        cases.append(("train", MB, S, SSM_D, SSM_N, False))
+        for key, b, s, d, n, with_h0 in cases:
+            A = torch.randn((b, s, d, n), device=dev, generator=g).sigmoid_()
+            Bx = torch.randn((b, s, d, n), device=dev, generator=g).mul_(0.1)
+            C = torch.randn((b, s, n), device=dev, generator=g)
+            h0 = (torch.randn((b, d, n), device=dev, generator=g).mul_(0.5)
+                  if with_h0 else None)
+            gy = torch.randn((b, s, d), device=dev, generator=g)
+            got = MS.mamba_scan_backward_cuda(gy, A, Bx, C, h0)
+            self._grads_close("mamba_scan_backward", got,
+                              ref.ssm_scan_bwd_ref(gy, A, Bx, C, h0), 1e-4)
+            self._same_bits("mamba_scan_backward", got,
+                            MS.mamba_scan_backward_cuda(gy, A, Bx, C, h0))
+            torch.cuda.synchronize()
+            log(f"scan backward: B={b} S={s} D={d} N={n}"
+                f"{' h0' if with_h0 else ''}: within 1e-4 of the plain "
+                f"backward, the same bits twice; max abs err so far "
+                f"{self.err['mamba_scan_backward']}")
+            if key is not None:
+                # gy, Abar, Bx, C read once; dAbar, dBx, dC written once.
+                # FLOPs: the state's FMA, g's FMA, dAbar's product and dC's
+                # product and sum a state element.
+                nbytes = 4 * (4 * b * s * d * n + b * s * d + 2 * b * s * n)
+                flops = 8 * b * s * d * n
+                b_bytes, b_ops = bound_ms(nbytes), flops / FP32_PEAK * 1e3
+                self._bwd_time("mamba_scan_backward", {
+                    "shape": f"B={b} S={s} D={d} N={n} fp32",
+                    "bytes": nbytes, "flops": flops,
+                    "bound_ms": max(b_bytes, b_ops),
+                    "bound_by": "bytes" if b_bytes >= b_ops else "operations"},
+                    lambda: MS.mamba_scan_backward_cuda(gy, A, Bx, C, h0),
+                    lambda: ref.ssm_scan_bwd_ref(gy, A, Bx, C, h0))
+            del A, Bx, C, h0, gy, got
+            torch.cuda.empty_cache()
+
+    def _bwd_fused(self):
+        """``mamba_scan_fused_backward_cuda`` (``fused_bwd_kernel`` and the
+        torch ops around it) against ``ref.mamba_scan_fused_bwd_ref``: fp32
+        at 1e-4 and bf16 at 2e-2 of each gradient's largest magnitude
+        (``_grads_close``), S = 1, 17 and 2048 with and without h0,
+        ``z`` a view of a (B, S, 2D) product and ``proj`` a column slice of
+        a wider one (rows not 16-byte aligned), ragged D and odd r; a
+        microbatch of the train step in bf16 with xin channel-major as the
+        conv leaves it; twice for the same bits; timed there."""
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import mamba_scan as MS
+        from repro_torch.kernels import ref
+
+        dev = self.dev
+        g = torch.Generator(device=dev)
+        g.manual_seed(9)
+
+        def inputs(b, s, d, n, r, dtype, with_h0, channel_major=False):
+            rnd = lambda *shape: torch.randn(  # noqa: E731
+                shape, device=dev, generator=g)
+            A = torch.arange(1, n + 1, device=dev, dtype=torch.float32)
+            t = dict(
+                xin=(F.silu(rnd(b, d, s)).transpose(1, 2) if channel_major
+                     else F.silu(rnd(b, s, d))).to(dtype),
+                dt_pre=rnd(b, s, d).mul_(0.5).to(dtype),
+                dt_bias=rnd(d).mul_(0.1).add_(math.log(math.expm1(1e-2))),
+                A_log=torch.log(A).repeat(d, 1).add_(rnd(d, n).mul_(0.1)),
+                proj=rnd(b, s, r + 2 * n + 3).to(dtype)[..., :r + 2 * n],
+                Dskip=rnd(d).mul_(0.1).add_(1.0),
+                z=rnd(b, s, 2 * d).to(dtype)[..., d:])
+            h0 = rnd(b, d, n).mul_(0.5) if with_h0 else None
+            return tuple(t.values()), h0, rnd(b, s, d).to(dtype)
+
+        bf16, fp32 = torch.bfloat16, torch.float32
+        cases = [(None, b, s, d, SSM_N, r, dt, h)
+                 for b, s, d, r in ((1, 1, 256, 256), (2, 17, 100, 5),
+                                    (1, S, 256, 256))
+                 for dt in (fp32, bf16) for h in (False, True)]
+        cases.append(("train", MB, S, SSM_D, SSM_N, 256, bf16, False))
+        for key, b, s, d, n, r, dtype, with_h0 in cases:
+            args, h0, gy = inputs(b, s, d, n, r, dtype, with_h0,
+                                  channel_major=key is not None)
+            tol = 1e-4 if dtype == fp32 else 2e-2
+            got = MS.mamba_scan_fused_backward_cuda(gy, *args, h0)
+            self._grads_close("mamba_scan_fused_backward", got,
+                              ref.mamba_scan_fused_bwd_ref(gy, *args, h0), tol,
+                              scale=dtype == bf16)
+            self._same_bits("mamba_scan_fused_backward", got,
+                            MS.mamba_scan_fused_backward_cuda(gy, *args, h0))
+            torch.cuda.synchronize()
+            log(f"fused scan backward: B={b} S={s} D={d} N={n} r={r} {dtype}"
+                f"{' h0' if with_h0 else ''}: within {tol} of the plain "
+                f"backward, the same bits twice; max abs err so far "
+                f"{self.err['mamba_scan_fused_backward']}")
+            if key is not None:
+                # gy, xin, dt_pre, z read and dxin, ddt_pre, dz written
+                # once (B, S, D); proj read and dproj written; the params
+                # and their gradients. Special-function results: Abar's ex2
+                # a state element, softplus's and silu's a (b, t, d).
+                e = gy.element_size()
+                nbytes = (e * (7 * b * s * d + 2 * b * s * (r + 2 * n))
+                          + 8 * (2 * d + d * n))
+                self._bwd_time("mamba_scan_fused_backward", {
+                    "shape": f"B={b} S={s} D={d} N={n} r={r} {dtype}",
+                    **self._two_sided(nbytes, b * s * d * n + 4 * b * s * d)},
+                    lambda: MS.mamba_scan_fused_backward_cuda(gy, *args, h0),
+                    lambda: ref.mamba_scan_fused_bwd_ref(gy, *args, h0))
+            del args, h0, gy, got
+            torch.cuda.empty_cache()
+
+    def _bwd_lru(self):
+        """``lru_bwd_kernel`` against ``ref.rglru_scan_gated_bwd_ref``: fp32
+        at 1e-5 and bf16 at 2e-2 of each gradient's largest magnitude, S =
+        1, 17 and 2048 with and without h0,
+        xr channel-major (the conv's layout) and ``gate`` a view; a
+        microbatch of the train step (B=2, S=2048, W=2560) in bf16; twice
+        for the same bits; timed there."""
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import rglru_scan as LRU
+
+        dev = self.dev
+        g = torch.Generator(device=dev)
+        g.manual_seed(10)
+
+        def inputs(b, s, w, dtype, with_h0):
+            rnd = lambda *shape: torch.randn(  # noqa: E731
+                shape, device=dev, generator=g)
+            lam = torch.log(torch.expm1(-torch.log(torch.linspace(
+                0.9, 0.999, w, device=dev)) / 8.0))
+            args = (rnd(b, s, w), rnd(b, s, w), rnd(w).mul_(0.1),
+                    rnd(w).mul_(0.1), lam,
+                    rnd(b, w, s).to(dtype).transpose(1, 2),
+                    F.gelu(rnd(b, s, 2 * w), approximate="tanh").to(
+                        dtype)[..., w:])
+            h0 = rnd(b, w).mul_(0.5) if with_h0 else None
+            return args, h0, rnd(b, s, w).to(dtype)
+
+        bf16, fp32 = torch.bfloat16, torch.float32
+        cases = [(None, b, s, w, dt, h)
+                 for b, s, w in ((1, 1, RG_W), (2, 17, 300), (1, S, 300))
+                 for dt in (fp32, bf16) for h in (False, True)]
+        cases.append(("train", MB, S, RG_W, bf16, False))
+        for key, b, s, w, dtype, with_h0 in cases:
+            args, h0, gy = inputs(b, s, w, dtype, with_h0)
+            tol = 1e-5 if dtype == fp32 else 2e-2
+            got = LRU.rglru_scan_gated_backward_cuda(gy, *args, h0)
+            self._grads_close("rglru_scan_gated_backward", got,
+                              ref.rglru_scan_gated_bwd_ref(gy, *args, h0), tol,
+                              scale=dtype == bf16)
+            self._same_bits("rglru_scan_gated_backward", got,
+                            LRU.rglru_scan_gated_backward_cuda(gy, *args, h0))
+            torch.cuda.synchronize()
+            log(f"lru backward: B={b} S={s} W={w} {dtype}"
+                f"{' h0' if with_h0 else ''}: within {tol} of the plain "
+                f"backward, the same bits twice; max abs err so far "
+                f"{self.err['rglru_scan_gated_backward']}")
+            if key is not None:
+                # r_pre, i_pre read and their gradients written (fp32); gy,
+                # xr, gate read and dxr, dgate written (compute dtype).
+                # Special-function results an element: two sigmoids (ex2,
+                # rcp), a, exp(2 log_a), sqrt, the division.
+                e = gy.element_size()
+                nbytes = (16 + 5 * e) * b * s * w + 24 * w
+                self._bwd_time("rglru_scan_gated_backward", {
+                    "shape": f"B={b} S={s} W={w} {dtype}",
+                    **self._two_sided(nbytes, 8 * b * s * w)},
+                    lambda: LRU.rglru_scan_gated_backward_cuda(gy, *args, h0),
+                    lambda: ref.rglru_scan_gated_bwd_ref(gy, *args, h0))
+            del args, h0, gy, got
+            torch.cuda.empty_cache()
+
+    def _train_driver(self, name, arch, layers, impl, expect):
+        """``launch.train.main`` at full width with ``layers`` layers, the
+        window phase's batch, microbatches and steps, checkpoints off,
+        ``ssm_impl`` set to ``impl`` when given. The launch counts are zeroed
+        just before the run and read after it: ``expect`` maps each kernel
+        to its launches; no function of ``kernels/ref.py`` may be called.
+        Records the losses (finite), each step's time (host clock around a
+        synchronized step), tokens/s, peak device memory, and the third
+        step's device time by kernel under ``torch.profiler``."""
+        import contextlib
+        import io
+
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import mamba_scan as MS
+        from repro_torch.kernels import reassemble as K
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import rglru_scan as LRU
+        from repro_torch.launch import train as T
+
+        class NoSave(T.AsyncCheckpointer):
+            def save(self, tree, step, **kw):
+                return None
+
+        rec = {"losses": [], "step_s": []}
+        ref_calls = {}
+        undo = [self._count(ref, fn, ref_calls) for fn in dir(ref)
+                if not fn.startswith("_")
+                and callable(getattr(ref, fn))
+                and getattr(getattr(ref, fn), "__module__", "") == ref.__name__]
+        make_train_step, get_config = T.make_train_step, T.get_config
+        checkpointer = T.AsyncCheckpointer
+
+        def recorded_step(*a, **kw):
+            inner = make_train_step(*a, **kw)
+
+            def step_fn(params, opt, batch):
+                prof = None
+                if len(rec["losses"]) == 2:        # the third step
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.__enter__()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, o, m = inner(params, opt, batch)
+                rec["losses"].append(float(m["loss"]))  # synchronizes
+                rec["step_s"].append(time.perf_counter() - t0)
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    rec["by_kernel"] = sorted(
+                        ((e.self_device_time_total, e.key, e.count)
+                         for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA
+                         and e.self_device_time_total > 0), reverse=True)
+                return p, o, m
+            return step_fn
+
+        def impl_config(arch_name):
+            cfg = get_config(arch_name)
+            return cfg.replace(ssm_impl=impl) if impl else cfg
+
+        argv = ["--arch", arch, "--layers", str(layers), "--steps", str(STEPS),
+                "--global-batch", str(B), "--seq", str(S), "--microbatches",
+                str(MICROBATCHES), "--lr", "1e-3", "--num-readers", "4",
+                "--num-consumers", "16", "--device-ingest", "--data",
+                os.path.join(self.tmp, f"corpus_{arch}.bin"), "--ckpt-every",
+                "1000", "--ckpt-dir", os.path.join(self.tmp, f"ck_{name}")]
+        T.make_train_step, T.get_config = recorded_step, impl_config
+        T.AsyncCheckpointer = NoSave
+        out = io.StringIO()
+        for mod in (K, FA, MS, LRU):
+            mod.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                summary = T.main(argv)
+        finally:
+            T.make_train_step, T.get_config = make_train_step, get_config
+            T.AsyncCheckpointer = checkpointer
+            for u in undo:
+                u()
+        wall = time.perf_counter() - t0
+        counts = {k: v for mod in (K, FA, MS, LRU)
+                  for k, v in mod.LAUNCHES.items()}
+        self.launches[name] = counts
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        steady = rec["step_s"][1:2] + rec["step_s"][3:]   # not the profiled
+        step_s = sum(steady) / len(steady)
+        rows = rec.get("by_kernel", [])
+        busy = sum(r[0] for r in rows) / 1e6
+        bwd = sum(r[0] for r in rows if "bwd_kernel" in r[1]
+                  or "ordered_sum_kernel" in r[1]) / 1e6
+        for line in out.getvalue().splitlines()[:1]:
+            log(f"{name}: {line}")
+        log(f"{name}: {' '.join(argv)}{f' (ssm_impl {impl})' if impl else ''}"
+            f"; {self.card_line}; {wall:.1f} s (host clock); losses "
+            f"{rec['losses']}; step times {rec['step_s']} s; mean of steps "
+            f"2 and 4 {step_s * 1e3:.1f} ms = {B * S / step_s:.0f} tokens/s; "
+            f"peak device memory {peak / 2**30:.2f} GiB; launches "
+            f"{json.dumps(counts)}; calls into kernels/ref.py "
+            f"{json.dumps(ref_calls)}")
+        if rows:
+            log(f"{name}: the profiled step's device time {busy * 1e3:.1f} ms,"
+                f" backward kernels {bwd * 1e3:.2f} ms = {bwd / busy:.4f} "
+                f"of it")
+            for dev_us, key, count in rows[:8]:
+                log(f"{name}: {dev_us / 1e3:9.3f} ms {count:6d} calls "
+                    f"{key[:90]}")
+        else:
+            log(f"{name}: the profiler recorded no device time (not "
+                f"measured)")
+        self.timing[name] = {"step_ms": step_s * 1e3,
+                             "tokens_per_s": B * S / step_s,
+                             "peak_gib": peak / 2**30,
+                             "bwd_share": bwd / busy if rows else None}
+        if summary["steps"] != STEPS or len(rec["losses"]) != STEPS or not all(
+                math.isfinite(x) for x in rec["losses"]):
+            raise AssertionError(f"{name}: summary {summary['steps']} steps, "
+                                 f"losses {rec['losses']}")
+        if ref_calls:
+            raise AssertionError(f"{name}: the card's path called "
+                                 f"kernels/ref.py: {ref_calls}")
+        wrong = {k: (counts.get(k), n) for k, n in expect.items()
+                 if counts.get(k) != n}
+        if wrong:
+            raise AssertionError(f"{name}: launches (got, want) {wrong}")
+        if peak > 80e9:
+            raise AssertionError(f"{name}: peak {peak} B past one card")
+
+    def train_ssm(self):
+        """falcon-mamba-7b trained on the card: its two backward kernels
+        held against their plain backwards, then the train driver at 4
+        layers for 4 steps in each ``ssm_impl``: one backward launch a
+        Mamba layer a microbatch, the forward kernel twice (the block's
+        activation checkpoint recomputes it), the other impl's kernels 0."""
+        self._bwd_literal()
+        self._bwd_fused()
+        n = SSM_TRAIN_LAYERS * MICROBATCHES * STEPS
+        self._train_driver("train_ssm_materialized", "falcon-mamba-7b",
+                           SSM_TRAIN_LAYERS, "materialized",
+                           {"mamba_scan_backward": n, "mamba_scan": 2 * n,
+                            "mamba_scan_fused": 0,
+                            "mamba_scan_fused_backward": 0,
+                            "reassemble_window": STEPS})
+        self._train_driver("train_ssm_fused", "falcon-mamba-7b",
+                           SSM_TRAIN_LAYERS, "fused",
+                           {"mamba_scan_fused_backward": n,
+                            "mamba_scan_fused": 2 * n, "mamba_scan": 0,
+                            "mamba_scan_backward": 0,
+                            "reassemble_window": STEPS})
+
+    def train_hybrid(self):
+        """recurrentgemma-2b trained on the card: the gated RG-LRU backward
+        kernel held against its plain backward, then the train driver at 6
+        layers (4 RG-LRU, 2 local attention) for 4 steps: one backward
+        launch an RG-LRU layer a microbatch, the literal kernel and flash
+        attention never (the loss differentiates the plain attention)."""
+        self._bwd_lru()
+        n = (HYB_TRAIN_LAYERS * 2 // 3) * MICROBATCHES * STEPS
+        self._train_driver("train_hybrid", "recurrentgemma-2b",
+                           HYB_TRAIN_LAYERS, None,
+                           {"rglru_scan_gated_backward": n,
+                            "rglru_scan_gated": 2 * n, "rglru_scan": 0,
+                            "flash_attention": 0,
+                            "reassemble_window": STEPS})
+
+    # -- 33 --------------------------------------------------------------------
+    def layer_kinds(self):
+        """A smoke-width model holding all twelve (mixer, FFN) kinds, its
+        attention logits capped at KINDS_CAP, in fp32: one train step on the
+        card against the same step on the CPU (params at KINDS_PARAM_TOL
+        relative L2; the card's backward runs the literal Mamba and gated
+        RG-LRU backward kernels once a layer of theirs, three each), then a
+        KINDS_REPLAY-token replay
+        through decode on the card (the capped split-key decode kernel on
+        every attention layer, rings wrapped) against its prefill forward
+        at capacity factor E/k (PERF.md's 1e-4 relative L2)."""
+        import torch
+
+        from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA,
+                                              MOE, NONE, RGLRU, LayerSpec)
+        from repro_torch.configs.registry import get_config, smoke_config
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import mamba_scan as MS
+        from repro_torch.kernels import rglru_scan as LRU
+        from repro_torch.launch.sharding import tree_map
+        from repro_torch.models import build_model
+        from repro_torch.models.transformer import forward_logits
+        from repro_torch.train import (OptConfig, init_opt_state, leaves,
+                                       make_train_step)
+
+        kinds = tuple(LayerSpec(m, f, 16 if m == ATTN_LOCAL else 0)
+                      for m in (ATTN, ATTN_LOCAL, MAMBA, RGLRU)
+                      for f in (DENSE, MOE, NONE))
+        cfg = smoke_config(get_config("qwen2-moe-a2.7b")).replace(
+            block_pattern=kinds, num_layers=len(kinds), dtype="float32",
+            d_inner=128, ssm_state=4, dt_rank=8, lru_width=64, window=16,
+            attn_logit_softcap=KINDS_CAP)
+        model = build_model(cfg)
+        g = torch.Generator().manual_seed(11)
+        toks = torch.randint(0, cfg.vocab_size, (2, KINDS_SEQ + 1),
+                             generator=g, dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        opt_cfg = OptConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=STEPS)
+        out = {}
+        for dev in ("cpu", self.dev):
+            # The same numbers on both devices: drawn on the CPU.
+            params = tree_map(lambda t: t.to(dev), model.init(0, device="cpu"))
+            for mod in (MS, LRU, FA):
+                mod.reset_launch_counts()
+            step = make_train_step(model, opt_cfg)
+            p, _, m = step(params, init_opt_state(params),
+                           {k: v.to(dev) for k, v in batch.items()})
+            out[str(dev)] = (torch.cat([t.detach().float().flatten().cpu()
+                                        for t in leaves(p)]),
+                             float(m["loss"]))
+            counts = {**MS.LAUNCHES, **LRU.LAUNCHES, **FA.LAUNCHES}
+        self.launches["layer_kinds_step"] = counts
+        (cpu, lc), (card, lg) = out["cpu"], out[str(self.dev)]
+        rel = float((card - cpu).norm() / cpu.norm())
+        log(f"layer_kinds: one train step of 12 layers, one of each kind "
+            f"(softcap {KINDS_CAP}): loss card {lg} / CPU {lc}; params "
+            f"relative L2 card vs CPU {rel:.3e}; the card step's launches "
+            f"{json.dumps(counts)}")
+        if rel > KINDS_PARAM_TOL:
+            raise AssertionError(f"layer_kinds: params {rel} apart")
+        if counts["mamba_scan_backward"] != 3 or counts[
+                "rglru_scan_gated_backward"] != 3:
+            raise AssertionError(f"layer_kinds: backward launches {counts}")
+        # The replay: decode token by token against the prefill forward.
+        cfg = self._dropless(cfg, KINDS_REPLAY)
+        model = build_model(cfg)
+        params = model.init(0, device=self.dev)
+        prompt = toks[:, :KINDS_REPLAY].to(self.dev)
+        FA.reset_launch_counts()
+        with torch.no_grad():
+            want = forward_logits(params, cfg, {"tokens": prompt},
+                                  last_only=False)
+            state = model.init_decode_state(params, 2, KINDS_REPLAY)
+            got = []
+            for t in range(KINDS_REPLAY):
+                lg_, state = model.decode(params, state,
+                                          {"tokens": prompt[:, t:t + 1]})
+                got.append(lg_)
+            got = torch.cat(got, dim=1)
+        torch.cuda.synchronize()
+        rel = float((got - want).float().norm() / want.float().norm())
+        fa = FA.LAUNCHES["flash_attention"]
+        log(f"layer_kinds: {KINDS_REPLAY}-token replay through decode "
+            f"(16-slot local rings wrapped) against the prefill forward: "
+            f"relative L2 {rel:.3e}; {fa} flash-attention launches "
+            f"(6 attention layers a step)")
+        if rel > PREFILL_REL_TOL["float32"] or not torch.isfinite(got).all():
+            raise AssertionError(f"layer_kinds: replay {rel} from prefill")
+        if fa != 6 * KINDS_REPLAY:
+            raise AssertionError(f"layer_kinds: {fa} attention launches")
+
     def kernel_line(self):
         launches = {}
         for counts in self.launches.values():
@@ -4320,13 +4976,14 @@ class Smoke:
                     "mamba_scan": "mamba_scan/decode",
                     "rglru_scan": "rglru_scan/decode",
                     "mamba_scan_fused": "mamba_scan_fused/decode",
-                    "rglru_scan_gated": "rglru_scan_gated/decode"}
+                    "rglru_scan_gated": "rglru_scan_gated/decode",
+                    **{k: f"{k}/train" for k in BWD_KERNELS}}
         out = []
         for name, key in main_key.items():
             r = self.timing[key]
             out.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name], "launches": launches.get(name, 0),
                 "max_abs_err": self.err[name], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r.get("bound_by", "bytes"),
@@ -4443,6 +5100,9 @@ def main() -> int:
             sm.phase("sharded", sm.sharded)
             sm.phase("examples", sm.examples)
             sm.phase("dryrun", sm.dryrun)
+            sm.phase("train_ssm", sm.train_ssm)
+            sm.phase("train_hybrid", sm.train_hybrid)
+            sm.phase("layer_kinds", sm.layer_kinds)
             if "--profile" in sys.argv[1:]:
                 sm.phase("profile", sm.profile)
     finally:

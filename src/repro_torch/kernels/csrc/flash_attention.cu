@@ -9,7 +9,11 @@
 //
 // Replaces flash_attention_bhsd (src/repro/kernels/flash_attention.py,
 //   _fa_kernel). q (B,H,Sq,hd), k/v (B,K,Sk,hd), any element strides;
-//   query head h reads kv head h / (H/K). Scores are q.k * hd^-0.5 in fp32;
+//   query head h reads kv head h / (H/K). Scores are q.k * hd^-0.5 in fp32
+//   (on the decode path, with softcap > 0, then cap * tanh(s / cap), the
+//   reference's _sdpa, before the mask and the running max; the combine
+//   step merges the capped partials unchanged, and the prefill paths,
+//   which no capped caller reaches, refuse a cap);
 //   a key is kept when kpos <= qpos (causal, positions end-aligned: qpos =
 //   iq + Sk - Sq) and qpos - kpos < window (window > 0); masked scores are
 //   -2e38. The running max, denominator and accumulator are fp32; a row
@@ -106,6 +110,7 @@ struct Params {
   int n_gchunks;  // blocks per group: ceil(G / GB)
   int causal, window;
   float scale;
+  float softcap;  // > 0: decode_kernel caps the scaled scores (cap tanh(s/cap))
   // Split-key decode: keys a split, the first split launched, the number
   // launched; fp32 partials, (row, split) major: max and denominator, and
   // the hd-long accumulator.
@@ -603,7 +608,9 @@ decode_kernel(const Params p) {
       bool ok = lane < n;
       if (p.causal) ok = ok && kpos <= qpos;
       if (p.window > 0) ok = ok && qpos - kpos < p.window;
-      sc = ok ? sc * p.scale : kNegInf;
+      sc *= p.scale;
+      if (p.softcap > 0.f) sc = p.softcap * tanhf(sc / p.softcap);
+      sc = ok ? sc : kNegInf;
       const float m_new = fmaxf(m[i], warp_max(sc));
       const float pj =
           ok ? expf(sc - (m_new <= kNegInf * 0.5f ? 0.f : m_new)) : 0.f;
@@ -1072,8 +1079,8 @@ bool vec_ok(const void* ptr, const long long* s, const long long* sizes, int ele
 extern "C" int ckio_flash_attention(const void* q, const void* k, const void* v,
                                     void* out, const long long* dims, int dtype,
                                     int hd, int causal, int window, double scale,
-                                    int span, int n_splits, float* scratch,
-                                    void* stream) {
+                                    double softcap, int span, int n_splits,
+                                    float* scratch, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1100,6 +1107,7 @@ extern "C" int ckio_flash_attention(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.window = window;
   p.scale = static_cast<float>(scale);
+  p.softcap = static_cast<float>(softcap);
   p.span = span;
   p.first_split = 0;
   p.ns = 1;
@@ -1148,6 +1156,8 @@ extern "C" int ckio_flash_attention(const void* q, const void* k, const void* v,
         : hd == 256 ? dispatch<256>(p, dtype, path, kv_vec, grid, rows, st)
                     : cudaErrorInvalidValue);
   }
+  // The prefill paths compute no softcap: no capped caller reaches them.
+  if (softcap > 0) return static_cast<int>(cudaErrorInvalidValue);
   bool vec = false;
   if (dtype == 1) {
     // Tensor-core prefill: 64 (position, head) rows of a kv head a block

@@ -1,10 +1,11 @@
-// Elementwise helpers shared by the fused scan kernels (mamba_scan.cu,
-// rglru_scan.cu): loads, rounding and stores of the compute dtype in fp32
-// registers, and torch's softplus, silu and sigmoid in fp32, written as
-// torch computes them so that a value rounded to bf16 lands where torch's
-// does.
+// Helpers shared by the scan kernels (mamba_scan.cu, rglru_scan.cu): loads,
+// rounding and stores of the compute dtype in fp32 registers; torch's
+// softplus, silu and sigmoid in fp32, written as torch computes them so that
+// a value rounded to bf16 lands where torch's does; and the ordered second
+// pass of the backward kernels' sums.
 #pragma once
 
+#include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -62,5 +63,31 @@ __device__ __forceinline__ float sigmoid_f(float x) {
 struct View3 {  // element strides of a (B, S, D) operand
   long long b, t, d;
 };
+
+// The second pass of the backward kernels' reductions (mamba_scan.cu,
+// rglru_scan.cu): out[r*J + j] = the sum over k = 0, 1, ..., K-1, in that
+// order, of in[(r*K + k)*J + j]. One thread an output; a fixed order, so
+// the same bits on every run (no atomics).
+template <int kUnused = 0>
+__global__ void __launch_bounds__(256)
+ordered_sum_kernel(const float* __restrict__ in, float* __restrict__ out,
+                   long long R, long long K, long long J) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= R * J) return;
+  const float* q = in + (i / J) * K * J + i % J;
+  float v = 0.f;
+  for (long long k = 0; k < K; ++k) v += __ldg(q + k * J);
+  out[i] = v;
+}
+
+inline cudaError_t ordered_sum(const float* in, float* out, long long R,
+                               long long K, long long J, cudaStream_t st) {
+  const long long blocks = (R * J + 255) / 256;
+  if (blocks == 0) return cudaSuccess;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  ordered_sum_kernel<><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+      in, out, R, K, J);
+  return cudaGetLastError();
+}
 
 }  // namespace ckio

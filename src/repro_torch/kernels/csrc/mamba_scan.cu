@@ -649,6 +649,270 @@ cudaError_t launch_fused_n(const FusedArgs& a, int N, cudaStream_t st) {
   }
 }
 
+// -- backward -----------------------------------------------------------------
+// One thread a state element (b, d, n), as scan_kernel; a block is one batch
+// row b and G = 256/N channels, so that the sums over d of dC (and dBc) start
+// as fixed-order block partials. A thread first runs the recurrence forward,
+// then walks S backwards in segments of Q steps: at the end of a segment the
+// block sums its warps' partials of the segment's steps and writes one row a
+// step to `part` (B, S, nblk, K, N); ordered_sum_kernel then adds the nblk
+// blocks' rows in block order. No atomics: every sum has a fixed order.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+template <int N>
+struct BwdShape {
+  static constexpr int kG = kBwdThreads / N;      // channels a block
+  static constexpr int kQ = N == 32 ? 16 : 32;    // steps a segment
+};
+
+// Sum over the channels of a warp: lanes n, n + N, n + 2N, ... all end with
+// the warp's sum for state n, added in the same order on every run.
+template <int N>
+__device__ __forceinline__ float warp_channel_sum(float v) {
+#pragma unroll
+  for (int o = N; o < 32; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// The block's sums of a segment's `len` steps: s[u][w][k][n] holds warp w's
+// partial of step u; row (row0 + u) of part gets their sum in warp order.
+template <int N, int K, int Q>
+__device__ __forceinline__ void flush_partials(const float (&s)[Q][kBwdWarps][K][N],
+                                               float* part, long long row0,
+                                               int len, int nblk) {
+  for (int i = threadIdx.x; i < len * K * N; i += kBwdThreads) {
+    const int u = i / (K * N), kn = i % (K * N);
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) v += s[u][w][kn / N][kn % N];
+    part[((row0 + u) * nblk + blockIdx.x) * (K * N) + kn] = v;
+  }
+}
+
+// scan_bwd_kernel — the gradient of scan_kernel (the literal entry). No TPU
+//   kernel: the reference differentiates _chunked_scan (src/repro/models/
+//   ssm.py) with XLA. From gy (B,S,D) and the forward's inputs:
+//     g_t    = gy_t[d] C_t[n] + Abar_{t+1} g_{t+1}       (g_S = 0)
+//     dBx_t  = g_t,  dAbar_t = g_t h_{t-1},  dh0 = Abar_0 g_0
+//     dC_t[n] = sum_d gy_t[d] h_t[d,n]
+//   The forward pass writes h_t into dAbar's buffer; the backward pass reads
+//   h_{t-1} from there before it overwrites slot t with dAbar_t, so no other
+//   (B,S,D,N) buffer is needed. Shadow lanes (d >= D) read no h and write
+//   nothing.
+//
+//   Bound: bytes. Abar, Bx read and dAbar, dBx written once are 16 bytes an
+//   element: 1.07 GB -> 0.32 ms at B=2, S=2048, D=8192, N=16 (gy, C, dC and
+//   h0 are 1/N of that or less). This simple kernel moves about 28 bytes an
+//   element (Abar twice, h written and read back).
+template <int N>
+__global__ void __launch_bounds__(kBwdThreads)
+scan_bwd_kernel(const float* __restrict__ A, const float* __restrict__ Bx,
+                const float* __restrict__ C, const float* __restrict__ h0,
+                const float* __restrict__ gy, float* dA, float* __restrict__ dBx,
+                float* __restrict__ part, float* __restrict__ dh0, long long S,
+                long long D, int nblk) {
+  constexpr int G = BwdShape<N>::kG, Q = BwdShape<N>::kQ;
+  __shared__ float s_part[Q][kBwdWarps][1][N];
+  const int n = threadIdx.x % N, lane = threadIdx.x % 32,
+            warp = threadIdx.x / 32;
+  const long long b = blockIdx.y;
+  const long long d = static_cast<long long>(blockIdx.x) * G + threadIdx.x / N;
+  const bool active = d < D;
+  const long long dc = active ? d : D - 1;  // shadow the last channel
+  const long long step = D * N;
+  const long long base = (b * S * D + dc) * N + n;  // (b, 0, dc, n)
+  const float* cp = C + b * S * N + n;
+  const float* gp = gy + b * S * D + dc;
+  const float hinit =
+      h0 != nullptr && active ? h0[(b * D + dc) * N + n] : 0.f;
+
+  float h = hinit;
+  for (long long t = 0; t < S; ++t) {
+    h = fmaf(__ldg(A + base + t * step), h, __ldg(Bx + base + t * step));
+    if (active) dA[base + t * step] = h;
+  }
+  float ht = h, g = 0.f, anext = 0.f;  // h_t, g_{t+1}, Abar_{t+1}
+  for (long long t0 = (S - 1) / Q * Q; t0 >= 0; t0 -= Q) {
+    const int len = S - t0 < Q ? static_cast<int>(S - t0) : Q;
+    for (int u = len - 1; u >= 0; --u) {
+      const long long t = t0 + u, e = base + t * step;
+      const float gyt = __ldg(gp + t * D);
+      g = fmaf(anext, g, gyt * __ldg(cp + t * N));
+      const float hp = !active ? 0.f : t > 0 ? dA[e - step] : hinit;
+      const float pc = warp_channel_sum<N>(active ? gyt * ht : 0.f);
+      if (lane < N) s_part[u][warp][0][lane] = pc;
+      if (active) {
+        dBx[e] = g;
+        dA[e] = g * hp;
+      }
+      anext = __ldg(A + e);
+      ht = hp;
+    }
+    __syncthreads();
+    flush_partials<N, 1, Q>(s_part, part, b * S + t0, len, nblk);
+    __syncthreads();
+  }
+  if (dh0 != nullptr && active) dh0[(b * D + dc) * N + n] = anext * g;
+}
+
+// fused_bwd_kernel — the gradient of the fused entry's discretization and
+//   scan; the skip, gate and softplus derivatives are torch ops around it
+//   (kernels/mamba_scan.py). No TPU kernel: the reference differentiates
+//   _fused_chunk_scan (src/repro/models/ssm.py) with XLA. From fp32 dt, x
+//   (B,S,D), Bc|Cc (B,S,2N), A = -exp(A_log) (D,N), h0 and dy = dL/dy32
+//   (B,S,D), with Abar = exp(dt A) and Bx = dt Bc x recomputed here as
+//   fused_kernel computes them:
+//     g_t = dy_t Cc_t + Abar_{t+1} g_{t+1}
+//     ddt_t[d]  = sum_n g_t (h_{t-1} Abar_t A + Bc_t x_t),  dx_t[d] = sum_n g_t dt_t Bc_t
+//     dBc_t[n]  = sum_d g_t dt_t x_t,   dCc_t[n] = sum_d dy_t h_t
+//     dA[d,n]   = sum_{b,t} g_t h_{t-1} Abar_t dt_t,  dh0 = Abar_0 g_0
+//   and y32 (B,S,D), the scan's readout, which the gate's derivative needs.
+//   No (B,S,D,N) tensor is stored: the forward pass keeps the state at the
+//   start of every Q-step segment in hseg (B, ceil(S/Q), D, N); the
+//   backward pass recomputes a segment's states from there into registers
+//   (hp, unrolled) and walks it backwards. The sums over n are butterflies
+//   inside a channel's lanes; over d, block partials (flush_partials); dA
+//   sums a segment at a time, then over segments, then over B
+//   (ordered_sum_kernel).
+//
+//   Bound: bytes at B=2, S=2048, D=8192, N=16: dt, x, dy, y32, ddt and dx
+//   (B,S,D) fp32 once each, 0.81 GB -> 0.24 ms; special-function units: an
+//   ex2 for Abar a (b,t,d,n) in each pass, 3 passes, 0.81e9 -> 0.19 ms.
+template <int N>
+struct FusedBwdArgs {
+  const float* dt;
+  const float* x;
+  const float* bc;
+  const float* A;
+  const float* h0;
+  const float* dy;
+  float* y32;
+  float* hseg;
+  float* ddt;
+  float* dx;
+  float* part;
+  float* dApart;
+  float* dh0;
+  long long S, D;
+  int nblk;
+};
+
+template <int N>
+__global__ void __launch_bounds__(kBwdThreads)
+fused_bwd_kernel(const FusedBwdArgs<N> p) {
+  constexpr int G = BwdShape<N>::kG, Q = BwdShape<N>::kQ;
+  __shared__ float s_part[Q][kBwdWarps][2][N];
+  const int n = threadIdx.x % N, lane = threadIdx.x % 32,
+            warp = threadIdx.x / 32;
+  const long long b = blockIdx.y, S = p.S, D = p.D;
+  const long long d = static_cast<long long>(blockIdx.x) * G + threadIdx.x / N;
+  const bool active = d < D;
+  const long long dc = active ? d : D - 1;  // shadow the last channel
+  const float Av = __ldg(p.A + dc * N + n);
+  const long long row = b * S * D + dc;     // (b, 0, dc) of a (B,S,D) array
+  const float* bcp = p.bc + b * S * 2 * N + n;
+  const long long nseg = (S + Q - 1) / Q;
+  float* hs = p.hseg + (b * nseg * D + dc) * N + n;  // segment k at k*D*N
+  const float hinit =
+      p.h0 != nullptr && active ? __ldg(p.h0 + (b * D + dc) * N + n) : 0.f;
+
+  float h = hinit;
+  for (long long t = 0; t < S; ++t) {
+    if (t % Q == 0 && active) hs[t / Q * D * N] = h;
+    const float dt = __ldg(p.dt + row + t * D), x = __ldg(p.x + row + t * D);
+    const float abar = expf(__fmul_rn(dt, Av));
+    h = fmaf(abar, h, __fmul_rn(__fmul_rn(dt, __ldg(bcp + t * 2 * N)), x));
+    const float y = group_sum<N>(__fmul_rn(h, __ldg(bcp + t * 2 * N + N)));
+    if (active && n == 0) p.y32[row + t * D] = y;
+  }
+  float g = 0.f, anext = 0.f, dA = 0.f;  // g_{t+1}, Abar_{t+1}
+  for (long long k = nseg - 1; k >= 0; --k) {
+    const long long t0 = k * Q;
+    const int len = S - t0 < Q ? static_cast<int>(S - t0) : Q;
+    float hp[Q + 1];  // hp[u] = h_{t0+u-1}
+    hp[0] = active ? hs[k * D * N] : 0.f;
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+      if (u < len) {
+        const long long t = t0 + u;
+        const float dt = __ldg(p.dt + row + t * D);
+        const float abar = expf(__fmul_rn(dt, Av));
+        hp[u + 1] = fmaf(abar, hp[u],
+                         __fmul_rn(__fmul_rn(dt, __ldg(bcp + t * 2 * N)),
+                                   __ldg(p.x + row + t * D)));
+      }
+    }
+    float dA_seg = 0.f;
+#pragma unroll
+    for (int u = Q - 1; u >= 0; --u) {
+      if (u < len) {
+        const long long t = t0 + u;
+        const float dt = __ldg(p.dt + row + t * D), x = __ldg(p.x + row + t * D);
+        const float Bn = __ldg(bcp + t * 2 * N), Cn = __ldg(bcp + t * 2 * N + N);
+        const float dy = __ldg(p.dy + row + t * D);
+        const float abar = expf(__fmul_rn(dt, Av));
+        g = fmaf(anext, g, dy * Cn);
+        const float dlin = g * hp[u] * abar;  // dL/d(dt A)
+        dA_seg += dlin * dt;
+        const float pdt = group_sum<N>(dlin * Av + g * Bn * x);
+        const float px = group_sum<N>(g * dt * Bn);
+        if (active && n == 0) {
+          p.ddt[row + t * D] = pdt;
+          p.dx[row + t * D] = px;
+        }
+        const float pb = warp_channel_sum<N>(active ? g * dt * x : 0.f);
+        const float pc = warp_channel_sum<N>(active ? dy * hp[u + 1] : 0.f);
+        if (lane < N) {
+          s_part[u][warp][0][lane] = pb;
+          s_part[u][warp][1][lane] = pc;
+        }
+        anext = abar;
+      }
+    }
+    dA += dA_seg;
+    __syncthreads();
+    flush_partials<N, 2, Q>(s_part, p.part, b * S + t0, len, p.nblk);
+    __syncthreads();
+  }
+  if (active) {
+    p.dApart[(b * D + dc) * N + n] = dA;
+    if (p.dh0 != nullptr) p.dh0[(b * D + dc) * N + n] = anext * g;
+  }
+}
+
+template <int N>
+cudaError_t launch_bwd(const float* A, const float* Bx, const float* C,
+                       const float* h0, const float* gy, float* dA, float* dBx,
+                       float* dC, float* dh0, float* part, long long B,
+                       long long S, long long D, cudaStream_t st) {
+  constexpr long long G = BwdShape<N>::kG;
+  const long long nblk = (D + G - 1) / G;
+  if (nblk > INT_MAX || B > 65535) return cudaErrorInvalidValue;
+  scan_bwd_kernel<N><<<dim3(static_cast<unsigned>(nblk),
+                            static_cast<unsigned>(B)), kBwdThreads, 0, st>>>(
+      A, Bx, C, h0, gy, dA, dBx, part, dh0, S, D, static_cast<int>(nblk));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return ckio::ordered_sum(part, dC, B * S, nblk, N, st);
+}
+
+template <int N>
+cudaError_t launch_fused_bwd(FusedBwdArgs<N> a, long long B, float* dBC,
+                             float* dA, cudaStream_t st) {
+  constexpr long long G = BwdShape<N>::kG;
+  const long long nblk = (a.D + G - 1) / G;
+  if (nblk > INT_MAX || B > 65535) return cudaErrorInvalidValue;
+  a.nblk = static_cast<int>(nblk);
+  fused_bwd_kernel<N><<<dim3(static_cast<unsigned>(nblk),
+                             static_cast<unsigned>(B)), kBwdThreads, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = ckio::ordered_sum(a.part, dBC, B * a.S, nblk, 2 * N, st);
+  if (err != cudaSuccess) return err;
+  return ckio::ordered_sum(a.dApart, dA, 1, B, a.D * N, st);
+}
+
 }  // namespace
 
 // A, Bx: (B,S,D,N); C: (B,S,N); h0: (B,D,N) or null; y: (B,S,D);
@@ -695,5 +959,60 @@ extern "C" int ckio_mamba_scan_fused(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bf16 ? launch_fused_n<__nv_bfloat16>(a, N, st)
                                : launch_fused_n<float>(a, N, st);
+  return static_cast<int>(err);
+}
+
+// The literal scan's gradient. gy: (B,S,D); A, Bx: (B,S,D,N); C: (B,S,N);
+// h0: (B,D,N) or null; all fp32, contiguous. Writes dA, dBx (B,S,D,N), dC
+// (B,S,N) and, when dh0 is not null, dh0 (B,D,N); part is scratch of
+// B*S*ceil(D/(256/N))*N floats.
+extern "C" int ckio_mamba_scan_backward(const float* A, const float* Bx,
+                                        const float* C, const float* h0,
+                                        const float* gy, float* dA, float* dBx,
+                                        float* dC, float* dh0, float* part,
+                                        long long B, long long S, long long D,
+                                        int N, void* stream) {
+  if (B < 1 || S < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (N) {
+#define CKIO_BWD(n)                                                          \
+  case n:                                                                    \
+    err = launch_bwd<n>(A, Bx, C, h0, gy, dA, dBx, dC, dh0, part, B, S, D, st); \
+    break;
+    CKIO_BWD(1) CKIO_BWD(2) CKIO_BWD(4) CKIO_BWD(8) CKIO_BWD(16) CKIO_BWD(32)
+#undef CKIO_BWD
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The fused entry's discretization and scan, differentiated. dt, x, dy:
+// (B,S,D); bc: (B,S,2N) (Bc then Cc); A: (D,N) = -exp(A_log); h0: (B,D,N)
+// or null; all fp32, contiguous. Writes y32, ddt, dx (B,S,D), dBC (B,S,2N),
+// dA (D,N) and, when dh0 is not null, dh0 (B,D,N). Scratch: hseg
+// B*ceil(S/Q)*D*N floats (Q = 32, 16 at N = 32), part
+// B*S*ceil(D/(256/N))*2N floats, dApart B*D*N floats.
+extern "C" int ckio_mamba_scan_fused_backward(
+    const float* dt, const float* x, const float* bc, const float* A,
+    const float* h0, const float* dy, float* y32, float* hseg, float* ddt,
+    float* dx, float* part, float* dBC, float* dApart, float* dA, float* dh0,
+    long long B, long long S, long long D, int N, void* stream) {
+  if (B < 1 || S < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (N) {
+#define CKIO_FBWD(n)                                                         \
+  case n: {                                                                  \
+    FusedBwdArgs<n> a{dt, x, bc, A, h0, dy, y32, hseg, ddt, dx, part,        \
+                      dApart, dh0, S, D, 0};                                 \
+    err = launch_fused_bwd<n>(a, B, dBC, dA, st);                            \
+    break;                                                                   \
+  }
+    CKIO_FBWD(1) CKIO_FBWD(2) CKIO_FBWD(4) CKIO_FBWD(8) CKIO_FBWD(16)
+    CKIO_FBWD(32)
+#undef CKIO_FBWD
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

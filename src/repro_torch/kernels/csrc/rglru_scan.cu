@@ -278,6 +278,136 @@ cudaError_t launch(const LruArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// -- backward -----------------------------------------------------------------
+// lru_bwd_kernel — the gradient of the gated entry (lru_kernel<T, true>).
+//   No TPU kernel: the reference differentiates _gates and the associative
+//   scan (src/repro/models/rglru.py) with XLA. One thread a channel (b, w):
+//   it runs the recurrence forward, writing h_t into dr_pre's buffer, then
+//   walks S backwards, reading h_{t-1} from there before it overwrites slot
+//   t with dL/dr_pre_t. With gh_t = rnd(gy_t gate_t):
+//     g_t = gh_t + a_{t+1} g_{t+1},  dh0 = a_0 g_0,  dgate_t = rnd(gy_t rnd(h_t))
+//     dlog_a = g h_{t-1} a + [1 - e2 >= 1e-12] 2 (-(g x i / (2 beta)) e2)
+//     dr_pre = dlog_a c r (1 - r),  di_pre = g x beta i (1 - i),
+//     dxr = rnd(g beta i),  dc += dlog_a r
+//   (c = -8 softplus(lam), e2 = exp(2 log_a), x = xr in fp32), each product
+//   in the order torch's autograd takes it. db_r, db_i and dc sum over S a
+//   segment of kSeg steps at a time, then over segments, in a thread, and
+//   over B in ordered_sum_kernel; the wrapper turns dc into dlam.
+//
+//   Bound: bytes. r_pre, i_pre read and dr_pre, di_pre written (4 B each),
+//   xr, gate, gy read and dxr, dgate written (2 B each in bf16): 26 B an
+//   element, 273 MB -> 0.081 ms at B=2, S=2048, W=2560. This simple kernel
+//   reads r_pre, i_pre and xr twice and h back once: 46 B an element; its
+//   B*W threads (5,120 there) leave most of the card idle.
+constexpr int kBwdThreads = 128;
+
+struct LruBwdArgs {
+  const float* r_pre;
+  const float* i_pre;
+  const void* xr;
+  const void* gate;
+  const void* gy;      // (B,S,W) contiguous, compute dtype
+  const float* b_r;
+  const float* b_i;
+  const float* lam;
+  const float* h0;
+  float* dr;           // (B,S,W): h in the forward pass, then dL/dr_pre
+  float* di;
+  void* dxr;           // (B,S,W) contiguous, compute dtype
+  void* dgate;
+  float* dh0;
+  float* part;         // (3, B, W): dc, db_r, db_i
+  long long B, S, W;
+  View3 sxr, sg;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+lru_bwd_kernel(const LruBwdArgs p) {
+  using E = Elt<T>;
+  const long long c = static_cast<long long>(blockIdx.x) * kBwdThreads +
+                      threadIdx.x;
+  const long long S = p.S, W = p.W, BW = p.B * p.W;
+  if (c >= BW) return;
+  const long long bi = c / W, w = c % W;
+  const long long base = bi * S * W + w;
+  const T* xr = static_cast<const T*>(p.xr) + bi * p.sxr.b + w * p.sxr.d;
+  const T* gate = static_cast<const T*>(p.gate) + bi * p.sg.b + w * p.sg.d;
+  const T* gy = static_cast<const T*>(p.gy) + base;
+  const float neg_c = __fmul_rn(-8.f, softplus_f(__ldg(p.lam + w)));
+  const float br = __ldg(p.b_r + w), bin = __ldg(p.b_i + w);
+  const float hinit = p.h0 != nullptr ? __ldg(p.h0 + c) : 0.f;
+
+  float h = hinit;
+  for (long long t = 0; t < S; ++t) {
+    const float r = sigmoid_f(__fadd_rn(__ldg(p.r_pre + base + t * W), br));
+    const float i = sigmoid_f(__fadd_rn(__ldg(p.i_pre + base + t * W), bin));
+    const float log_a = __fmul_rn(neg_c, r);
+    const float x = E::load(xr + t * p.sxr.t);
+    const float beta =
+        sqrtf(fmaxf(__fsub_rn(1.f, expf(2.f * log_a)), 1e-12f));
+    h = fmaf(expf(log_a), h, __fmul_rn(__fmul_rn(beta, i), x));
+    p.dr[base + t * W] = h;
+  }
+  float ht = h, g = 0.f, anext = 0.f;  // h_t, g_{t+1}, a_{t+1}
+  float dc = 0.f, dbr = 0.f, dbi = 0.f;
+  for (long long t0 = (S - 1) / kSeg * kSeg; t0 >= 0; t0 -= kSeg) {
+    float sc = 0.f, sbr = 0.f, sbi = 0.f;
+    const long long t1 = S < t0 + kSeg ? S : t0 + kSeg;
+    for (long long t = t1 - 1; t >= t0; --t) {
+      const long long e = base + t * W;
+      const float r = sigmoid_f(__fadd_rn(__ldg(p.r_pre + e), br));
+      const float i = sigmoid_f(__fadd_rn(__ldg(p.i_pre + e), bin));
+      const float log_a = __fmul_rn(neg_c, r);
+      const float a = expf(log_a), e2 = expf(2.f * log_a);
+      const float inner = __fsub_rn(1.f, e2);
+      const float beta = sqrtf(fmaxf(inner, 1e-12f));
+      const float x = E::load(xr + t * p.sxr.t);
+      const float gyv = E::load(gy + t * W);
+      const float gh = E::rnd(__fmul_rn(gyv, E::load(gate + t * p.sg.t)));
+      E::store(static_cast<T*>(p.dgate) + e, __fmul_rn(gyv, E::rnd(ht)));
+      g = fmaf(anext, g, gh);
+      const float hp = t > 0 ? p.dr[e - W] : hinit;
+      const float gx = __fmul_rn(g, x);
+      float dlog = __fmul_rn(__fmul_rn(g, hp), a);
+      if (inner >= 1e-12f) {
+        const float dinner = __fdiv_rn(__fmul_rn(gx, i), __fmul_rn(2.f, beta));
+        dlog = __fadd_rn(dlog, __fmul_rn(2.f, __fmul_rn(-dinner, e2)));
+      }
+      const float di = __fmul_rn(gx, beta);
+      const float drp = __fmul_rn(__fmul_rn(__fmul_rn(dlog, neg_c),
+                                            __fsub_rn(1.f, r)), r);
+      const float dip = __fmul_rn(__fmul_rn(di, __fsub_rn(1.f, i)), i);
+      sc += __fmul_rn(dlog, r);
+      sbr += drp;
+      sbi += dip;
+      p.dr[e] = drp;
+      p.di[e] = dip;
+      E::store(static_cast<T*>(p.dxr) + e, __fmul_rn(g, __fmul_rn(beta, i)));
+      anext = a;
+      ht = hp;
+    }
+    dc += sc;
+    dbr += sbr;
+    dbi += sbi;
+  }
+  if (p.dh0 != nullptr) p.dh0[c] = anext * g;
+  p.part[c] = dc;
+  p.part[BW + c] = dbr;
+  p.part[2 * BW + c] = dbi;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const LruBwdArgs& a, float* dsum, cudaStream_t st) {
+  const long long blocks = (a.B * a.W + kBwdThreads - 1) / kBwdThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  lru_bwd_kernel<T><<<static_cast<unsigned>(blocks), kBwdThreads, 0, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // (3, B, W) -> (3, W): each of dc, db_r, db_i summed over B in order.
+  return ckio::ordered_sum(a.part, dsum, 3, a.B, a.W, st);
+}
+
 }  // namespace
 
 // a, b: (B,S,W); h0: (B,W) or null; h: (B,S,W). All fp32, contiguous, on
@@ -316,4 +446,30 @@ extern "C" int ckio_rglru_scan_gated(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bf16 ? launch<__nv_bfloat16, true>(p, st)
                                : launch<float, true>(p, st));
+}
+
+// The gated entry's gradient. gy: (B,S,W) contiguous in the compute dtype
+// (bf16 when bf16 != 0, else fp32); the forward's inputs as for
+// ckio_rglru_scan_gated (xr and gate with their strides in strides[0..5]).
+// Writes dr_pre, di_pre (B,S,W) fp32, dxr, dgate (B,S,W) contiguous in the
+// compute dtype, dsum (3, W) fp32 = (dc, db_r, db_i) with c = -8
+// softplus(lam), and dh0 (B,W) when not null; part is scratch of 3*B*W
+// floats.
+extern "C" int ckio_rglru_scan_gated_backward(
+    const float* r_pre, const float* i_pre, const void* xr, const void* gate,
+    const void* gy, const float* b_r, const float* b_i, const float* lam,
+    const float* h0, float* dr, float* di, void* dxr, void* dgate, float* dh0,
+    float* part, float* dsum, long long B, long long S, long long W, int bf16,
+    const long long* strides, void* stream) {
+  if (B < 1 || S < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  LruBwdArgs p{};
+  p.r_pre = r_pre; p.i_pre = i_pre; p.xr = xr; p.gate = gate; p.gy = gy;
+  p.b_r = b_r; p.b_i = b_i; p.lam = lam; p.h0 = h0;
+  p.dr = dr; p.di = di; p.dxr = dxr; p.dgate = dgate; p.dh0 = dh0;
+  p.part = part; p.B = B; p.S = S; p.W = W;
+  p.sxr = View3{strides[0], strides[1], strides[2]};
+  p.sg = View3{strides[3], strides[4], strides[5]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? launch_bwd<__nv_bfloat16>(p, dsum, st)
+                               : launch_bwd<float>(p, dsum, st));
 }

@@ -13,7 +13,8 @@ with ``torch.empty``, launches on the current stream, raises if the
 launcher reports a CUDA error and adds one to :data:`LAUNCHES`. The plain
 version of the same function is ``kernels/ref.py``'s ``attention_ref``.
 The kernel is forward-only: ``ops.flash_attention`` raises
-:data:`FORWARD_ONLY` where autograd would need its gradient.
+:data:`FORWARD_ONLY` where autograd would need its gradient. A logit
+softcap is computed by the decode path alone (``softcap``).
 
 The kernel takes one of three paths, from the shapes and dtype alone
 (:func:`path`): a split-key decode when the query rows of a kv head fit
@@ -41,10 +42,10 @@ DECODE_ROWS = 16       # query rows of a decode block (kMaxRows)
 SPLIT_TILE = 32        # keys a tile of the decode kernel
 MAX_SPLITS = 64        # kMaxSplits
 FORWARD_ONLY = (
-    "flash_attention: the CUDA attention kernel is forward-only (the "
-    "reference has no backward kernel either); a loss differentiates the "
-    "plain attention, and a decode or an encoder pass runs under "
-    "torch.no_grad()")
+    "flash_attention: the CUDA attention kernel is forward-only: no path "
+    "differentiates it (a loss differentiates the plain attention, as the "
+    "reference's loss differentiates its plain _sdpa and never its Pallas "
+    "kernel), and a decode or an encoder pass runs under torch.no_grad()")
 
 # Kernel launches, counted where the wrapper launches the kernel.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -108,7 +109,8 @@ def launch_plan(q_shape, k_shape, dtype: torch.dtype, *, window: int = 0
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ckio_flash_attention.argtypes = [P, P, P, P, P, I, I, I, I,
-                                         ctypes.c_double, I, I, P, P]
+                                         ctypes.c_double, ctypes.c_double,
+                                         I, I, P, P]
     lib.ckio_flash_attention.restype = ctypes.c_int
 
 
@@ -119,9 +121,13 @@ def flash_attention_cuda(
     *,
     causal: bool = True,
     window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Online-softmax attention on the card; returns a ``(B, H, Sq, hd)``
-    view of a ``(B, Sq, H, hd)`` contiguous tensor in q's dtype."""
+    view of a ``(B, Sq, H, hd)`` contiguous tensor in q's dtype.
+    ``softcap > 0`` caps the scaled scores on the decode path; the two
+    prefill paths do not compute it, and a capped call that the plan puts
+    there raises ``ValueError`` before any launch."""
     dev = q.device
     for t in (q, k, v):
         if t.device.type != "cuda" or t.device != dev:
@@ -146,10 +152,16 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention: {H} query heads over {K} kv heads")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    if softcap < 0:
+        raise ValueError(f"flash_attention: softcap {softcap} < 0")
+    plan = launch_plan(tuple(q.shape), tuple(k.shape), q.dtype, window=window)
+    if softcap > 0 and plan["path"] != "decode":
+        raise ValueError(f"flash_attention: softcap on the {plan['path']} "
+                         f"path: only the decode kernel computes it (no "
+                         f"capped caller reaches a prefill path)")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     if out.numel() == 0:
         return out
-    plan = launch_plan(tuple(q.shape), tuple(k.shape), q.dtype, window=window)
     scratch = None
     if plan["scratch_floats"]:
         scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
@@ -159,7 +171,7 @@ def flash_attention_cuda(
     rc = _build.load_library(SOURCE, _bind).ckio_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dims,
         _DTYPE_CODES[q.dtype], hd, int(bool(causal)), int(window),
-        hd ** -0.5, plan["span"], plan["splits"],
+        hd ** -0.5, float(softcap), plan["span"], plan["splits"],
         None if scratch is None else scratch.data_ptr(),
         _build.stream_of(out))
     _build.check_rc(rc, "flash_attention")

@@ -20,7 +20,17 @@ from the conv output ``xin``, the ``dt_proj`` product ``dt_pre``, the
 ``x_proj`` output ``proj`` and the gate half ``z``, all in the compute
 dtype (bf16 or fp32) and read through their strides, plus the fp32
 parameters. It counts under ``LAUNCHES["mamba_scan_fused"]``; its plain
-version is ``ref.mamba_scan_fused_ref``. Both kernels are forward-only.
+version is ``ref.mamba_scan_fused_ref``.
+
+Each entry has a gradient: :class:`MambaScanFn` and
+:class:`MambaScanFusedFn` (``torch.autograd.Function``) save the inputs,
+not the states, and their backward recomputes the states. On the card it
+launches ``scan_bwd_kernel`` (``mamba_scan_backward_cuda``, counted under
+``LAUNCHES["mamba_scan_backward"]``) or ``fused_bwd_kernel``
+(``mamba_scan_fused_backward_cuda``, ``LAUNCHES["mamba_scan_fused_backward"]``;
+the skip, gate and softplus derivatives are torch ops around it); on the
+CPU the plain backward of ``kernels/ref.py``. A gradient through a returned
+state raises :data:`STATE_GRAD`: no loss reads it.
 """
 from __future__ import annotations
 
@@ -29,19 +39,21 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import reassemble as _build
+from repro_torch.kernels import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: a power of two, one warp at most
-FORWARD_ONLY = (
-    "mamba_scan: the CUDA selective-scan kernel is forward-only (the "
-    "reference has no backward kernel either); training an SSM on the card "
-    "comes with the training through the Hopper kernels slice (ROADMAP.md, "
-    "Queue A)")
+BWD_THREADS = 256                      # the backward kernels' block: 256/N channels
+STATE_GRAD = ("mamba_scan: a gradient through the returned state h_S (no "
+              "loss reads it; the backward kernels take dL/dy alone)")
 
 # Kernel launches, counted where the wrapper launches the kernel.
-LAUNCHES: Dict[str, int] = {"mamba_scan": 0, "mamba_scan_fused": 0}
+LAUNCHES: Dict[str, int] = {"mamba_scan": 0, "mamba_scan_fused": 0,
+                            "mamba_scan_backward": 0,
+                            "mamba_scan_fused_backward": 0}
 COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -56,6 +68,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ckio_mamba_scan.restype = ctypes.c_int
     lib.ckio_mamba_scan_fused.argtypes = [P] * 10 + [L, L, L, I, L, I, P, P]
     lib.ckio_mamba_scan_fused.restype = ctypes.c_int
+    lib.ckio_mamba_scan_backward.argtypes = [P] * 10 + [L, L, L, I, P]
+    lib.ckio_mamba_scan_backward.restype = ctypes.c_int
+    lib.ckio_mamba_scan_fused_backward.argtypes = [P] * 15 + [L, L, L, I, P]
+    lib.ckio_mamba_scan_fused_backward.restype = ctypes.c_int
+
+
+def _blocks(D: int, N: int) -> int:
+    """The backward kernels' blocks a batch row: 256/N channels each."""
+    return -(-D // (BWD_THREADS // N))
+
+
+def segment_steps(N: int) -> int:
+    """Steps of a segment of ``fused_bwd_kernel``'s backward walk (its
+    ``BwdShape::kQ``): one state of each segment's start is kept."""
+    return 16 if N == 32 else 32
 
 
 def mamba_scan_cuda(
@@ -196,3 +223,205 @@ def mamba_scan_fused_cuda(
     _build.check_rc(rc, "mamba_scan_fused")
     LAUNCHES["mamba_scan_fused"] += 1
     return y, h_out
+
+
+def _on_one_device(name: str, tensors) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: every input must be on one CUDA "
+                             f"device ({t.device} and {dev})")
+    return dev
+
+
+def mamba_scan_backward_cuda(
+    gy: torch.Tensor,                   # (B, S, D) fp32
+    Abar: torch.Tensor,                 # (B, S, D, N) fp32
+    Bx: torch.Tensor,                   # (B, S, D, N) fp32
+    C: torch.Tensor,                    # (B, S, N) fp32
+    h0: Optional[torch.Tensor] = None,  # (B, D, N) fp32
+):
+    """The literal scan's gradient from ``dL/dy``: ``(dAbar, dBx, dC,
+    dh0)``, ``dh0`` None without ``h0``. The states are recomputed from the
+    inputs inside the kernel (they live in ``dAbar``'s buffer until it is
+    overwritten); ``dC``'s sum over D is block partials, then an ordered
+    sum. Counts under ``LAUNCHES["mamba_scan_backward"]``."""
+    ins = [gy, Abar, Bx, C] + ([] if h0 is None else [h0])
+    dev = _on_one_device("mamba_scan_backward", ins)
+    if Abar.dim() != 4:
+        raise ValueError(f"mamba_scan_backward: Abar must be (B, S, D, N), "
+                         f"got {tuple(Abar.shape)}")
+    B, S, D, N = Abar.shape
+    if N not in STATE_SIZES:
+        raise ValueError(f"mamba_scan_backward: state size {N} not in "
+                         f"{STATE_SIZES}")
+    want = {"gy": (gy, (B, S, D)), "Abar": (Abar, (B, S, D, N)),
+            "Bx": (Bx, (B, S, D, N)), "C": (C, (B, S, N))}
+    if h0 is not None:
+        want["h0"] = (h0, (B, D, N))
+    for name, (t, shape) in want.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"mamba_scan_backward: {name} is {t.dtype} "
+                             f"{tuple(t.shape)}, expected float32 {shape}")
+    gy = gy.contiguous()
+    for name, (t, _) in want.items():
+        if name != "gy" and not t.is_contiguous():
+            raise ValueError(f"mamba_scan_backward: {name} must be contiguous")
+    dA = torch.empty_like(Abar)
+    dBx = torch.empty_like(Bx)
+    dC = torch.empty_like(C)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    if B * S * D == 0:
+        for t in (dA, dBx, dC) + (() if dh0 is None else (dh0,)):
+            t.zero_()
+        return dA, dBx, dC, dh0
+    part = torch.empty(B * S * _blocks(D, N) * N, dtype=torch.float32,
+                       device=dev)
+    rc = _build.load_library(SOURCE, _bind).ckio_mamba_scan_backward(
+        Abar.data_ptr(), Bx.data_ptr(), C.data_ptr(),
+        None if h0 is None else h0.data_ptr(), gy.data_ptr(), dA.data_ptr(),
+        dBx.data_ptr(), dC.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+        part.data_ptr(), B, S, D, N, _build.stream_of(dA))
+    _build.check_rc(rc, "mamba_scan_backward")
+    LAUNCHES["mamba_scan_backward"] += 1
+    return dA, dBx, dC, dh0
+
+
+def mamba_scan_fused_backward_cuda(
+    gy: torch.Tensor,                   # (B, S, D) compute dtype
+    xin: torch.Tensor,
+    dt_pre: torch.Tensor,
+    dt_bias: torch.Tensor,
+    A_log: torch.Tensor,
+    proj: torch.Tensor,
+    Dskip: torch.Tensor,
+    z: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+):
+    """The fused entry's gradient from ``dL/dy``: ``(dxin, ddt_pre,
+    ddt_bias, dA_log, dproj, dDskip, dz, dh0)``, each in its input's dtype
+    and shape, ``dh0`` None without ``h0``. Torch ops compute the operands
+    the forward rounds in the compute dtype (``dt``, ``silu(z)``) and the
+    skip, gate and softplus derivatives around one launch of
+    ``ckio_mamba_scan_fused_backward``, which recomputes ``Abar`` and ``Bx``
+    from ``dt``, ``x``, ``Bc`` and the states from each segment's start,
+    and differentiates the discretization and the scan. No (B, S, D, N)
+    tensor is allocated. Counts under
+    ``LAUNCHES["mamba_scan_fused_backward"]``."""
+    B, S, D, N, r = _fused_checks(xin, dt_pre, dt_bias, A_log, proj, Dskip,
+                                  z, h0)
+    ins = [gy, xin, dt_pre, dt_bias, A_log, proj, Dskip, z]
+    dev = _on_one_device("mamba_scan_fused_backward",
+                         ins + ([] if h0 is None else [h0]))
+    dtype = xin.dtype
+    if gy.dtype != dtype or tuple(gy.shape) != (B, S, D):
+        raise ValueError(f"mamba_scan_fused_backward: gy is {gy.dtype} "
+                         f"{tuple(gy.shape)}, expected {dtype} {(B, S, D)}")
+    f32 = torch.float32
+    s = dt_pre + dt_bias.to(dtype)
+    sz = F.silu(z)
+    dyp = gy * sz                                   # dL/d(y32.to + skip)
+    dtf = F.softplus(s).float().contiguous()
+    xf = xin.float().contiguous()
+    bc = proj[..., r:].float().contiguous()         # Bc | Cc
+    A = -torch.exp(A_log)
+    dy32 = dyp.float().contiguous()
+    y32 = torch.empty((B, S, D), dtype=f32, device=dev)
+    ddt = torch.empty_like(y32)
+    dx = torch.empty_like(y32)
+    dBC = torch.empty((B, S, 2 * N), dtype=f32, device=dev)
+    dA = torch.empty((D, N), dtype=f32, device=dev)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    if B * S * D == 0:
+        for t in (y32, ddt, dx, dBC, dA):
+            t.zero_()
+        if dh0 is not None:
+            dh0.zero_()
+    else:
+        Q = segment_steps(N)
+        hseg = torch.empty(B * -(-S // Q) * D * N, dtype=f32, device=dev)
+        part = torch.empty(B * S * _blocks(D, N) * 2 * N, dtype=f32,
+                           device=dev)
+        dApart = torch.empty((B, D, N), dtype=f32, device=dev)
+        rc = _build.load_library(SOURCE, _bind).ckio_mamba_scan_fused_backward(
+            dtf.data_ptr(), xf.data_ptr(), bc.data_ptr(), A.data_ptr(),
+            None if h0 is None else h0.data_ptr(), dy32.data_ptr(),
+            y32.data_ptr(), hseg.data_ptr(), ddt.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), dBC.data_ptr(), dApart.data_ptr(), dA.data_ptr(),
+            None if dh0 is None else dh0.data_ptr(), B, S, D, N,
+            _build.stream_of(y32))
+        _build.check_rc(rc, "mamba_scan_fused_backward")
+        LAUNCHES["mamba_scan_fused_backward"] += 1
+        del hseg, part, dApart
+    ypre = y32.to(dtype) + Dskip.to(dtype) * xin
+    dz = torch.ops.aten.silu_backward(gy * ypre, z)
+    dDskip = (dyp * xin).sum((0, 1)).to(f32)
+    dxin = dyp * Dskip.to(dtype) + dx.to(dtype)
+    ds = torch.ops.aten.softplus_backward(ddt.to(dtype), s, 1.0, 20.0)
+    dproj = torch.zeros_like(proj)
+    dproj[..., r:] = dBC.to(dtype)
+    return (dxin, ds, ds.sum((0, 1)).to(f32), dA * A, dproj, dDskip, dz, dh0)
+
+
+class MambaScanFn(torch.autograd.Function):
+    """``ops.mamba_scan`` with its gradient: the kernels on the card, the
+    plain versions on the CPU. Saves the inputs, not the states."""
+
+    @staticmethod
+    def forward(ctx, cuda: bool, Abar, Bx, C, h0, return_state: bool):
+        if cuda:
+            y, h = mamba_scan_cuda(Abar, Bx, C, h0=h0,
+                                   return_state=return_state)
+        else:
+            y, h = ref.ssm_scan_ref(Abar, Bx, C, h0, return_state=True)
+            h = h if return_state else None
+        ctx.cuda, ctx.has_h0 = cuda, h0 is not None
+        ctx.save_for_backward(Abar, Bx, C, *(() if h0 is None else (h0,)))
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        if gh is not None:
+            raise NotImplementedError(STATE_GRAD)
+        Abar, Bx, C, *h0 = ctx.saved_tensors
+        h0 = h0[0] if h0 else None
+        if gy is None:
+            return (None,) * 6
+        bwd = mamba_scan_backward_cuda if ctx.cuda else ref.ssm_scan_bwd_ref
+        dA, dB, dC, dh0 = bwd(gy, Abar, Bx, C, h0)
+        return None, dA, dB, dC, dh0, None
+
+
+class MambaScanFusedFn(torch.autograd.Function):
+    """``ops.mamba_scan_fused`` with its gradient: the kernels on the card,
+    the plain versions on the CPU. Saves the inputs, not the states."""
+
+    @staticmethod
+    def forward(ctx, cuda: bool, xin, dt_pre, dt_bias, A_log, proj, Dskip, z,
+                h0, return_state: bool):
+        args = (xin, dt_pre, dt_bias, A_log, proj, Dskip, z)
+        if cuda:
+            y, h = mamba_scan_fused_cuda(*args, h0=h0,
+                                         return_state=return_state)
+        else:
+            y, h = ref.mamba_scan_fused_ref(*args, h0, return_state=True)
+            h = h if return_state else None
+        ctx.cuda, ctx.has_h0 = cuda, h0 is not None
+        ctx.save_for_backward(*args, *(() if h0 is None else (h0,)))
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        if gh is not None:
+            raise NotImplementedError(STATE_GRAD)
+        saved = ctx.saved_tensors
+        h0 = saved[7] if ctx.has_h0 else None
+        if gy is None:
+            return (None,) * 10
+        bwd = (mamba_scan_fused_backward_cuda if ctx.cuda
+               else ref.mamba_scan_fused_bwd_ref)
+        grads = bwd(gy, *saved[:7], h0)
+        return (None, *grads, None)
+

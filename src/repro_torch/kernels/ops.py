@@ -7,7 +7,12 @@ hand-written kernels in ``kernels/reassemble.py``,
 ``kernels/flash_attention.py``, ``kernels/mamba_scan.py`` and
 ``kernels/rglru_scan.py`` (which raise if they cannot launch), CPU
 tensors to the plain PyTorch versions in ``kernels/ref.py``. There is no
-fallback from one to the other. The five compute entries also take meta
+fallback from one to the other. ``mamba_scan``, ``mamba_scan_fused`` and
+``rglru_scan_gated`` are differentiable: where autograd needs their
+gradient they run through a ``torch.autograd.Function`` whose backward is a
+hand-written kernel on the card and a plain backward on the CPU;
+``flash_attention`` and the literal ``rglru_scan``, which no path
+differentiates, raise there. The five compute entries also take meta
 tensors (the dry run's, ``launch/dryrun.py``): those go to the
 ``ckio_meta`` ops of ``kernels/meta.py``, which give shapes, FLOPs and a
 DTensor sharding rule and run nothing; the check is one attribute read,
@@ -40,10 +45,15 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
                      f"{sorted(kinds)}")
 
 
+def _needs_grad(ins) -> bool:
+    """Whether autograd would need a gradient through a call on ``ins``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+
+
 def _forward_only(ins, msg: str) -> None:
     """Raise ``msg`` where autograd would need a gradient through a
     forward-only kernel."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+    if _needs_grad(ins):
         raise NotImplementedError(msg)
 
 
@@ -65,23 +75,31 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Attention in the reference's ``(B, S, H, hd)`` layout; returns
     ``(B, Sq, H, hd)``. The CUDA kernel reads the inputs through their
     strides (views such as a cache prefix need no copy). A window without
     a causal mask is refused: the reference's Pallas kernel and its oracle
-    disagree there, and no caller uses it."""
+    disagree there, and no caller uses it. ``softcap > 0`` caps the scaled
+    scores (``softcap * tanh(s / softcap)``, the reference's ``_sdpa``); on
+    the card only the decode path computes it (``FA.launch_plan``), and a
+    capped call that would take a prefill path raises ``ValueError``."""
     if window > 0 and not causal:
         raise ValueError("flash_attention: window > 0 needs causal=True")
+    if softcap < 0.0:
+        raise ValueError(f"flash_attention: softcap {softcap} < 0")
     if q.device.type == "meta":
         from repro_torch.kernels import meta
         return meta.flash_attention(q, k, v, causal=causal, window=window)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if _on_cuda(q, k, v):
         _forward_only((q, k, v), FA.FORWARD_ONLY)
-        out = FA.flash_attention_cuda(qt, kt, vt, causal=causal, window=window)
+        out = FA.flash_attention_cuda(qt, kt, vt, causal=causal, window=window,
+                                      softcap=softcap)
     else:
-        out = ref.attention_ref(qt, kt, vt, causal=causal, window=window)
+        out = ref.attention_ref(qt, kt, vt, causal=causal, window=window,
+                                softcap=softcap)
     return out.transpose(1, 2)
 
 
@@ -96,15 +114,16 @@ def mamba_scan(
     """The Mamba-1 selective scan: ``y`` (B, S, D), or ``(y, h_S)`` with
     ``return_state``. With ``h0=None`` it is the reference's
     ``mamba_scan_pallas``; a decode step passes its carried state as ``h0``
-    with S = 1. The CUDA kernel is forward-only: it raises
-    ``NotImplementedError`` where autograd would need a gradient through
-    it; the plain version on CPU tensors is differentiable."""
+    with S = 1. Differentiable (``MS.MambaScanFn``): on the card the
+    backward is ``scan_bwd_kernel``; a gradient through ``h_S`` raises."""
     if Abar.device.type == "meta":
         from repro_torch.kernels import meta
         return meta.mamba_scan(Abar, Bx, C, h0=h0, return_state=return_state)
     ins = (Abar, Bx, C) if h0 is None else (Abar, Bx, C, h0)
-    if _on_cuda(*ins):
-        _forward_only(ins, MS.FORWARD_ONLY)
+    cuda = _on_cuda(*ins)
+    if _needs_grad(ins):
+        y, h = MS.MambaScanFn.apply(cuda, Abar, Bx, C, h0, return_state)
+    elif cuda:
         y, h = MS.mamba_scan_cuda(Abar, Bx, C, h0=h0,
                                   return_state=return_state)
     else:
@@ -121,9 +140,9 @@ def rglru_scan(
     """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t``: every ``h``
     (B, S, W). With ``h0=None`` it is the reference's
     ``rglru_scan_pallas``; a decode step passes its carried state as ``h0``
-    with S = 1. The CUDA kernel is forward-only: it raises
-    ``NotImplementedError`` where autograd would need a gradient through
-    it; the plain version on CPU tensors is differentiable."""
+    with S = 1. The CUDA kernel is forward-only (:data:`LRU.FORWARD_ONLY`):
+    no path differentiates it, since every RG-LRU layer runs the gated
+    entry; the plain version on CPU tensors is differentiable."""
     if a.device.type == "meta":
         from repro_torch.kernels import meta
         return meta.rglru_scan(a, b, h0=h0)
@@ -152,23 +171,24 @@ def mamba_scan_fused(
     xin``, the selective scan read out with ``Cc``, then ``(y + D xin) *
     silu(z)``; ``Bc``/``Cc`` are the last 2N columns of ``proj``. The
     reference's ``_fused_chunk_scan`` plus its skip and gate. Views (``z``
-    of ``xz``, ``proj``'s columns) are read through their strides. The CUDA
-    kernel is forward-only, as ``mamba_scan``."""
+    of ``xz``, ``proj``'s columns) are read through their strides.
+    Differentiable (``MS.MambaScanFusedFn``): on the card the backward is
+    ``fused_bwd_kernel`` with torch's skip, gate and softplus derivatives
+    around it; a gradient through ``h_S`` raises."""
     if xin.device.type == "meta":
         from repro_torch.kernels import meta
         return meta.mamba_scan_fused(xin, dt_pre, dt_bias, A_log, proj, Dskip,
                                      z, h0=h0, return_state=return_state)
-    ins = [xin, dt_pre, dt_bias, A_log, proj, Dskip, z]
-    if h0 is not None:
-        ins.append(h0)
-    if _on_cuda(*ins):
-        _forward_only(ins, MS.FORWARD_ONLY)
-        y, h = MS.mamba_scan_fused_cuda(xin, dt_pre, dt_bias, A_log, proj,
-                                        Dskip, z, h0=h0,
+    args = (xin, dt_pre, dt_bias, A_log, proj, Dskip, z)
+    ins = args if h0 is None else (*args, h0)
+    cuda = _on_cuda(*ins)
+    if _needs_grad(ins):
+        y, h = MS.MambaScanFusedFn.apply(cuda, *args, h0, return_state)
+    elif cuda:
+        y, h = MS.mamba_scan_fused_cuda(*args, h0=h0,
                                         return_state=return_state)
     else:
-        y, h = ref.mamba_scan_fused_ref(xin, dt_pre, dt_bias, A_log, proj,
-                                        Dskip, z, h0, return_state=True)
+        y, h = ref.mamba_scan_fused_ref(*args, h0, return_state=True)
     return (y, h) if return_state else y
 
 
@@ -189,22 +209,22 @@ def rglru_scan_gated(
     ``return_state``, where ``h`` is the recurrence with ``a = exp(-8
     softplus(lam) sigmoid(r_pre + b_r))`` and input ``sqrt(1 - a^2)
     sigmoid(i_pre + b_i) xr``. ``xr`` and ``gate`` are read through their
-    strides. The CUDA kernel is forward-only, as ``rglru_scan``."""
+    strides. Differentiable (``LRU.RGLRUScanGatedFn``): on the card the
+    backward is ``lru_bwd_kernel``; a gradient through ``h_S`` raises."""
     if r_pre.device.type == "meta":
         from repro_torch.kernels import meta
         return meta.rglru_scan_gated(r_pre, i_pre, b_r, b_i, lam, xr, gate,
                                      h0=h0, return_state=return_state)
-    ins = [r_pre, i_pre, b_r, b_i, lam, xr, gate]
-    if h0 is not None:
-        ins.append(h0)
-    if _on_cuda(*ins):
-        _forward_only(ins, LRU.FORWARD_ONLY)
-        y, h = LRU.rglru_scan_gated_cuda(r_pre, i_pre, b_r, b_i, lam, xr,
-                                         gate, h0=h0,
+    args = (r_pre, i_pre, b_r, b_i, lam, xr, gate)
+    ins = args if h0 is None else (*args, h0)
+    cuda = _on_cuda(*ins)
+    if _needs_grad(ins):
+        y, h = LRU.RGLRUScanGatedFn.apply(cuda, *args, h0, return_state)
+    elif cuda:
+        y, h = LRU.rglru_scan_gated_cuda(*args, h0=h0,
                                          return_state=return_state)
     else:
-        y, h = ref.rglru_scan_gated_ref(r_pre, i_pre, b_r, b_i, lam, xr,
-                                        gate, h0, return_state=True)
+        y, h = ref.rglru_scan_gated_ref(*args, h0, return_state=True)
     return (y, h) if return_state else y
 
 

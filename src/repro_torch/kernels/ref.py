@@ -12,6 +12,12 @@ import torch.nn.functional as F
 NEG_INF = -2.0e38
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the scans' accumulation type: fp32, or ``t``'s own type
+    where it is wider (float64, in which the gradient checks run)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def attention_ref(
     q: torch.Tensor,          # (B, H, Sq, hd)
     k: torch.Tensor,          # (B, K, Sk, hd)
@@ -19,17 +25,22 @@ def attention_ref(
     *,
     causal: bool = True,
     window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Dense softmax attention, GQA by head-group folding, fp32 throughout;
     the output is cast to q's dtype. Causal positions are end-aligned
     (query i sits at i + Sk - Sq); the window applies to causal masks only,
     and a row with every key masked softmaxes over the -2e38 fill (uniform
-    weights), as in the reference oracle."""
+    weights), as in the reference oracle. ``softcap > 0`` caps the scaled
+    scores to ``softcap * tanh(s / softcap)`` before the mask, as the
+    reference's ``_sdpa`` does."""
     B, H, Sq, hd = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
     qf = q.reshape(B, K, G, Sq, hd).float()
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * (hd ** -0.5)
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
     if causal:
         i = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
         j = torch.arange(Sk, device=q.device)[None, :]
@@ -49,6 +60,7 @@ def attention_split_ref(
     *,
     causal: bool = True,
     window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """The split-key decode path written plainly: the key axis cut by
     ``flash_attention.split_plan``, the splits that ``split_range``
@@ -57,7 +69,8 @@ def attention_split_ref(
     ``exp(m - max)``, a split whose max is the -2e38 fill weighing 0. A row
     with no kept key gives 0 (the denominator is clamped to 1e-30), as in
     the kernel and the Pallas kernel; ``attention_ref`` averages over the
-    fill there instead."""
+    fill there instead. ``softcap`` caps the scaled scores before the mask,
+    as in ``attention_ref``."""
     from repro_torch.kernels.flash_attention import split_plan, split_range
 
     B, H, Sq, hd = q.shape
@@ -77,6 +90,8 @@ def attention_split_ref(
             continue
         sc = torch.einsum("bkgqd,bksd->bkgqs", qf,
                           k[:, :, a:b].float()) * (hd ** -0.5)
+        if softcap > 0.0:
+            sc = torch.tanh(sc / softcap) * softcap
         j = torch.arange(a, b, device=q.device)[None, :]
         keep = torch.ones((Sq, b - a), dtype=torch.bool, device=q.device)
         if causal:
@@ -161,11 +176,11 @@ def mamba_scan_fused_ref(
     n = A_log.shape[1]
     r = proj.shape[-1] - 2 * n
     Bc, Cc = proj[..., r:r + n], proj[..., r + n:]
-    dt = F.softplus(dt_pre + dt_bias.to(dtype)).float()     # (B, S, D)
-    A = -torch.exp(A_log.float())                           # (D, N)
+    dt = _acc(F.softplus(dt_pre + dt_bias.to(dtype)))       # (B, S, D)
+    A = -torch.exp(_acc(A_log))                             # (D, N)
     Abar = torch.exp(dt[..., None] * A)
-    Bx = dt[..., None] * Bc[..., None, :].float() * xin[..., None].float()
-    y, h = ssm_scan_ref(Abar, Bx, Cc.float(), h0, return_state=True)
+    Bx = dt[..., None] * _acc(Bc[..., None, :]) * _acc(xin[..., None])
+    y, h = ssm_scan_ref(Abar, Bx, _acc(Cc), h0, return_state=True)
     y = y.to(dtype)
     y = y + Dskip.to(dtype) * xin
     y = y * F.silu(z)
@@ -192,7 +207,7 @@ def rglru_scan_gated_ref(
     exp(-8 softplus(lam) r)``, ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) i_t
     xr_t`` in fp32, ``y = h.to(dtype) * gate``. Returns ``y`` (B, S, W),
     or ``(y, h_S)`` with the fp32 state after the last step."""
-    xf = xr.float()
+    xf = _acc(xr)
     r = torch.sigmoid(r_pre + b_r)
     i = torch.sigmoid(i_pre + b_i)
     log_a = -RGLRU_C * F.softplus(lam) * r
@@ -205,7 +220,145 @@ def rglru_scan_gated_ref(
     if h.shape[1]:
         return y, h[:, -1]
     return y, (h0 if h0 is not None else
-               xr.new_zeros((xr.shape[0], xr.shape[2]), dtype=torch.float32))
+               xr.new_zeros((xr.shape[0], xr.shape[2]), dtype=xf.dtype))
+
+
+def ssm_scan_bwd_ref(
+    gy: torch.Tensor,                     # (B, S, D) fp32
+    Abar: torch.Tensor,                   # (B, S, D, N) fp32
+    Bx: torch.Tensor,                     # (B, S, D, N) fp32
+    C: torch.Tensor,                      # (B, S, N) fp32
+    h0: Optional[torch.Tensor] = None,    # (B, D, N) fp32
+):
+    """The gradient of ``ssm_scan_ref``'s ``y`` from ``dL/dy``: ``(dAbar,
+    dBx, dC, dh0)``, ``dh0`` None without ``h0``. The states are
+    recomputed, then the reverse recurrence runs a step at a time:
+    ``g_t = gy_t C_t + Abar_{t+1} g_{t+1}``, ``dBx_t = g_t``, ``dAbar_t =
+    g_t h_{t-1}``, ``dC_t = sum_d gy_t h_t``, ``dh0 = Abar_0 g_0``."""
+    B, S, D, N = Abar.shape
+    h = Abar.new_zeros((B, D, N)) if h0 is None else h0
+    hs = [h]                                # hs[t] = h_{t-1}
+    for t in range(S):
+        h = Abar[:, t] * h + Bx[:, t]
+        hs.append(h)
+    dA, dBx, dC = (torch.empty_like(Abar), torch.empty_like(Bx),
+                   torch.empty_like(C))
+    g = Abar.new_zeros((B, D, N))
+    for t in reversed(range(S)):
+        g = gy[:, t, :, None] * C[:, t, None, :] + (
+            Abar[:, t + 1] * g if t + 1 < S else 0.0)
+        dBx[:, t] = g
+        dA[:, t] = g * hs[t]
+        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], gy[:, t])
+    dh0 = None
+    if h0 is not None:
+        dh0 = Abar[:, 0] * g if S else torch.zeros_like(h0)
+    return dA, dBx, dC, dh0
+
+
+def mamba_scan_fused_bwd_ref(
+    gy: torch.Tensor,                     # (B, S, D) compute dtype
+    xin: torch.Tensor,
+    dt_pre: torch.Tensor,
+    dt_bias: torch.Tensor,
+    A_log: torch.Tensor,
+    proj: torch.Tensor,
+    Dskip: torch.Tensor,
+    z: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+):
+    """The gradient of ``mamba_scan_fused_ref``'s ``y`` from ``dL/dy``:
+    ``(dxin, ddt_pre, ddt_bias, dA_log, dproj, dDskip, dz, dh0)`` in the
+    inputs' dtypes, ``dh0`` None without ``h0``. Each op of the forward is
+    differentiated by hand in the dtype the forward computes it in; the
+    scan's part is ``ssm_scan_bwd_ref``."""
+    dtype = xin.dtype
+    n = A_log.shape[1]
+    r = proj.shape[-1] - 2 * n
+    Bc, Cc = _acc(proj[..., r:r + n]), _acc(proj[..., r + n:])
+    s = dt_pre + dt_bias.to(dtype)
+    dt = _acc(F.softplus(s))
+    A = -torch.exp(_acc(A_log))
+    Abar = torch.exp(dt[..., None] * A)
+    xf = _acc(xin)
+    Bx = dt[..., None] * Bc[..., None, :] * xf[..., None]
+    y32 = ssm_scan_ref(Abar, Bx, Cc, h0)
+    # y = (y32.to(dtype) + Dskip.to(dtype) * xin) * silu(z)
+    sz = F.silu(z)
+    ypre = y32.to(dtype) + Dskip.to(dtype) * xin
+    dypre = gy * sz
+    sig = torch.sigmoid(z)
+    dz = gy * ypre * (sig * (1 + z * (1 - sig)))
+    dDskip = _acc((dypre * xin).sum((0, 1)))
+    dA_bar, dBx, dCc, dh0 = ssm_scan_bwd_ref(_acc(dypre), Abar, Bx, Cc, h0)
+    # Bx = dt Bc x, Abar = exp(dt A)
+    dlin = dA_bar * Abar
+    ddt = (dlin * A).sum(-1) + (dBx * Bc[..., None, :] * xf[..., None]).sum(-1)
+    dx = (dBx * dt[..., None] * Bc[..., None, :]).sum(-1)
+    dBc = (dBx * dt[..., None] * xf[..., None]).sum(-2)
+    dA = (dlin * dt[..., None]).sum((0, 1))
+    dxin = dypre * Dskip.to(dtype) + dx.to(dtype)
+    ds = (ddt.to(dtype) * torch.where(s > 20, torch.ones_like(s),
+                                      torch.sigmoid(s)))
+    dproj = torch.zeros_like(proj)
+    dproj[..., r:r + n] = dBc.to(dtype)
+    dproj[..., r + n:] = dCc.to(dtype)
+    return (dxin, ds, _acc(ds.sum((0, 1))), dA * A, dproj, dDskip, dz, dh0)
+
+
+def rglru_scan_gated_bwd_ref(
+    gy: torch.Tensor,                     # (B, S, W) compute dtype
+    r_pre: torch.Tensor,
+    i_pre: torch.Tensor,
+    b_r: torch.Tensor,
+    b_i: torch.Tensor,
+    lam: torch.Tensor,
+    xr: torch.Tensor,
+    gate: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+):
+    """The gradient of ``rglru_scan_gated_ref``'s ``y`` from ``dL/dy``:
+    ``(dr_pre, di_pre, db_r, db_i, dlam, dxr, dgate, dh0)`` in the inputs'
+    dtypes, ``dh0`` None without ``h0``. The gates and states are
+    recomputed, then the reverse recurrence runs a step at a time, ``g_t =
+    gy_t gate_t + a_{t+1} g_{t+1}``; each gate is differentiated by hand."""
+    B, S, W = xr.shape
+    xf = _acc(xr)
+    r = torch.sigmoid(r_pre + b_r)
+    i = torch.sigmoid(i_pre + b_i)
+    sp = F.softplus(lam)
+    log_a = -RGLRU_C * sp * r
+    a = torch.exp(log_a)
+    e2 = torch.exp(2.0 * log_a)
+    inner = 1.0 - e2
+    beta = torch.sqrt(torch.clamp(inner, min=1e-12))
+    h = lru_scan_ref(a, beta * i * xf, h0)
+    prev = torch.cat([(h0 if h0 is not None else h.new_zeros((B, W)))[:, None],
+                      h[:, :-1]], dim=1)             # h_{t-1}
+    dgate = gy * h.to(xr.dtype)
+    gh = _acc(gy * gate)
+    g = torch.empty_like(h)
+    acc = h.new_zeros((B, W))
+    for t in reversed(range(S)):
+        acc = gh[:, t] + (a[:, t + 1] * acc if t + 1 < S else 0.0)
+        g[:, t] = acc
+    gx = g * xf
+    dbeta = gx * i
+    dlog = g * prev * a + torch.where(
+        inner >= 1e-12, 2.0 * (-(dbeta / (2.0 * beta)) * e2),
+        torch.zeros_like(e2))
+    dr = dlog * (-RGLRU_C * sp)
+    drp = dr * (1 - r) * r
+    dip = gx * beta * (1 - i) * i
+    dc = (dlog * r).sum((0, 1))
+    dlam = dc * -RGLRU_C * torch.where(lam > 20, torch.ones_like(lam),
+                                       torch.sigmoid(lam))
+    dxr = (g * (beta * i)).to(xr.dtype)
+    dh0 = None
+    if h0 is not None:
+        dh0 = a[:, 0] * acc if S else torch.zeros_like(h0)
+    return (drp, dip, drp.sum((0, 1)), dip.sum((0, 1)), dlam, dxr, dgate,
+            dh0)
 
 
 def reassemble_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

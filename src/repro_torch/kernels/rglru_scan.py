@@ -19,7 +19,16 @@ launch, from the fp32 gate products, the fp32 gate parameters, and the
 conv output ``xr`` and GeLU ``gate`` in the compute dtype (bf16 or fp32,
 read through their strides). It counts under
 ``LAUNCHES["rglru_scan_gated"]``; its plain version is
-``ref.rglru_scan_gated_ref``. Both instances are forward-only.
+``ref.rglru_scan_gated_ref``.
+
+The gated entry has a gradient: :class:`RGLRUScanGatedFn`
+(``torch.autograd.Function``) saves the inputs, not the states; its
+backward launches ``lru_bwd_kernel`` on the card
+(``rglru_scan_gated_backward_cuda``, counted under
+``LAUNCHES["rglru_scan_gated_backward"]``), which recomputes the states,
+and runs ``ref.rglru_scan_gated_bwd_ref`` on the CPU. A gradient through
+the returned state raises :data:`STATE_GRAD`. The literal instance stays
+forward-only (:data:`FORWARD_ONLY`).
 """
 from __future__ import annotations
 
@@ -30,16 +39,20 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import reassemble as _build
+from repro_torch.kernels import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 FORWARD_ONLY = (
-    "rglru_scan: the CUDA RG-LRU kernel is forward-only (the reference has "
-    "no backward kernel either); training a recurrent model on the card "
-    "comes with the training through the Hopper kernels slice (ROADMAP.md, "
-    "Queue A)")
+    "rglru_scan: the literal CUDA RG-LRU kernel is forward-only: no path "
+    "differentiates it (every RG-LRU layer runs the gated entry, whose "
+    "backward is a kernel; the reference never differentiates its Pallas "
+    "kernel either)")
+STATE_GRAD = ("rglru_scan_gated: a gradient through the returned state h_S "
+              "(no loss reads it; the backward kernel takes dL/dy alone)")
 
 # Kernel launches, counted where the wrapper launches the kernel.
-LAUNCHES: Dict[str, int] = {"rglru_scan": 0, "rglru_scan_gated": 0}
+LAUNCHES: Dict[str, int] = {"rglru_scan": 0, "rglru_scan_gated": 0,
+                            "rglru_scan_gated_backward": 0}
 COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -54,6 +67,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ckio_rglru_scan.restype = ctypes.c_int
     lib.ckio_rglru_scan_gated.argtypes = [P] * 10 + [L, L, L, I, P, P]
     lib.ckio_rglru_scan_gated.restype = ctypes.c_int
+    lib.ckio_rglru_scan_gated_backward.argtypes = [P] * 16 + [L, L, L, I, P,
+                                                              P]
+    lib.ckio_rglru_scan_gated_backward.restype = ctypes.c_int
 
 
 def rglru_scan_cuda(
@@ -164,3 +180,96 @@ def rglru_scan_gated_cuda(
     _build.check_rc(rc, "rglru_scan_gated")
     LAUNCHES["rglru_scan_gated"] += 1
     return y, h_out
+
+
+def rglru_scan_gated_backward_cuda(
+    gy: torch.Tensor,                   # (B, S, W) compute dtype
+    r_pre: torch.Tensor,
+    i_pre: torch.Tensor,
+    b_r: torch.Tensor,
+    b_i: torch.Tensor,
+    lam: torch.Tensor,
+    xr: torch.Tensor,
+    gate: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+):
+    """The gated entry's gradient from ``dL/dy``: ``(dr_pre, di_pre, db_r,
+    db_i, dlam, dxr, dgate, dh0)``, each in its input's dtype and shape
+    (``dxr``, ``dgate`` contiguous), ``dh0`` None without ``h0``. One
+    launch of ``ckio_rglru_scan_gated_backward`` (the kernel and the
+    ordered sum over B of its per-row sums), then ``dlam`` from the summed
+    ``dL/dc``, ``c = -8 softplus(lam)``, by torch's softplus derivative.
+    Counts under ``LAUNCHES["rglru_scan_gated_backward"]``."""
+    B, S, W = _gated_checks(r_pre, i_pre, b_r, b_i, lam, xr, gate, h0)
+    ins = [gy, r_pre, i_pre, b_r, b_i, lam, xr, gate]
+    if h0 is not None:
+        ins.append(h0)
+    dev = xr.device
+    for t in ins:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"rglru_scan_gated_backward: every input must "
+                             f"be on one CUDA device ({t.device} and {dev})")
+    if gy.dtype != xr.dtype or tuple(gy.shape) != (B, S, W):
+        raise ValueError(f"rglru_scan_gated_backward: gy is {gy.dtype} "
+                         f"{tuple(gy.shape)}, expected {xr.dtype} "
+                         f"{(B, S, W)}")
+    gy = gy.contiguous()
+    dr = torch.empty_like(r_pre)
+    di = torch.empty_like(i_pre)
+    dxr = torch.empty((B, S, W), dtype=xr.dtype, device=dev)
+    dgate = torch.empty_like(dxr)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    dsum = torch.zeros((3, W), dtype=torch.float32, device=dev)
+    if B * S * W == 0:
+        for t in (dr, di, dxr, dgate) + (() if dh0 is None else (dh0,)):
+            t.zero_()
+    else:
+        part = torch.empty(3 * B * W, dtype=torch.float32, device=dev)
+        strides = (ctypes.c_longlong * 6)(*xr.stride(), *gate.stride())
+        rc = _build.load_library(SOURCE, _bind).ckio_rglru_scan_gated_backward(
+            r_pre.data_ptr(), i_pre.data_ptr(), xr.data_ptr(),
+            gate.data_ptr(), gy.data_ptr(), b_r.data_ptr(), b_i.data_ptr(),
+            lam.data_ptr(), None if h0 is None else h0.data_ptr(),
+            dr.data_ptr(), di.data_ptr(), dxr.data_ptr(), dgate.data_ptr(),
+            None if dh0 is None else dh0.data_ptr(), part.data_ptr(),
+            dsum.data_ptr(), B, S, W, int(xr.dtype == torch.bfloat16),
+            strides, _build.stream_of(dr))
+        _build.check_rc(rc, "rglru_scan_gated_backward")
+        LAUNCHES["rglru_scan_gated_backward"] += 1
+    dc, dbr, dbi = dsum
+    dlam = torch.ops.aten.softplus_backward(dc * -ref.RGLRU_C, lam, 1.0, 20.0)
+    return dr, di, dbr, dbi, dlam, dxr, dgate, dh0
+
+
+class RGLRUScanGatedFn(torch.autograd.Function):
+    """``ops.rglru_scan_gated`` with its gradient: the kernels on the card,
+    the plain versions on the CPU. Saves the inputs, not the states."""
+
+    @staticmethod
+    def forward(ctx, cuda: bool, r_pre, i_pre, b_r, b_i, lam, xr, gate, h0,
+                return_state: bool):
+        args = (r_pre, i_pre, b_r, b_i, lam, xr, gate)
+        if cuda:
+            y, h = rglru_scan_gated_cuda(*args, h0=h0,
+                                         return_state=return_state)
+        else:
+            y, h = ref.rglru_scan_gated_ref(*args, h0, return_state=True)
+            h = h if return_state else None
+        ctx.cuda, ctx.has_h0 = cuda, h0 is not None
+        ctx.save_for_backward(*args, *(() if h0 is None else (h0,)))
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        if gh is not None:
+            raise NotImplementedError(STATE_GRAD)
+        saved = ctx.saved_tensors
+        h0 = saved[7] if ctx.has_h0 else None
+        if gy is None:
+            return (None,) * 10
+        bwd = (rglru_scan_gated_backward_cuda if ctx.cuda
+               else ref.rglru_scan_gated_bwd_ref)
+        grads = bwd(gy, *saved[:7], h0)
+        return (None, *grads, None)
+

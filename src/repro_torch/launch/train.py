@@ -40,9 +40,9 @@ Checkpoints hold the train state in the reference's layout
 either package resumes from the other's; ``--resume`` continues from the
 latest one in ``--ckpt-dir``. A restore writes the file's values into the
 live state in place (``make_supervisor``). A stack with a recurrent layer
-(``--arch falcon-mamba-7b``, ``recurrentgemma-2b``) trains on the CPU
-only: its scan kernels are forward-only, so on the card the driver raises
-before it builds anything. ``--arch qwen2-vl-2b`` trains on tokens, as the
+(``--arch falcon-mamba-7b``, ``recurrentgemma-2b``) trains on the card
+like any other: each scan's gradient comes from its backward kernel (the
+reference's from XLA's autodiff). ``--arch qwen2-vl-2b`` trains on tokens, as the
 reference's driver does (M-RoPE over broadcast positions); the
 encoder-decoder ``whisper-medium`` is refused, since its loss needs encoder
 frames that a token corpus does not hold (the reference's driver fails
@@ -60,14 +60,13 @@ from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.base import MAMBA, RGLRU, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.core import CkIO, FileOptions, Topology
 from repro_torch.core.metrics import SessionMetrics
 from repro_torch.data import CkIOPipeline, FileSet, make_token_file
 from repro_torch.device import resolve_device
 from repro_torch.ipc.service import ReaderService, ServiceOptions
-from repro_torch.kernels import mamba_scan, rglru_scan
 from repro_torch.models import build_model
 from repro_torch.models.convert import train_state_from_reference, train_state_to_reference
 from repro_torch.train import (
@@ -300,10 +299,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             f"training example targets decoder-only archs: {cfg.name}'s loss "
             f"needs encoder frames (batch['embeds']), which a token corpus "
             f"does not hold")
-    if torch.device(args.device).type == "cuda":
-        for mixer, kernel in ((MAMBA, mamba_scan), (RGLRU, rglru_scan)):
-            if any(s.mixer == mixer for s in cfg.block_pattern):
-                raise NotImplementedError(kernel.FORWARD_ONLY)
     dev = resolve_device(args.device)
     model = build_model(cfg)
     print(f"arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} "

@@ -315,10 +315,6 @@ def attention_decode(
     returned one are the same tensors, which saves a copy of the cache per
     layer per token."""
     C = cache.k.shape[1]
-    if softcap > 0.0:
-        raise NotImplementedError(
-            "attention logit softcap in decode: the flash-attention kernel "
-            "does not compute it, and no config the port carries sets one")
     q, k_new, v_new = _project_qkv(params, x, dtype, eps)
     if use_rope:
         q = apply_rope(q, cos, sin)
@@ -329,12 +325,13 @@ def attention_decode(
     if pos < C:
         out = ops.flash_attention(q, cache.k[:, :pos + 1],
                                   cache.v[:, :pos + 1], causal=True,
-                                  window=window)
+                                  window=window, softcap=softcap)
     elif 0 < window < C:
         raise ValueError(f"a ring of {C} slots wider than its window "
                          f"{window} cannot wrap: size local rings to the "
                          f"window (transformer._layer_capacity)")
     else:
-        out = ops.flash_attention(q, cache.k, cache.v, causal=True, window=0)
+        out = ops.flash_attention(q, cache.k, cache.v, causal=True, window=0,
+                                  softcap=softcap)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dtype))
     return out, cache

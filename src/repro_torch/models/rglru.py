@@ -14,8 +14,9 @@ one CUDA kernel launch a layer on the card, the plain version of
 ``kernels/ref.py`` on the CPU. The prefill forward runs it once over the
 whole sequence (the reference runs an associative scan there: the same
 function, summed in another order); each decode step runs it with S = 1
-from the carried state. The kernel is forward-only: training through it
-raises on the card.
+from the carried state. The entry is differentiable: a train step's
+backward runs the gated entry's backward kernel once a layer on the card
+(the reference leaves the gradient of its scan to XLA's autodiff).
 
 Cast points follow the reference, since bf16 parity depends on them: the
 branch inputs and the conv output are in the compute dtype, the gates and

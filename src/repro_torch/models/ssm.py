@@ -9,8 +9,10 @@ skip and gate epilogue as separate ops. "fused", like the reference's
 takes the conv output, the ``dt_proj`` product and the ``x_proj`` output
 and returns the layer's gated output in one kernel launch on the card
 (the plain version of ``kernels/ref.py`` on the CPU). Every decode step
-runs the fused entry with S = 1 from the carried state. The kernels are
-forward-only: training through them raises on the card.
+runs the fused entry with S = 1 from the carried state. Both entries are
+differentiable: a train step's backward runs the literal or the fused
+scan's backward kernel once a layer on the card (the reference leaves the
+gradient of its scans to XLA's autodiff).
 
 Cast points follow the reference, since bf16 parity depends on them: ``dt``
 goes through softplus in the compute dtype and then to fp32; ``Bc``, ``Cc``

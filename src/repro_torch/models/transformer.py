@@ -14,16 +14,18 @@ local-window layer, updated in place (``attention_decode``), a
 layer. The next position is a host int, so that picking the cache slots to
 attend over needs no device sync.
 
-Every layer kind of the reference's decoder-only families is carried:
-global and local attention with a dense SwiGLU or GeGLU MLP (phi4-mini,
-codeqwen, phi3-medium, gemma3, and qwen2-vl, whose input may be patch
-embeddings ``{"embeds", "positions"}`` with 3-D M-RoPE positions),
-attention with a Mixture-of-Experts FFN (qwen2-moe, olmoe;
-``models/moe.py``), attention-free Mamba-1 blocks (falcon-mamba) and
-Griffin's RG-LRU blocks (recurrentgemma). An MoE layer's router loss is
-summed over the stack (through the checkpointed blocks too) and added to
-the loss with weight ``router_aux_coef``, as in the reference. Any other
-layer kind raises ``NotImplementedError``.
+A layer is any mixer of the reference's (global attention, local-window
+attention, a Mamba-1 block of ``models/ssm.py``, Griffin's RG-LRU block of
+``models/rglru.py``) followed by any of its FFNs (a dense SwiGLU or GeGLU
+MLP, a Mixture-of-Experts FFN of ``models/moe.py``, or none): all twelve
+kinds compose as in the reference. The families use five of them (dense
+attention in phi4-mini, codeqwen, phi3-medium, gemma3 and qwen2-vl, whose
+input may be patch embeddings ``{"embeds", "positions"}`` with 3-D M-RoPE
+positions; MoE attention in qwen2-moe and olmoe; FFN-free Mamba in
+falcon-mamba; dense RG-LRU and local attention in recurrentgemma). An MoE
+layer's router loss is summed over the stack (through the checkpointed
+blocks too) and added to the loss with weight ``router_aux_coef``, as in
+the reference. An unknown mixer raises ``ValueError``, as there.
 """
 from __future__ import annotations
 
@@ -85,44 +87,36 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.param_dtype]
 
 
-def _check_spec(spec) -> None:
-    if not ((spec.mixer in (ATTN, ATTN_LOCAL, RGLRU) and spec.ffn == DENSE)
-            or (spec.mixer == ATTN and spec.ffn == MOE)
-            or (spec.mixer == MAMBA and spec.ffn == NONE)):
-        raise NotImplementedError(
-            f"layer kind ({spec.mixer}, {spec.ffn}) is not carried by the "
-            f"port yet: it comes with its model family (ROADMAP.md, Queue A)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def init_layer(gen: torch.Generator, cfg: ModelConfig, spec, device
                ) -> Dict[str, Any]:
-    _check_spec(spec)
     pd = _pdtype(cfg)
     d = cfg.d_model
     p: Dict[str, Any] = {"norm1": rmsnorm_init(d, pd, device)}
-    if spec.mixer == MAMBA:
+    if spec.mixer in (ATTN, ATTN_LOCAL):
+        p["mixer"] = attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.resolved_head_dim, pd, device,
+                               bias=cfg.attn_bias, qk_norm=cfg.qk_norm,
+                               phys_heads=cfg.num_heads_phys,
+                               phys_kv=cfg.num_kv_heads_phys)
+    elif spec.mixer == MAMBA:
         p["mixer"] = mamba_init(gen, d, cfg.d_inner, cfg.ssm_state,
                                 cfg.dt_rank, cfg.conv_width, pd, device)
     elif spec.mixer == RGLRU:
         p["mixer"] = rglru_init(gen, d, cfg.lru_width, cfg.conv_width, pd,
                                 device)
     else:
-        p["mixer"] = attn_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
-                               cfg.resolved_head_dim, pd, device,
-                               bias=cfg.attn_bias, qk_norm=cfg.qk_norm,
-                               phys_heads=cfg.num_heads_phys,
-                               phys_kv=cfg.num_kv_heads_phys)
+        raise ValueError(spec.mixer)
     if spec.ffn != NONE:
         p["norm2"] = rmsnorm_init(d, pd, device)
-        if spec.ffn == MOE:
+        if spec.ffn == DENSE:
+            p["ffn"] = mlp_init(gen, d, cfg.d_ff, cfg.act, pd, device)
+        else:
             p["ffn"] = moe_init(gen, d, cfg.num_experts, cfg.moe_d_ff,
                                 cfg.num_shared_experts, pd, device,
                                 expert_pad=cfg.expert_pad)
-        else:
-            p["ffn"] = mlp_init(gen, d, cfg.d_ff, cfg.act, pd, device)
     return p
 
 
@@ -146,11 +140,11 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device
 # ---------------------------------------------------------------------------
 def _ffn(params, spec, cfg: ModelConfig, h, dt):
     """(the FFN's output, its router loss or None for a dense MLP)."""
-    if spec.ffn == MOE:
-        return moe_apply(params["ffn"], h, top_k=cfg.top_k,
-                         capacity_factor=cfg.capacity_factor, dtype=dt,
-                         num_real_experts=cfg.num_experts)
-    return mlp_apply(params["ffn"], h, cfg.act, dt), None
+    if spec.ffn == DENSE:
+        return mlp_apply(params["ffn"], h, cfg.act, dt), None
+    return moe_apply(params["ffn"], h, top_k=cfg.top_k,
+                     capacity_factor=cfg.capacity_factor, dtype=dt,
+                     num_real_experts=cfg.num_experts)
 
 
 def apply_layer_train(params, spec, cfg: ModelConfig, x, cos, sin
@@ -159,16 +153,18 @@ def apply_layer_train(params, spec, cfg: ModelConfig, x, cos, sin
     dt = _dtype(cfg)
     eps = cfg.norm_eps
     h = rmsnorm(params["norm1"], x, eps)
-    if spec.mixer == MAMBA:
-        x = x + mamba_apply(params["mixer"], h, dtype=dt, impl=cfg.ssm_impl)
-    elif spec.mixer == RGLRU:
-        x = x + rglru_apply(params["mixer"], h, dtype=dt)
-    else:
+    if spec.mixer in (ATTN, ATTN_LOCAL):
         x = x + attn_mod.attention_train(
             params["mixer"], h, cos, sin, dtype=dt, eps=eps, causal=True,
             window=spec.window, softcap=cfg.attn_logit_softcap,
             use_rope=cfg.use_rope, q_chunk=cfg.attn_q_chunk,
         )
+    elif spec.mixer == MAMBA:
+        x = x + mamba_apply(params["mixer"], h, dtype=dt, impl=cfg.ssm_impl)
+    elif spec.mixer == RGLRU:
+        x = x + rglru_apply(params["mixer"], h, dtype=dt)
+    else:
+        raise ValueError(spec.mixer)
     aux = None
     if spec.ffn != NONE:
         f, aux = _ffn(params, spec, cfg, rmsnorm(params["norm2"], x, eps), dt)
@@ -287,16 +283,17 @@ def _layer_capacity(cfg: ModelConfig, spec, seq_budget: int) -> int:
 
 def init_layer_state(cfg: ModelConfig, spec, batch: int, seq_budget: int,
                      device) -> LayerState:
-    _check_spec(spec)
+    if spec.mixer in (ATTN, ATTN_LOCAL):
+        return init_cache(batch, _layer_capacity(cfg, spec, seq_budget),
+                          cfg.num_kv_heads_phys or cfg.num_kv_heads,
+                          cfg.resolved_head_dim, _dtype(cfg), device)
     if spec.mixer == MAMBA:
         return mamba_init_state(batch, cfg.d_inner, cfg.ssm_state,
                                 cfg.conv_width, _dtype(cfg), device)
     if spec.mixer == RGLRU:
         return rglru_init_state(batch, cfg.lru_width, cfg.conv_width,
                                 _dtype(cfg), device)
-    return init_cache(batch, _layer_capacity(cfg, spec, seq_budget),
-                      cfg.num_kv_heads_phys or cfg.num_kv_heads,
-                      cfg.resolved_head_dim, _dtype(cfg), device)
+    raise ValueError(spec.mixer)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_budget: int, device,
@@ -312,16 +309,18 @@ def apply_layer_decode(params, state: LayerState, spec, cfg: ModelConfig, x,
     dt = _dtype(cfg)
     eps = cfg.norm_eps
     h = rmsnorm(params["norm1"], x, eps)
-    if spec.mixer == MAMBA:
-        m, new_state = mamba_decode(params["mixer"], h, state, dtype=dt)
-    elif spec.mixer == RGLRU:
-        m, new_state = rglru_decode(params["mixer"], h, state, dtype=dt)
-    else:
+    if spec.mixer in (ATTN, ATTN_LOCAL):
         m, new_state = attn_mod.attention_decode(
             params["mixer"], h, state, pos, cos, sin, dtype=dt, eps=eps,
             window=spec.window, softcap=cfg.attn_logit_softcap,
             use_rope=cfg.use_rope,
         )
+    elif spec.mixer == MAMBA:
+        m, new_state = mamba_decode(params["mixer"], h, state, dtype=dt)
+    elif spec.mixer == RGLRU:
+        m, new_state = rglru_decode(params["mixer"], h, state, dtype=dt)
+    else:
+        raise ValueError(spec.mixer)
     x = x + m
     if spec.ffn == NONE:
         return x, new_state

@@ -307,13 +307,22 @@ def restore_sharded(path: str, like: Any, shardings: Any, **kw
     ``launch.sharding.NamedSharding`` or None). None gives a plain tensor
     on the like leaf's device; a sharding gives a global DTensor of which
     this rank's block alone is copied to its device, from the host copy
-    the restore read (no full copy on the device)."""
-    pairs, new, step = _restore_leaves(path, like, **kw)
+    the restore read (no full copy on the device). A ``shardings`` tree of
+    another structure than ``like``'s raises ``ValueError`` naming the first
+    leaf where they part, before anything is read."""
+    names = [n for n, _ in _leaf_paths(like)]
     placements = _leaf_paths(shardings)
-    if len(placements) != len(pairs):
-        raise ValueError(f"restore_sharded: {len(placements)} shardings for "
-                         f"{len(pairs)} leaves; shardings must have like's "
-                         f"structure")
+    for i, want in enumerate(names):
+        got = placements[i][0] if i < len(placements) else None
+        if got != want:
+            raise ValueError(f"restore_sharded: shardings do not have like's "
+                             f"structure: like's leaf {i} is {want}, "
+                             f"shardings' is {got}")
+    if len(placements) > len(names):
+        raise ValueError(f"restore_sharded: shardings do not have like's "
+                         f"structure: {len(placements)} leaves for "
+                         f"{len(names)}, the first extra {placements[len(names)][0]}")
+    pairs, new, step = _restore_leaves(path, like, **kw)
     out = []
     for (_, leaf), (_, sh), got in zip(pairs, placements, new):
         if isinstance(leaf, torch.Tensor):

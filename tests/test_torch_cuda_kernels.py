@@ -593,16 +593,24 @@ def test_cuda_mamba_scan_counts_launches_and_is_deterministic(cuda):
     a = ops.mamba_scan(A, Bx, C)
     b, h = ops.mamba_scan(A, Bx, C, h0=h0, return_state=True)
     c, h2 = ops.mamba_scan(A, Bx, C, h0=h0, return_state=True)
-    assert MS.LAUNCHES == {"mamba_scan": 3, "mamba_scan_fused": 0}
+    assert MS.LAUNCHES == {"mamba_scan": 3, "mamba_scan_fused": 0,
+                           "mamba_scan_backward": 0,
+                           "mamba_scan_fused_backward": 0}
     assert torch.equal(b, c) and torch.equal(h, h2)
     assert a.shape == (2, 9, 64) and h.shape == (2, 64, 16)
 
 
 @pytest.mark.gpu
 def test_cuda_mamba_scan_refuses_autograd_and_bad_inputs(cuda):
+    # The scan is differentiable now: autograd runs the backward kernel
+    # once; only a gradient through the returned state is refused.
     A, Bx, C, h0 = _scan_inputs(1, 4, 32, 16, cuda)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ops.mamba_scan(A.requires_grad_(), Bx, C)
+    MS.reset_launch_counts()
+    ops.mamba_scan(A.requires_grad_(), Bx, C).sum().backward()
+    assert MS.LAUNCHES["mamba_scan_backward"] == 1 and A.grad is not None
+    y, h = ops.mamba_scan(A, Bx, C, return_state=True)
+    with pytest.raises(NotImplementedError, match="returned state"):
+        (y.sum() + h.sum()).backward()
     with torch.no_grad():
         ops.mamba_scan(A, Bx, C)                 # no gradient needed: runs
     A = A.detach()
@@ -653,7 +661,8 @@ def test_cuda_rglru_scan_counts_launches_and_is_deterministic(cuda):
     x = ops.rglru_scan(a, b)
     y = ops.rglru_scan(a, b, h0=h0)
     z = ops.rglru_scan(a, b, h0=h0)
-    assert LRU.LAUNCHES == {"rglru_scan": 3, "rglru_scan_gated": 0}
+    assert LRU.LAUNCHES == {"rglru_scan": 3, "rglru_scan_gated": 0,
+                            "rglru_scan_gated_backward": 0}
     assert torch.equal(y, z) and x.shape == (2, 9, 300)
     # A decode step is the scan with S = 1: one FMA from h0.
     one = ops.rglru_scan(a[:, :1].contiguous(), b[:, :1].contiguous(), h0=h0)
@@ -868,14 +877,20 @@ def test_cuda_fused_entries_count_one_launch_a_call(cuda):
     ops.mamba_scan_fused(*_fargs(t))
     ops.mamba_scan_fused(*_fargs(t), h0=t["h0"], return_state=True)
     ops.rglru_scan_gated(*_gargs(g), h0=g["h0"])
-    assert MS.LAUNCHES == {"mamba_scan": 0, "mamba_scan_fused": 2}
-    assert LRU.LAUNCHES == {"rglru_scan": 0, "rglru_scan_gated": 1}
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ops.mamba_scan_fused(t["xin"].requires_grad_(), *_fargs(t)[1:])
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ops.rglru_scan_gated(g["r_pre"].requires_grad_(), *_gargs(g)[1:])
-    assert MS.LAUNCHES["mamba_scan_fused"] == 2
-    assert LRU.LAUNCHES["rglru_scan_gated"] == 1
+    assert MS.LAUNCHES == {"mamba_scan": 0, "mamba_scan_fused": 2,
+                           "mamba_scan_backward": 0,
+                           "mamba_scan_fused_backward": 0}
+    assert LRU.LAUNCHES == {"rglru_scan": 0, "rglru_scan_gated": 1,
+                            "rglru_scan_gated_backward": 0}
+    # Both entries are differentiable: one backward launch a gradient.
+    ops.mamba_scan_fused(t["xin"].requires_grad_(), *_fargs(t)[1:]
+                         ).float().sum().backward()
+    ops.rglru_scan_gated(g["r_pre"].requires_grad_(), *_gargs(g)[1:]
+                         ).float().sum().backward()
+    assert MS.LAUNCHES["mamba_scan_fused"] == 3
+    assert MS.LAUNCHES["mamba_scan_fused_backward"] == 1
+    assert LRU.LAUNCHES["rglru_scan_gated"] == 2
+    assert LRU.LAUNCHES["rglru_scan_gated_backward"] == 1
 
 
 def _all_bf16(device):
@@ -1019,3 +1034,82 @@ def test_cuda_kernel_error_passes_through_the_supervisor(cuda, tmp_path):
     want = ref.window_chunks_ref([lin], global_batch=2, seq_len=7)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# -- backward kernels ----------------------------------------------------------
+# Each backward kernel against its plain backward (kernels/ref.py) on the
+# same inputs and dL/dy, at the forward's tolerances (the gradients of fp32
+# recurrences summed in another order), and twice for the same bits.
+BWD_SCAN_CASES = [(1, 1, 64, 16), (2, 17, 48, 16), (1, 33, 40, 4),
+                  (2, 70, 32, 8), (1, 5, 16, 32)]
+
+
+def _grads_within(got, want, tol):
+    for g, w in zip(got, want, strict=True):
+        if w is None:
+            assert g is None
+        else:
+            _within(g, w, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D,N", BWD_SCAN_CASES)
+def test_cuda_mamba_scan_backward_matches_plain(cuda, B, S, D, N):
+    A, Bx, C, h0 = _scan_inputs(B, S, D, N, cuda, seed=7 * S + D)
+    gy = torch.randn((B, S, D), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(S))
+    for h in (None, h0):
+        got = MS.mamba_scan_backward_cuda(gy, A, Bx, C, h)
+        again = MS.mamba_scan_backward_cuda(gy, A, Bx, C, h)
+        torch.cuda.synchronize()
+        _grads_within(got, ref.ssm_scan_bwd_ref(gy, A, Bx, C, h), 1e-4)
+        assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", FUSED_DTYPES)
+@pytest.mark.parametrize("B,S,D,N,r", [(1, 1, 64, 16, 4), (2, 17, 48, 16, 3),
+                                       (1, 40, 40, 4, 5), (1, 70, 32, 32, 2)])
+def test_cuda_mamba_scan_fused_backward_matches_plain(cuda, B, S, D, N, r,
+                                                      dtype, tol):
+    t = _fused_inputs(B, S, D, N, r, dtype, cuda, seed=S + D,
+                      channel_major=True)
+    gy = torch.randn((B, S, D), device=cuda).to(dtype)
+    for h in (None, t["h0"]):
+        got = MS.mamba_scan_fused_backward_cuda(gy, *_fargs(t), h)
+        again = MS.mamba_scan_fused_backward_cuda(gy, *_fargs(t), h)
+        torch.cuda.synchronize()
+        _grads_within(got, ref.mamba_scan_fused_bwd_ref(gy, *_fargs(t), h),
+                      tol)
+        assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,W", [(1, 1, 64), (3, 37, 50), (2, 300, 33)])
+def test_cuda_rglru_scan_gated_backward_matches_plain(cuda, B, S, W, dtype,
+                                                      tol):
+    g = _gated_inputs(B, S, W, dtype, cuda, seed=S + W, channel_major=True)
+    gy = torch.randn((B, S, W), device=cuda).to(dtype)
+    for h in (None, g["h0"]):
+        got = LRU.rglru_scan_gated_backward_cuda(gy, *_gargs(g), h)
+        again = LRU.rglru_scan_gated_backward_cuda(gy, *_gargs(g), h)
+        torch.cuda.synchronize()
+        _grads_within(got, ref.rglru_scan_gated_bwd_ref(gy, *_gargs(g), h),
+                      tol)
+        assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [30.0, 50.0, 0.5])
+@pytest.mark.parametrize("sk", [1, 17, 129, 2048])
+def test_cuda_decode_softcap_matches_plain(cuda, cap, sk):
+    q, k, v = _attn_inputs(2, 10, 1, 1, sk, 256, torch.bfloat16, cuda)
+    got = FA.flash_attention_cuda(q, k, v, softcap=cap)
+    torch.cuda.synchronize()
+    want = ref.attention_split_ref(q, k, v, softcap=cap)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="softcap"):
+        FA.flash_attention_cuda(*_attn_inputs(1, 2, 2, 64, 64, 32,
+                                              torch.bfloat16, cuda), softcap=cap)

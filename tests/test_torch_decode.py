@@ -117,12 +117,12 @@ def test_converted_reference_state_decodes_on(ref_params):
         _close(tl, jl, 1e-5)
 
 
-def test_decode_refuses_a_wrapping_ring_and_softcap():
+def test_decode_refuses_a_wrapping_ring_and_softcap(ref_params):
     # A ring of 2 slots with no window wraps and decodes on, over the last
     # 2 positions as the reference's ring does. A ring wider than its
     # layer's window is refused once it would wrap (the kernel would mask
-    # the window by slot index, not by position), and so is the softcap,
-    # which the kernel does not compute.
+    # the window by slot index, not by position). The softcap is no longer
+    # refused: capped decode logits match the reference's (float32, 1e-5).
     _, tcfg = _cfgs(dtype="float32")
     tm = build_model(tcfg)
     tp = tm.init(0, device="cpu")
@@ -138,9 +138,18 @@ def test_decode_refuses_a_wrapping_ring_and_softcap():
         _, st = wide.decode(tp, st, tok)
     with pytest.raises(ValueError, match="wrap"):
         wide.decode(tp, st, tok)
-    capped = build_model(tcfg.replace(attn_logit_softcap=30.0))
-    with pytest.raises(NotImplementedError, match="softcap"):
-        capped.decode(tp, capped.init_decode_state(tp, 1, 4), tok)
+    jcfg, tcfg = _cfgs(dtype="float32", attn_logit_softcap=30.0)
+    jm, capped = jbuild(jcfg), build_model(tcfg)
+    tp = from_reference(ref_params, tcfg, device="cpu")
+    toks = _tokens(1)
+    js = jm.init_decode_state(ref_params, B, BUDGET)
+    ts = capped.init_decode_state(tp, B, BUDGET)
+    for t in range(STEPS):
+        jl, js = jm.decode(ref_params, js,
+                           {"tokens": jnp.asarray(toks[:, t:t + 1])})
+        tl, ts = capped.decode(tp, ts,
+                               {"tokens": torch.from_numpy(toks[:, t:t + 1])})
+        _close(tl, jl, 1e-5)
 
 
 def test_converting_a_wrapped_reference_ring_raises(ref_params):

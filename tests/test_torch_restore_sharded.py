@@ -95,3 +95,35 @@ def test_model_params_onto_param_specs(tmp_path):
             assert d.placements == tuple(to_placements(s, Mesh(("data",),
                                                                (1,))))
             assert torch.equal(d.to_local(), t)
+
+
+@pytest.mark.parametrize("case", ["renamed", "extra", "missing", "nested"])
+def test_mismatched_shardings_tree_raises_as_the_reference(tmp_path, case):
+    """A shardings tree of another structure than ``like``'s: the reference
+    raises ``ValueError`` (``flatten_up_to``); so does the port, naming the
+    first leaf where they part, before any read."""
+    tree = {"a": jnp.arange(8, dtype=jnp.float32),
+            "b": {"c": jnp.ones((2, 2), jnp.float32)}}
+    path = str(tmp_path / "m.ckpt")
+    jsave(path, tree, step=1)
+    jmesh = jax.make_mesh((1,), ("data",))
+    jsh = JNamedSharding(jmesh, JP())
+    jshard = {"renamed": {"a": jsh, "d": {"c": jsh}},
+              "extra": {"a": jsh, "b": {"c": jsh, "e": jsh}},
+              "missing": {"a": jsh},
+              "nested": {"a": {"x": jsh}, "b": {"c": jsh}}}[case]
+    if case != "nested":       # the reference flattens shardings up to like
+        with pytest.raises(ValueError):
+            jrestore_sharded(path, tree, jshard)
+    like = {"a": torch.zeros(8), "b": {"c": torch.zeros(2, 2)}}
+    with _mesh(1):
+        mesh = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("data",))
+        sh = NamedSharding(mesh, P())
+        shardings = {"renamed": {"a": sh, "d": {"c": sh}},
+                     "extra": {"a": sh, "b": {"c": sh, "e": sh}},
+                     "missing": {"a": sh},
+                     "nested": {"a": {"x": sh}, "b": {"c": sh}}}[case]
+        with pytest.raises(ValueError, match="structure"):
+            restore_sharded(path, like, shardings)
+        got, step = restore_sharded(path, like, {"a": sh, "b": {"c": None}})
+        assert step == 1 and torch.equal(got["b"]["c"], torch.ones(2, 2))

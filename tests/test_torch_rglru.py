@@ -43,7 +43,6 @@ from repro.train import make_train_step as jmake_train_step  # noqa: E402
 from repro_torch.configs.base import ATTN_LOCAL, RGLRU  # noqa: E402
 from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.rglru_scan import FORWARD_ONLY  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -457,12 +456,3 @@ def test_train_driver_trains_on_cpu(tmp_path):
     assert out["steps"] == 2
     assert np.isfinite(out["first_loss"]) and np.isfinite(out["final_loss"])
 
-
-def test_train_driver_refuses_the_card_at_once(tmp_path):
-    # Raised before the device is resolved or the corpus written, so the
-    # same error shows here without a card.
-    with pytest.raises(NotImplementedError) as e:
-        port_train.main(["--arch", ARCH, "--smoke", "--device", "cuda",
-                         "--data", str(tmp_path / "t.bin")])
-    assert str(e.value) == FORWARD_ONLY and "forward-only" in FORWARD_ONLY
-    assert not (tmp_path / "t.bin").exists()

@@ -266,13 +266,18 @@ def test_fused_entries_with_no_steps_return_the_carried_state():
 
 # -- (e) -----------------------------------------------------------------------
 def test_gradients_flow_through_the_plain_fused_versions():
+    # The entries are autograd Functions whose backward takes dL/dy alone:
+    # a gradient through the returned state h_S raises, as the dry run's
+    # meta ops do; every input's gradient flows through y.
     t = _torch_mamba(_mamba_inputs(2, 6, 8, 4, 2, seed=2, h0=True),
                      torch.float32)
     for v in t.values():
         v.requires_grad_(True)
     y, h = ops.mamba_scan_fused(*_fused_args(t), h0=t["h0"],
                                 return_state=True)
-    (y.square().sum() + h.sum()).backward()
+    with pytest.raises(NotImplementedError, match="returned state"):
+        (y.square().sum() + h.sum()).backward(retain_graph=True)
+    y.square().sum().backward()
     for k, v in t.items():
         assert v.grad is not None and torch.isfinite(v.grad).all(), k
         assert v.grad.abs().sum() > 0, k
@@ -282,7 +287,9 @@ def test_gradients_flow_through_the_plain_fused_versions():
     y, h = ops.rglru_scan_gated(xf @ p["w_r"], xf @ p["w_i"], p["b_r"],
                                 p["b_i"], p["lam"], p["xr"], p["gate"],
                                 h0=p["h0"], return_state=True)
-    (y.square().sum() + h.sum()).backward()
+    with pytest.raises(NotImplementedError, match="returned state"):
+        (y.square().sum() + h.sum()).backward(retain_graph=True)
+    y.square().sum().backward()
     for k, v in p.items():
         assert v.grad is not None and torch.isfinite(v.grad).all(), k
         assert v.grad.abs().sum() > 0, k
@@ -352,15 +359,20 @@ def test_cuda_wrappers_check_inputs_before_any_build(no_build):
 
 
 def test_launch_counts_cover_the_fused_entries():
-    assert set(MS.LAUNCHES) == {"mamba_scan", "mamba_scan_fused"}
-    assert set(LRU.LAUNCHES) == {"rglru_scan", "rglru_scan_gated"}
+    assert set(MS.LAUNCHES) == {"mamba_scan", "mamba_scan_fused",
+                                "mamba_scan_backward",
+                                "mamba_scan_fused_backward"}
+    assert set(LRU.LAUNCHES) == {"rglru_scan", "rglru_scan_gated",
+                                 "rglru_scan_gated_backward"}
     MS.LAUNCHES["mamba_scan_fused"] = 5
     LRU.LAUNCHES["rglru_scan_gated"] = 7
     MS.reset_launch_counts()
     LRU.reset_launch_counts()
     assert set(MS.LAUNCHES.values()) == {0} and set(LRU.LAUNCHES.values()) == {0}
-    # The plain versions on the CPU launch nothing.
+    # The plain versions on the CPU launch nothing, nor do their backwards.
     t = _torch_mamba(_mamba_inputs(1, 3, 8, 4, 2, seed=0), torch.float32)
     ops.mamba_scan_fused(*_fused_args(t))
     _lru_port(_lru_inputs(1, 3, 8, seed=0), torch.float32)
+    t["xin"].requires_grad_(True)
+    ops.mamba_scan_fused(*_fused_args(t)).sum().backward()
     assert set(MS.LAUNCHES.values()) == {0} and set(LRU.LAUNCHES.values()) == {0}

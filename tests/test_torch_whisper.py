@@ -131,9 +131,10 @@ def _as_if_on_the_card(monkeypatch):
     launches' ``causal``."""
     launched = []
 
-    def launch(q, k, v, *, causal, window):
+    def launch(q, k, v, *, causal, window, softcap):
         launched.append(causal)
-        return kref.attention_ref(q, k, v, causal=causal, window=window)
+        return kref.attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=softcap)
 
     monkeypatch.setattr(ops, "_on_cuda", lambda *ts: True)
     monkeypatch.setattr(FA, "flash_attention_cuda", launch)
