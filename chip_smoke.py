@@ -327,10 +327,12 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              (``kernels/ref.py``): fp32 at 1e-4 elementwise, bf16 at 2e-2 of
              each gradient's largest magnitude, S = 1, 17 and 2048 with and
              without h0, ``z`` and ``proj`` strided views, ragged D and odd
-             r, and a microbatch of the train step (B=2, S=2048, D=8192,
-             N=16; bf16 with channel-major xin for the fused one); each
-             twice on the same inputs for the same bits, timed at the
-             microbatch beside its plain version and its bound. Then
+             r, the fused backward's chunk edges (S = 63, 64, 65, 157; B=2,
+             D past one block), and a microbatch of the train step (B=2,
+             S=2048, D=8192, N=16; bf16 with channel-major xin for the
+             fused one); each twice on the same inputs for the same bits,
+             timed at the microbatch beside its plain version and its
+             bound, with the device time of its kernels alone. Then
              ``launch.train.main`` at full width with 4 of the 64 layers,
              batch 8 x 2048, 4 microbatches, 4 steps, checkpoints off, once
              in each ``ssm_impl``: finite losses, one backward-kernel launch
@@ -341,7 +343,8 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              backward kernels' share of the third step's device time under
              ``torch.profiler``;
 32. train_hybrid the same for recurrentgemma-2b: the gated RG-LRU backward
-             kernel (fp32 at 1e-5, bf16 at 2e-2 of scale; B=2, S=2048,
+             kernel (fp32 at 1e-5, bf16 at 2e-2 of scale; its chunk and
+             segment edges S = 7, 8, 9, 128, 129, 293 at B=2; B=2, S=2048,
              W=2560 at the microbatch, xr channel-major, ``gate`` a view),
              then the driver at 6 of its 26 layers (two (RG-LRU, RG-LRU,
              local) blocks): 64 backward launches, no flash-attention launch
@@ -423,6 +426,11 @@ REPLACES = {
 }
 BWD_KERNELS = ("mamba_scan_backward", "mamba_scan_fused_backward",
                "rglru_scan_gated_backward")
+# The device kernels the three backward entries launch (profiler names).
+BWD_DEVICE_KERNELS = ("scan_bwd_kernel", "fused_bwd_sum_kernel",
+                      "fused_bwd_carry_kernel", "fused_bwd_kernel",
+                      "proj_grad_kernel", "lru_bwd_kernel",
+                      "ordered_sum_kernel")
 # What the two fused entries take in beside the Pallas function.
 FUSES = {
     "mamba_scan_fused": "the discretization of src/repro/models/ssm.py:95 "
@@ -574,6 +582,39 @@ def time_ms(fn, iters: int = 50, warmup: int = 5,
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def kernels_alone_ms(fn, names=BWD_DEVICE_KERNELS, calls: int = 3):
+    """The device time of one ``fn()`` in the kernels named by ``names``,
+    and by kernel: ``torch.profiler`` over ``calls`` calls, after a warm-up
+    step of as many that lets its tracing start. None (with what was seen)
+    where a kernel's count is not a multiple of ``calls``: events lost."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = []   # the active step's events, kept as its cycle ends
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: seen.extend(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    by_name, counts = {}, {}
+    for e in seen:
+        hit = [k for k in names if re.search(rf"\b{k}\b", e.key)]
+        if e.device_type == DeviceType.CUDA and hit:
+            by_name[hit[0]] = (by_name.get(hit[0], 0.0)
+                               + e.self_device_time_total / (1e3 * calls))
+            counts[hit[0]] = counts.get(hit[0], 0) + e.count
+    if not by_name or any(c % calls for c in counts.values()):
+        return None, by_name
+    return sum(by_name.values()), by_name
 
 
 def split_chunks(lin, chunk_tokens: int) -> list:
@@ -4509,10 +4550,14 @@ class Smoke:
 
     def _bwd_time(self, name, r, kernel, plain):
         """The kernel's and the plain backward's device time at the
-        microbatch shape (CUDA events behind the spin kernel, in turns)."""
+        microbatch shape (CUDA events behind the spin kernel, in turns),
+        and the device time of the entry's own kernels alone
+        (``kernels_alone_ms``), which leaves out the torch ops around
+        them."""
         times = alternate({"kernel": kernel, "plain": plain}, 5, 1, 1)
         r["ms"], r["plain_ms"] = times["kernel"], times["plain"]
         r["library_ms"] = None   # no PyTorch call computes a scan's gradient
+        r["kernels_alone_ms"], r["by_kernel_ms"] = kernels_alone_ms(kernel)
         self.timing[f"{name}/train"] = r
         log(f"time {name}/train: {self.card_line}: {json.dumps(r)}")
 
@@ -4567,14 +4612,16 @@ class Smoke:
             torch.cuda.empty_cache()
 
     def _bwd_fused(self):
-        """``mamba_scan_fused_backward_cuda`` (``fused_bwd_kernel`` and the
-        torch ops around it) against ``ref.mamba_scan_fused_bwd_ref``: fp32
-        at 1e-4 and bf16 at 2e-2 of each gradient's largest magnitude
-        (``_grads_close``), S = 1, 17 and 2048 with and without h0,
-        ``z`` a view of a (B, S, 2D) product and ``proj`` a column slice of
-        a wider one (rows not 16-byte aligned), ragged D and odd r; a
-        microbatch of the train step in bf16 with xin channel-major as the
-        conv leaves it; twice for the same bits; timed there."""
+        """``mamba_scan_fused_backward_cuda`` (the chunked kernels) against
+        ``ref.mamba_scan_fused_bwd_ref``: fp32 at 1e-4 and bf16 at 2e-2 of
+        each gradient's largest magnitude (``_grads_close``), S = 1, 17 and
+        2048 with and without h0, ``z`` a view of a (B, S, 2D) product and
+        ``proj`` a column slice of a wider one (rows not 16-byte aligned),
+        ragged D and odd r; the chunk edges (S = 63, 64, 65 and two chunks
+        and a ragged sub-segment, B=2, D past one block, xin
+        channel-major); a microbatch of the train step in bf16 with xin
+        channel-major as the conv leaves it; twice for the same bits; timed
+        there, the kernels alone beside the whole function."""
         import torch
         import torch.nn.functional as F
 
@@ -4606,6 +4653,9 @@ class Smoke:
                  for b, s, d, r in ((1, 1, 256, 256), (2, 17, 100, 5),
                                     (1, S, 256, 256))
                  for dt in (fp32, bf16) for h in (False, True)]
+        cases += [("edge", 2, s, 130, SSM_N, 5, dt, h)
+                  for s in (63, 64, 65, 157) for dt in (fp32, bf16)
+                  for h in (False, True)]
         cases.append(("train", MB, S, SSM_D, SSM_N, 256, bf16, False))
         for key, b, s, d, n, r, dtype, with_h0 in cases:
             args, h0, gy = inputs(b, s, d, n, r, dtype, with_h0,
@@ -4622,7 +4672,7 @@ class Smoke:
                 f"{' h0' if with_h0 else ''}: within {tol} of the plain "
                 f"backward, the same bits twice; max abs err so far "
                 f"{self.err['mamba_scan_fused_backward']}")
-            if key is not None:
+            if key == "train":
                 # gy, xin, dt_pre, z read and dxin, ddt_pre, dz written
                 # once (B, S, D); proj read and dproj written; the params
                 # and their gradients. Special-function results: Abar's ex2
@@ -4641,10 +4691,11 @@ class Smoke:
     def _bwd_lru(self):
         """``lru_bwd_kernel`` against ``ref.rglru_scan_gated_bwd_ref``: fp32
         at 1e-5 and bf16 at 2e-2 of each gradient's largest magnitude, S =
-        1, 17 and 2048 with and without h0,
-        xr channel-major (the conv's layout) and ``gate`` a view; a
-        microbatch of the train step (B=2, S=2048, W=2560) in bf16; twice
-        for the same bits; timed there."""
+        1, 17 and 2048 with and without h0, and the chunk and segment edges
+        (S = 7, 8, 9, 128, 129 and two segments and a ragged tail, B=2), xr
+        channel-major (the conv's layout) and ``gate`` a view; a microbatch
+        of the train step (B=2, S=2048, W=2560) in bf16; twice for the same
+        bits; timed there, the kernels alone beside the whole function."""
         import torch
         import torch.nn.functional as F
 
@@ -4670,7 +4721,9 @@ class Smoke:
 
         bf16, fp32 = torch.bfloat16, torch.float32
         cases = [(None, b, s, w, dt, h)
-                 for b, s, w in ((1, 1, RG_W), (2, 17, 300), (1, S, 300))
+                 for b, s, w in ((1, 1, RG_W), (2, 17, 300), (1, S, 300),
+                                 (2, 7, 300), (2, 8, 300), (2, 9, 300),
+                                 (2, 128, 300), (2, 129, 300), (2, 293, 300))
                  for dt in (fp32, bf16) for h in (False, True)]
         cases.append(("train", MB, S, RG_W, bf16, False))
         for key, b, s, w, dtype, with_h0 in cases:
@@ -4797,8 +4850,8 @@ class Smoke:
         step_s = sum(steady) / len(steady)
         rows = rec.get("by_kernel", [])
         busy = sum(r[0] for r in rows) / 1e6
-        bwd = sum(r[0] for r in rows if "bwd_kernel" in r[1]
-                  or "ordered_sum_kernel" in r[1]) / 1e6
+        bwd = sum(r[0] for r in rows if any(
+            k in r[1] for k in BWD_DEVICE_KERNELS)) / 1e6
         for line in out.getvalue().splitlines()[:1]:
             log(f"{name}: {line}")
         log(f"{name}: {' '.join(argv)}{f' (ssm_impl {impl})' if impl else ''}"

@@ -2,6 +2,7 @@
 """Time the port's two scan kernels from one source tree, on one card.
 
     python3 scripts/time_scans.py [--src DIR] [--build DIR] [--label NAME]
+                                  [--entries all|forward|backward]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
 builds its ``mamba_scan.cu`` and ``rglru_scan.cu`` into ``--build`` and
@@ -17,7 +18,15 @@ of each entry the tree has, at the shapes ``chip_smoke.py`` times:
 * ``rglru_scan`` (literal, fp32): recurrentgemma decode (B=1, S=1,
   W=2560, h0) and B=8, S=2048;
 * ``rglru_scan_gated`` (bf16): the same two shapes, xr channel-major and
-  contiguous.
+  contiguous;
+* the three backward entries at a microbatch of the train cell (B=2,
+  S=2048), as ``chip_smoke.py``'s ``train_ssm`` and ``train_hybrid`` hold
+  them: ``mamba_scan_backward`` (fp32, D=8192, N=16),
+  ``mamba_scan_fused_backward`` (bf16, xin channel-major, z a view, proj
+  rows of 288) and ``rglru_scan_gated_backward`` (bf16, W=2560, xr
+  channel-major, gate a view), each beside the device time of its own
+  kernels alone (``chip_smoke.kernels_alone_ms``, key ``.../kernels``)
+  and by kernel (``.../by_kernel``).
 
 Inputs are made on the card from seed 0. A tree without the fused entries
 times the literal ones only. Two trees are compared on one card by running
@@ -42,6 +51,8 @@ def main() -> int:
     ap.add_argument("--build", default=os.path.join(ROOT, "build",
                                                     "time_scans"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--entries", choices=("all", "forward", "backward"),
+                    default="all")
     args = ap.parse_args()
     os.environ["REPRO_TORCH_BUILD_DIR"] = args.build
     sys.path.insert(0, os.path.abspath(args.src))
@@ -51,7 +62,7 @@ def main() -> int:
     from repro_torch.kernels import mamba_scan as MS
     from repro_torch.kernels import rglru_scan as LRU
 
-    from chip_smoke import time_ms      # after repro_torch: it adds ./src
+    from chip_smoke import kernels_alone_ms, time_ms  # adds ./src
 
     if not torch.cuda.is_available():
         print("time_scans: needs a CUDA card", file=sys.stderr)
@@ -71,7 +82,11 @@ def main() -> int:
         it, warm = (200, 5) if s == 1 else (20, 2)
         out[key] = time_ms(fn, it, warm)
 
-    for key, b, s in (("decode", 1, 1), ("bound", 8, 2048)):
+    def kernels_alone(key, fn):
+        out[f"{key}/kernels"], out[f"{key}/by_kernel"] = kernels_alone_ms(fn)
+
+    shapes = (("decode", 1, 1), ("bound", 8, 2048))
+    for key, b, s in (shapes if args.entries != "backward" else ()):
         d, n = 8192, 16
         with_h0 = s == 1
         h0 = rnd(b, d, n) * 0.5 if with_h0 else None
@@ -109,8 +124,51 @@ def main() -> int:
                       lambda: LRU.rglru_scan_gated_cuda(
                           *pre, xr, gate, h0=h0, return_state=with_h0), s)
         torch.cuda.empty_cache()
+    if args.entries != "forward":
+        backward(torch, dev, rnd, out, timed, kernels_alone)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def backward(torch, dev, rnd, out, timed, kernels_alone) -> None:
+    """The three backward entries at a microbatch of the train cell."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import rglru_scan as LRU
+
+    b, s, d, n, w = 2, 2048, 8192, 16, 2560
+    bf16 = torch.bfloat16
+    A, Bx = rnd(b, s, d, n).sigmoid_(), rnd(b, s, d, n).mul_(0.1)
+    C, gy = rnd(b, s, n), rnd(b, s, d)
+    fn = lambda: MS.mamba_scan_backward_cuda(gy, A, Bx, C)  # noqa: E731
+    timed("mamba_scan_backward/train", fn, s)
+    kernels_alone("mamba_scan_backward/train", fn)
+    del A, Bx, C, gy
+    torch.cuda.empty_cache()
+    A_log = torch.log(torch.arange(1, n + 1, device=dev,
+                                   dtype=torch.float32)).repeat(d, 1)
+    fargs = (F.silu(rnd(b, d, s)).transpose(1, 2).to(bf16),
+             rnd(b, s, d).mul_(0.5).to(bf16),
+             rnd(d).mul_(0.1).add_(math.log(math.expm1(1e-2))), A_log,
+             rnd(b, s, 256 + 2 * n).to(bf16), rnd(d).mul_(0.1).add_(1.0),
+             rnd(b, s, 2 * d).to(bf16)[..., d:])
+    gy = rnd(b, s, d).to(bf16)
+    fn = lambda: MS.mamba_scan_fused_backward_cuda(gy, *fargs)  # noqa: E731
+    timed("mamba_scan_fused_backward/train", fn, s)
+    kernels_alone("mamba_scan_fused_backward/train", fn)
+    del fargs, gy
+    torch.cuda.empty_cache()
+    lam = torch.log(torch.expm1(-torch.log(torch.linspace(
+        0.9, 0.999, w, device=dev)) / 8.0))
+    largs = (rnd(b, s, w), rnd(b, s, w), rnd(w) * 0.1, rnd(w) * 0.1, lam,
+             rnd(b, w, s).to(bf16).transpose(1, 2),
+             F.gelu(rnd(b, s, 2 * w), approximate="tanh").to(bf16)[..., w:])
+    gy = rnd(b, s, w).to(bf16)
+    fn = lambda: LRU.rglru_scan_gated_backward_cuda(gy, *largs)  # noqa: E731
+    timed("rglru_scan_gated_backward/train", fn, s)
+    kernels_alone("rglru_scan_gated_backward/train", fn)
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

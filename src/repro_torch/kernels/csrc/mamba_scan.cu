@@ -88,7 +88,7 @@
 //   shares; the next tile's loads are issued before (2), into registers;
 //   (2) runs the R steps L rows at a time from registers and shared
 //   memory, A computed once a state; the L rows' sums over the
-//   group are reduced together (reduce_rows: L - 1 shuffles for L rows,
+//   group are reduced together (lane_reduce: L - 1 shuffles for L rows,
 //   against L log2 L for a butterfly a row), lane l parking row l's y32;
 //   (3) writes the epilogue's y along d. (dt, xin) and silu(z) are
 //   double-buffered so that (1) of the next tile needs no barrier after
@@ -125,6 +125,7 @@
 namespace {
 
 using ckio::Elt;
+using ckio::sigmoid_f;
 using ckio::silu_f;
 using ckio::softplus_f;
 using ckio::View3;
@@ -284,23 +285,57 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// The group-sum of L rows at once: lane l holds p[u] for row u of its
-// channel and ends with the sum over its L lanes for row l in p[0]. Each
-// stage halves the rows a lane holds, handing the other half to the lane
-// `o` away: L - 1 shuffles for L rows where a butterfly a row takes
-// L log2 L, in a fixed order, so the bits are the same on every run.
-template <int L>
-__device__ __forceinline__ void reduce_rows(float (&p)[L], int l) {
+// Sums p[0..R) over the lanes that differ from this one in the lane bits
+// kHi, kHi/2, ..., kLo, the highest first, in a fixed order. While a lane
+// holds more than one row a stage hands half of them to its partner
+// (the exchange); once one row is left a stage adds the partner's (a
+// butterfly: both lanes get the same bits). Ends with rows [row0, row0 +
+// max(R >> stages, 1)) in p[0..). Over a group's L lanes with L rows (kHi
+// = L/2, kLo = 1): L - 1 shuffles where a butterfly a row takes L log2 L,
+// and lane l ends with row l's sum in p[0].
+template <int R, int kCur, int kM, int kLo>
+__device__ __forceinline__ void lane_reduce_step(float (&p)[R], int lane,
+                                                 int& row0) {
+  if constexpr (kM >= kLo && kM > 0) {
+    if constexpr (kCur > 1) {
+      constexpr int kHalf = kCur / 2;
+      const bool upper = (lane & kM) != 0;
 #pragma unroll
-  for (int o = L / 2; o > 0; o >>= 1) {
-    const bool upper = (l & o) != 0;
-#pragma unroll
-    for (int k = 0; k < o; ++k) {
-      const float send = upper ? p[k] : p[k + o];
-      const float keep = upper ? p[k + o] : p[k];
-      p[k] = keep + __shfl_xor_sync(kFull, send, o);
+      for (int k = 0; k < kHalf; ++k) {
+        const float send = upper ? p[k] : p[k + kHalf];
+        const float keep = upper ? p[k + kHalf] : p[k];
+        p[k] = keep + __shfl_xor_sync(kFull, send, kM);
+      }
+      if (upper) row0 += kHalf;
+      lane_reduce_step<R, kHalf, kM / 2, kLo>(p, lane, row0);
+    } else {
+      p[0] += __shfl_xor_sync(kFull, p[0], kM);
+      lane_reduce_step<R, 1, kM / 2, kLo>(p, lane, row0);
     }
   }
+}
+
+template <int R, int kHi, int kLo>
+__device__ __forceinline__ int lane_reduce(float (&p)[R], int lane) {
+  int row0 = 0;
+  lane_reduce_step<R, R, kHi, kLo>(p, lane, row0);
+  return row0;
+}
+
+// The rows a lane holds after lane_reduce<R, kHi, kLo>, and the lane bits
+// of its butterfly stages (a row's owner has them clear).
+__host__ __device__ constexpr int lane_rows(int R, int kHi, int kLo) {
+  for (int m = kHi; m >= kLo && m > 0; m >>= 1) R = R > 1 ? R / 2 : 1;
+  return R;
+}
+__host__ __device__ constexpr int butterfly_bits(int R, int kHi,
+                                                  int kLo) {
+  int bits = 0;
+  for (int m = kHi; m >= kLo && m > 0; m >>= 1) {
+    if (R == 1) bits |= m;
+    R = R > 1 ? R / 2 : 1;
+  }
+  return bits;
 }
 
 // kVec: the 16-byte path (FusedVec, chosen by the launcher when every run
@@ -498,7 +533,7 @@ fused_kernel(const FusedArgs p) {
     __syncthreads();
     if (t0 + R < S) load_tile(t0 + R, buf ^ 1);
     // (2) the recurrence, L rows at a time; rows is the same for every
-    // thread of the block, so every lane takes part in each reduce_rows.
+    // thread of the block, so every lane takes part in each lane_reduce.
     auto step = [&](int row) {
       const float2 dx = s_dx[buf][row][g];
       float q = 0.f;
@@ -522,7 +557,7 @@ fused_kernel(const FusedArgs p) {
 #pragma unroll
         for (int u = 0; u < L; ++u) q[u] = r0 + u < rows ? step(r0 + u) : 0.f;
       }
-      reduce_rows<L>(q, l);
+      lane_reduce<L, L / 2, 1>(q, l);
       if (r0 + l < rows) s_y[r0 + l][g] = q[0];
     }
     if constexpr (kVec) cp_async_wait_all();  // the next tile's Bc/Cc
@@ -650,7 +685,8 @@ cudaError_t launch_fused_n(const FusedArgs& a, int N, cudaStream_t st) {
 }
 
 // -- backward -----------------------------------------------------------------
-// One thread a state element (b, d, n), as scan_kernel; a block is one batch
+// scan_bwd_kernel (the literal entry's gradient): one thread a state element
+// (b, d, n), as scan_kernel; a block is one batch
 // row b and G = 256/N channels, so that the sums over d of dC (and dBc) start
 // as fixed-order block partials. A thread first runs the recurrence forward,
 // then walks S backwards in segments of Q steps: at the end of a segment the
@@ -756,131 +792,6 @@ scan_bwd_kernel(const float* __restrict__ A, const float* __restrict__ Bx,
   if (dh0 != nullptr && active) dh0[(b * D + dc) * N + n] = anext * g;
 }
 
-// fused_bwd_kernel — the gradient of the fused entry's discretization and
-//   scan; the skip, gate and softplus derivatives are torch ops around it
-//   (kernels/mamba_scan.py). No TPU kernel: the reference differentiates
-//   _fused_chunk_scan (src/repro/models/ssm.py) with XLA. From fp32 dt, x
-//   (B,S,D), Bc|Cc (B,S,2N), A = -exp(A_log) (D,N), h0 and dy = dL/dy32
-//   (B,S,D), with Abar = exp(dt A) and Bx = dt Bc x recomputed here as
-//   fused_kernel computes them:
-//     g_t = dy_t Cc_t + Abar_{t+1} g_{t+1}
-//     ddt_t[d]  = sum_n g_t (h_{t-1} Abar_t A + Bc_t x_t),  dx_t[d] = sum_n g_t dt_t Bc_t
-//     dBc_t[n]  = sum_d g_t dt_t x_t,   dCc_t[n] = sum_d dy_t h_t
-//     dA[d,n]   = sum_{b,t} g_t h_{t-1} Abar_t dt_t,  dh0 = Abar_0 g_0
-//   and y32 (B,S,D), the scan's readout, which the gate's derivative needs.
-//   No (B,S,D,N) tensor is stored: the forward pass keeps the state at the
-//   start of every Q-step segment in hseg (B, ceil(S/Q), D, N); the
-//   backward pass recomputes a segment's states from there into registers
-//   (hp, unrolled) and walks it backwards. The sums over n are butterflies
-//   inside a channel's lanes; over d, block partials (flush_partials); dA
-//   sums a segment at a time, then over segments, then over B
-//   (ordered_sum_kernel).
-//
-//   Bound: bytes at B=2, S=2048, D=8192, N=16: dt, x, dy, y32, ddt and dx
-//   (B,S,D) fp32 once each, 0.81 GB -> 0.24 ms; special-function units: an
-//   ex2 for Abar a (b,t,d,n) in each pass, 3 passes, 0.81e9 -> 0.19 ms.
-template <int N>
-struct FusedBwdArgs {
-  const float* dt;
-  const float* x;
-  const float* bc;
-  const float* A;
-  const float* h0;
-  const float* dy;
-  float* y32;
-  float* hseg;
-  float* ddt;
-  float* dx;
-  float* part;
-  float* dApart;
-  float* dh0;
-  long long S, D;
-  int nblk;
-};
-
-template <int N>
-__global__ void __launch_bounds__(kBwdThreads)
-fused_bwd_kernel(const FusedBwdArgs<N> p) {
-  constexpr int G = BwdShape<N>::kG, Q = BwdShape<N>::kQ;
-  __shared__ float s_part[Q][kBwdWarps][2][N];
-  const int n = threadIdx.x % N, lane = threadIdx.x % 32,
-            warp = threadIdx.x / 32;
-  const long long b = blockIdx.y, S = p.S, D = p.D;
-  const long long d = static_cast<long long>(blockIdx.x) * G + threadIdx.x / N;
-  const bool active = d < D;
-  const long long dc = active ? d : D - 1;  // shadow the last channel
-  const float Av = __ldg(p.A + dc * N + n);
-  const long long row = b * S * D + dc;     // (b, 0, dc) of a (B,S,D) array
-  const float* bcp = p.bc + b * S * 2 * N + n;
-  const long long nseg = (S + Q - 1) / Q;
-  float* hs = p.hseg + (b * nseg * D + dc) * N + n;  // segment k at k*D*N
-  const float hinit =
-      p.h0 != nullptr && active ? __ldg(p.h0 + (b * D + dc) * N + n) : 0.f;
-
-  float h = hinit;
-  for (long long t = 0; t < S; ++t) {
-    if (t % Q == 0 && active) hs[t / Q * D * N] = h;
-    const float dt = __ldg(p.dt + row + t * D), x = __ldg(p.x + row + t * D);
-    const float abar = expf(__fmul_rn(dt, Av));
-    h = fmaf(abar, h, __fmul_rn(__fmul_rn(dt, __ldg(bcp + t * 2 * N)), x));
-    const float y = group_sum<N>(__fmul_rn(h, __ldg(bcp + t * 2 * N + N)));
-    if (active && n == 0) p.y32[row + t * D] = y;
-  }
-  float g = 0.f, anext = 0.f, dA = 0.f;  // g_{t+1}, Abar_{t+1}
-  for (long long k = nseg - 1; k >= 0; --k) {
-    const long long t0 = k * Q;
-    const int len = S - t0 < Q ? static_cast<int>(S - t0) : Q;
-    float hp[Q + 1];  // hp[u] = h_{t0+u-1}
-    hp[0] = active ? hs[k * D * N] : 0.f;
-#pragma unroll
-    for (int u = 0; u < Q; ++u) {
-      if (u < len) {
-        const long long t = t0 + u;
-        const float dt = __ldg(p.dt + row + t * D);
-        const float abar = expf(__fmul_rn(dt, Av));
-        hp[u + 1] = fmaf(abar, hp[u],
-                         __fmul_rn(__fmul_rn(dt, __ldg(bcp + t * 2 * N)),
-                                   __ldg(p.x + row + t * D)));
-      }
-    }
-    float dA_seg = 0.f;
-#pragma unroll
-    for (int u = Q - 1; u >= 0; --u) {
-      if (u < len) {
-        const long long t = t0 + u;
-        const float dt = __ldg(p.dt + row + t * D), x = __ldg(p.x + row + t * D);
-        const float Bn = __ldg(bcp + t * 2 * N), Cn = __ldg(bcp + t * 2 * N + N);
-        const float dy = __ldg(p.dy + row + t * D);
-        const float abar = expf(__fmul_rn(dt, Av));
-        g = fmaf(anext, g, dy * Cn);
-        const float dlin = g * hp[u] * abar;  // dL/d(dt A)
-        dA_seg += dlin * dt;
-        const float pdt = group_sum<N>(dlin * Av + g * Bn * x);
-        const float px = group_sum<N>(g * dt * Bn);
-        if (active && n == 0) {
-          p.ddt[row + t * D] = pdt;
-          p.dx[row + t * D] = px;
-        }
-        const float pb = warp_channel_sum<N>(active ? g * dt * x : 0.f);
-        const float pc = warp_channel_sum<N>(active ? dy * hp[u + 1] : 0.f);
-        if (lane < N) {
-          s_part[u][warp][0][lane] = pb;
-          s_part[u][warp][1][lane] = pc;
-        }
-        anext = abar;
-      }
-    }
-    dA += dA_seg;
-    __syncthreads();
-    flush_partials<N, 2, Q>(s_part, p.part, b * S + t0, len, p.nblk);
-    __syncthreads();
-  }
-  if (active) {
-    p.dApart[(b * D + dc) * N + n] = dA;
-    if (p.dh0 != nullptr) p.dh0[(b * D + dc) * N + n] = anext * g;
-  }
-}
-
 template <int N>
 cudaError_t launch_bwd(const float* A, const float* Bx, const float* C,
                        const float* h0, const float* gy, float* dA, float* dBx,
@@ -897,20 +808,583 @@ cudaError_t launch_bwd(const float* A, const float* Bx, const float* C,
   return ckio::ordered_sum(part, dC, B * S, nblk, N, st);
 }
 
+// The fused entry's gradient: the kernels below, launched in this order by
+// launch_fused_bwd.
+//   No TPU kernel: the reference differentiates _fused_chunk_scan
+//   (src/repro/models/ssm.py) and the skip and gate around it with XLA. From
+//   gy and the forward's inputs (xin, dt_pre, z, proj in the compute dtype T
+//   through their strides, fp32 dt_bias, A_log, Dskip, h0), with the
+//   forward's rounding (fused_kernel) for dt = rnd(softplus(s)), s =
+//   rnd(dt_pre + rnd(dt_bias)), and dy = rnd(gy rnd(silu(z))):
+//     g_t = dy_t Cc_t + Abar_{t+1} g_{t+1},     dh0 = Abar_0 g_0
+//     ddt_t[d] = sum_n g_t h_{t-1} Abar_t A + x_t sum_n g_t Bc_t
+//     dx_t[d]  = dt_t sum_n g_t Bc_t,            y32_t[d] = sum_n h_t Cc_t
+//     dBc_t[n] = sum_d g_t dt_t x_t,             dCc_t[n] = sum_d dy_t h_t
+//     dA[d,n]  = sum_{b,t} g_t h_{t-1} Abar_t dt_t
+//   and the epilogue, rounded where ref.mamba_scan_fused_bwd_ref rounds to
+//   T: ypre = rnd(rnd(y32) + rnd(rnd(Dskip) x)), dz = rnd(rnd(gy ypre) *
+//   rnd(sig rnd(1 + rnd(z rnd(1 - sig))))) with sig = rnd(sigmoid(z)),
+//   dxin = rnd(rnd(dy rnd(Dskip)) + rnd(dx)), ds = rnd(rnd(ddt) * (s > 20 ?
+//   1 : rnd(sigmoid(s)))) (= ddt_pre), dDskip = sum rnd(dy x), ddt_bias =
+//   sum ds, dproj = (0 | rnd(dBc) | rnd(dCc)).
+//
+//   Bound at B=2, S=2048, D=8192, N=16 in bf16: special-function results,
+//   an ex2 for Abar a (b,t,d,n) and four a (b,t,d), 6.71e8 -> 0.160 ms;
+//   bytes (gy, xin, dt_pre, z read, dxin, ddt_pre, dz written, proj and
+//   dproj) 0.476 GB -> 0.142 ms.
+//
+//   Design: the sequence is cut into chunks of kT steps and a block owns
+//   one chunk of kG channels of one batch row; a channel's N states are kL
+//   lanes of kS states each, so most sums over n are adds inside a thread.
+//   (1) fused_bwd_sum_kernel: each chunk from zero, in both directions at
+//       once -- the local end state, and the local adjoint sum_u P_u dy_u
+//       Cc_u (P_u the product of Abar over the chunk's first u+1 steps, =
+//       Abar_{t0} g_{t0} with g = 0 past the chunk) -- and its sum of dt,
+//       whose decay exp(A sum dt) is the chunk's product of Abar. It
+//       computes dt, dy and the epilogue's factors of dz and ddt_pre once
+//       a (t, d) (softplus, silu, two sigmoids: most of the function's
+//       special-function and division work) and leaves them, rounded to T,
+//       in two planes of value pairs for (3).
+//   (2) fused_bwd_carry_kernel: a thread a state and direction walks the
+//       chunks in order, forward from h0 or backward from 0, and leaves
+//       each chunk's carry-in state or adjoint carry (Abar g of its
+//       successor's first step) in place of its summaries.
+//   (3) fused_bwd_kernel: the chunk again from its carries. The chunk's
+//       operands are staged once in shared memory (dt, dy from the plane,
+//       once a (t, d), not once a lane); a forward pass keeps the state at
+//       each kQ-step sub-segment's start in shared memory; then the
+//       sub-segments from the last to the first recompute their states
+//       into registers and run the adjoint back over them. The sums over n
+//       finish over a channel's kL lanes a sub-segment at a time
+//       (lane_reduce, kL - 1 shuffles for kL rows); the sums over d over
+//       the warp's channels by lane_reduce, then over the block's warps in
+//       warp order, into part (B, S, nblk, 2N): a block's kG channels
+//       summed before they leave it. The epilogue runs along d from shared
+//       memory and writes dxin, ddt_pre and dz once.
+//   (4) proj_grad_kernel and ordered_sum_kernel: dproj's rows from part in
+//       block order, and dA, dDskip and ddt_bias over the (b, chunk)
+//       partials in order.
+//   No atomics: every sum has a fixed order, so two runs give the same
+//   bits. No (B, S, D, N) tensor exists: the scratch is (B, S/kT, D, N)
+//   twice, (B, S, D/kG, 2N), (B, S/kT, D, N) (the dA partials) and the two
+//   (B, S, D) planes.
+//   Abar is ex2.approx of dt * A log2(e) (2 ulp) here; the forward kernel
+//   keeps torch's exp, whose bits the decode replay needs.
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
 template <int N>
-cudaError_t launch_fused_bwd(FusedBwdArgs<N> a, long long B, float* dBC,
-                             float* dA, cudaStream_t st) {
-  constexpr long long G = BwdShape<N>::kG;
-  const long long nblk = (a.D + G - 1) / G;
-  if (nblk > INT_MAX || B > 65535) return cudaErrorInvalidValue;
-  a.nblk = static_cast<int>(nblk);
-  fused_bwd_kernel<N><<<dim3(static_cast<unsigned>(nblk),
-                             static_cast<unsigned>(B)), kBwdThreads, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
+struct FusedBwdShape {
+  static constexpr int kS = N < 4 ? N : 4;          // states a lane
+  static constexpr int kL = N / kS;                 // lanes a channel
+  static constexpr int kG = N == 32 ? 64 : 128;     // channels a block
+  static constexpr int kThreads = kG * kL;          // 128 to 512
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kT = 64;                     // steps a chunk
+  static constexpr int kQ = 8;                      // steps a sub-segment
+  static constexpr int kEpi = kQ * kG / kThreads;   // epilogue items a thread
+};
+
+// A chunk's operands in fp32 (x padded by a column: it is staged along t
+// when xin is channel-major). Zeros past S and past D: the identity step
+// (Abar = 1, Bx = 0, no adjoint input), so no shadow adds to a sum.
+template <int N>
+struct FusedBwdStage {
+  using Sh = FusedBwdShape<N>;
+  float2 tdy[Sh::kT][Sh::kG];    // (dt, dy): one 8-byte load a step
+  float x[Sh::kT][Sh::kG + 1];
+  float bc[Sh::kT][2 * N];      // Bc | Cc; a lane's kS states 16-byte aligned
+};
+
+// A lane's kS states of a row of Bc or Cc, one 16-byte load at kS = 4.
+template <int kS>
+__device__ __forceinline__ void lds_states(const float* q, float (&v)[kS]) {
+  if constexpr (kS == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(q);
+    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kS; ++k) v[k] = q[k];
+  }
+}
+
+template <int N>
+struct FusedBwdSmem : FusedBwdStage<N> {
+  using Sh = FusedBwdShape<N>;
+  float hb[Sh::kT / Sh::kQ][Sh::kS][Sh::kThreads];  // sub-segment starts
+  // A sub-segment's sums for the epilogue, double-buffered so that one
+  // barrier a sub-segment separates writers and readers.
+  float ns[2][3][Sh::kQ][Sh::kG + 4];               // y32, ddt's two sums
+  float dsum[2][Sh::kQ][Sh::kWarps][2 * N];         // a warp's dBc | dCc
+};
+
+// Two values, each already rounded to T, in one word: 4 bytes in bf16 (the
+// high halves of the two floats), 8 in fp32. The summary kernel leaves a
+// chunk's (dt, dy) and (dsil, sgs) in two such planes for fused_bwd_kernel.
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using W = float2;
+  __device__ static W pack(float a, float b) { return make_float2(a, b); }
+  __device__ static float2 unpack(W w) { return w; }
+};
+template <>
+struct Pair<__nv_bfloat16> {
+  using W = unsigned;
+  __device__ static W pack(float a, float b) {
+    return (__float_as_uint(a) >> 16) | (__float_as_uint(b) & 0xffff0000u);
+  }
+  __device__ static float2 unpack(W w) {
+    return make_float2(__uint_as_float(w << 16),
+                       __uint_as_float(w & 0xffff0000u));
+  }
+};
+
+struct FusedBwdArgs {
+  const void* gy;
+  const void* xin;
+  const void* dtp;
+  const void* z;
+  const void* proj;
+  const float* dt_bias;
+  const float* A_log;
+  const float* Dskip;
+  const float* h0;
+  void* dxin;          // (B,S,D) contiguous, T
+  void* ddt;           // dL/d dt_pre, (B,S,D) contiguous, T
+  void* dz;            // (B,S,D) contiguous, T
+  void* dproj;         // (B,S,r+2N) contiguous, T
+  float* dh0;
+  float* sums;         // (B,C,D,N) states, (B,C,D,N) adjoints, (B,C,D) sum dt
+  float* part;         // (B,S,nblk,2N)
+  float* dApart;       // (B*C,D,N)
+  float* chan;         // (2,B*C,D): dDskip, ddt_bias
+  void* tdy;           // (B,S,D) Pair<T>: dt, dy
+  void* dsg;           // (B,S,D) Pair<T>: dsil, sgs (the epilogue's factors)
+  long long B, S, D, r, C;
+  View3 sgy, sx, sdt, sz, sp;
+  int x_t;             // xin is channel-major: stage it along t
+};
+
+// A chunk's operands into shared memory. The summary kernel (kFirst)
+// computes dt and dy once a (t, d) from dt_pre, z and gy, with the
+// epilogue's factors dsil = rnd(sig rnd(1 + rnd(z rnd(1 - sig)))) (sig =
+// rnd(sigmoid(z))) and sgs = (s > 20 ? 1 : rnd(sigmoid(s))), and leaves both
+// pairs in the planes; fused_bwd_kernel reads (dt, dy) back from there.
+template <int N, typename T, bool kFirst>
+__device__ __forceinline__ void stage_chunk(const FusedBwdArgs& p,
+                                            FusedBwdStage<N>& s, long long b,
+                                            long long d0, long long t0,
+                                            int rows) {
+  using Sh = FusedBwdShape<N>;
+  using E = Elt<T>;
+  using W = typename Pair<T>::W;
+  constexpr int G = Sh::kG, kT = Sh::kT, kTh = Sh::kThreads;
+  const T* dtp = static_cast<const T*>(p.dtp) + b * p.sdt.b;
+  const T* z = static_cast<const T*>(p.z) + b * p.sz.b;
+  const T* gy = static_cast<const T*>(p.gy) + b * p.sgy.b;
+  const T* xin = static_cast<const T*>(p.xin) + b * p.sx.b;
+  const T* bc = static_cast<const T*>(p.proj) + b * p.sp.b + p.r * p.sp.d;
+  W* tdy = static_cast<W*>(p.tdy) + b * p.S * p.D;
+  W* dsg = static_cast<W*>(p.dsg) + b * p.S * p.D;
+  const int tid = threadIdx.x;
+#pragma unroll 4
+  for (int i = tid; i < kT * G; i += kTh) {  // along d
+    const int u = i / G, g = i % G;
+    const long long t = t0 + u, d = d0 + g, o = t * p.D + d;
+    float2 v = make_float2(0.f, 0.f);
+    if (u < rows && d < p.D) {
+      if constexpr (kFirst) {
+        const float sv = E::rnd(__fadd_rn(
+            E::load(dtp + t * p.sdt.t + d * p.sdt.d),
+            E::rnd(__ldg(p.dt_bias + d))));
+        const float zf = E::load(z + t * p.sz.t + d * p.sz.d);
+        const float ez = 1.f + expf(-zf);  // silu_f's and sigmoid_f's
+        const float sig = E::rnd(1.f / ez);
+        v.x = E::rnd(softplus_f(sv));
+        v.y = E::rnd(__fmul_rn(E::load(gy + t * p.sgy.t + d * p.sgy.d),
+                               E::rnd(zf / ez)));
+        const float zs = E::rnd(__fmul_rn(zf, E::rnd(__fsub_rn(1.f, sig))));
+        const float dsil = E::rnd(__fmul_rn(sig, E::rnd(__fadd_rn(1.f, zs))));
+        tdy[o] = Pair<T>::pack(v.x, v.y);
+        dsg[o] = Pair<T>::pack(dsil, sv > 20.f ? 1.f : E::rnd(sigmoid_f(sv)));
+      } else {
+        v = Pair<T>::unpack(tdy[o]);
+      }
+    }
+    s.tdy[u][g] = v;
+  }
+#pragma unroll 4
+  for (int i = tid; i < kT * G; i += kTh) {  // along t when channel-major
+    const int u = p.x_t ? i % kT : i / G, g = p.x_t ? i / kT : i % G;
+    const long long t = t0 + u, d = d0 + g;
+    s.x[u][g] = u < rows && d < p.D
+                    ? E::load(xin + t * p.sx.t + d * p.sx.d) : 0.f;
+  }
+  for (int i = tid; i < kT * 2 * N; i += kTh) {
+    const int u = i / (2 * N), k = i % (2 * N);
+    s.bc[u][k] = u < rows ? E::load(bc + (t0 + u) * p.sp.t + k * p.sp.d) : 0.f;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void neg_a(const float* A_log, long long e,
+                                      float (&A)[FusedBwdShape<N>::kS],
+                                      float (&A2)[FusedBwdShape<N>::kS]) {
+#pragma unroll
+  for (int k = 0; k < FusedBwdShape<N>::kS; ++k) {
+    A[k] = -expf(__ldg(A_log + e + k));
+    A2[k] = A[k] * kLog2e;
+  }
+}
+
+template <int N, typename T>
+__global__ void __launch_bounds__(FusedBwdShape<N>::kThreads)
+fused_bwd_sum_kernel(const FusedBwdArgs p) {
+  using Sh = FusedBwdShape<N>;
+  constexpr int G = Sh::kG, kS = Sh::kS, kL = Sh::kL, kT = Sh::kT;
+  extern __shared__ float4 smem_f4[];
+  auto& s = *reinterpret_cast<FusedBwdStage<N>*>(smem_f4);
+  const int tid = threadIdx.x, g = tid / kL, l = tid % kL;
+  const long long b = blockIdx.z, c = blockIdx.y, D = p.D;
+  const long long d0 = static_cast<long long>(blockIdx.x) * G, d = d0 + g;
+  const long long t0 = c * kT;
+  const int rows = static_cast<int>(p.S - t0 < kT ? p.S - t0 : kT);
+  const bool active = d < D;
+  float A[kS], A2[kS];
+  neg_a<N>(p.A_log, (active ? d : D - 1) * N + l * kS, A, A2);
+  stage_chunk<N, T, true>(p, s, b, d0, t0, rows);
+  __syncthreads();
+  float hl[kS], P[kS], gr[kS], sd = 0.f;
+#pragma unroll
+  for (int k = 0; k < kS; ++k) {
+    hl[k] = 0.f;
+    P[k] = 1.f;
+    gr[k] = 0.f;
+  }
+  // Every chunk walks kT steps: past S the staged zeros are the identity.
+#pragma unroll 8
+  for (int u = 0; u < kT; ++u) {
+    const float2 v = s.tdy[u][g];
+    const float dt = v.x, dy = v.y, dtx = dt * s.x[u][g];
+    float Bn[kS], Cn[kS];
+    lds_states<kS>(&s.bc[u][l * kS], Bn);
+    lds_states<kS>(&s.bc[u][N + l * kS], Cn);
+    sd += dt;
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      const float ab = ex2(dt * A2[k]);
+      hl[k] = fmaf(ab, hl[k], Bn[k] * dtx);
+      P[k] *= ab;
+      gr[k] = fmaf(P[k], dy * Cn[k], gr[k]);
+    }
+  }
+  if (active) {
+    const long long BCDN = p.B * p.C * D * N;
+    const long long e = ((b * p.C + c) * D + d) * N + l * kS;
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      p.sums[e + k] = hl[k];
+      p.sums[BCDN + e + k] = gr[k];
+    }
+    if (l == 0) p.sums[2 * BCDN + (b * p.C + c) * D + d] = sd;
+  }
+}
+
+// One thread a state and a direction: the first B*D*N threads walk the
+// chunks forward (the carry-in states, from h0), the others backward (the
+// adjoint carries, from 0). kCarryBatch chunks' summaries are loaded at
+// once, then walked, so the walk's dependent chain waits on no load.
+template <int N>
+__global__ void __launch_bounds__(256)
+fused_bwd_carry_kernel(const FusedBwdArgs p) {
+  constexpr int kCarryBatch = 16;
+  const long long j0 = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long DN = p.D * N, C = p.C, BDN = p.B * DN;
+  if (j0 >= 2 * BDN) return;
+  const bool rev = j0 >= BDN;
+  const long long i = rev ? j0 - BDN : j0;
+  const long long b = i / DN, e = i % DN, BCDN = p.B * C * DN;
+  const float A2 = -expf(__ldg(p.A_log + e)) * kLog2e;
+  float* H = p.sums + (rev ? BCDN : 0) + b * C * DN + e;
+  const float* sd = p.sums + 2 * BCDN + b * C * p.D + e / N;
+  float h = !rev && p.h0 != nullptr ? __ldg(p.h0 + i) : 0.f;
+  for (long long k0 = 0; k0 < C; k0 += kCarryBatch) {
+    float loc[kCarryBatch], dec[kCarryBatch];
+#pragma unroll
+    for (int j = 0; j < kCarryBatch; ++j) {
+      const long long k = rev ? C - 1 - (k0 + j) : k0 + j;
+      const bool in = k0 + j < C;
+      loc[j] = in ? H[k * DN] : 0.f;
+      dec[j] = in ? ex2(A2 * sd[k * p.D]) : 1.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kCarryBatch; ++j) {
+      const long long k = rev ? C - 1 - (k0 + j) : k0 + j;
+      if (k0 + j < C) H[k * DN] = h;  // the chunk's carry, in place
+      h = fmaf(dec[j], h, loc[j]);
+    }
+  }
+}
+
+template <int N, typename T>
+__global__ void __launch_bounds__(FusedBwdShape<N>::kThreads, 1)
+fused_bwd_kernel(const FusedBwdArgs p) {
+  using Sh = FusedBwdShape<N>;
+  using E = Elt<T>;
+  constexpr int G = Sh::kG, kS = Sh::kS, kL = Sh::kL, kT = Sh::kT;
+  constexpr int kQ = Sh::kQ, kTh = Sh::kThreads, kW = Sh::kWarps;
+  constexpr int kEpi = Sh::kEpi, kStride = kTh / G;  // kStride == kL
+  // The sums over d: 2kS rows over the warp's channel lanes (lane bits 16
+  // down to kL); over n: kQ rows (steps) over a channel's kL lanes.
+  constexpr int kDRows = lane_rows(2 * kS, 16, kL);
+  constexpr int kDBits = butterfly_bits(2 * kS, 16, kL);
+  constexpr int kNRows = lane_rows(kQ, kL / 2, 1);
+  extern __shared__ float4 smem_f4[];
+  auto& s = *reinterpret_cast<FusedBwdSmem<N>*>(smem_f4);
+  const int tid = threadIdx.x, g = tid / kL, l = tid % kL;
+  const int lane = tid % 32, warp = tid / 32;
+  const long long b = blockIdx.z, c = blockIdx.y, D = p.D, S = p.S;
+  const long long d0 = static_cast<long long>(blockIdx.x) * G, d = d0 + g;
+  const long long t0 = c * kT, nblk = gridDim.x;
+  const int rows = static_cast<int>(S - t0 < kT ? S - t0 : kT);
+  const bool active = d < D;
+  const long long BCDN = p.B * p.C * D * N;
+  const long long e0 = ((b * p.C + c) * D + (active ? d : 0)) * N + l * kS;
+  float A[kS], A2[kS], h[kS], gcar[kS], dA[kS];
+  neg_a<N>(p.A_log, (active ? d : D - 1) * N + l * kS, A, A2);
+#pragma unroll
+  for (int k = 0; k < kS; ++k) {  // the carry kernel's carries
+    h[k] = active ? p.sums[e0 + k] : 0.f;
+    gcar[k] = active ? p.sums[BCDN + e0 + k] : 0.f;
+    dA[k] = 0.f;
+  }
+  // Epilogue items: channel ge, steps ue0 + m*kStride of a sub-segment.
+  const int ge = tid % G, ue0 = tid / G;
+  const long long de = d0 + ge;
+  const bool eact = de < D;
+  const float dsk = eact ? E::rnd(__ldg(p.Dskip + de)) : 0.f;
+  const T* gyp = static_cast<const T*>(p.gy) + b * p.sgy.b + de * p.sgy.d;
+  const auto* dsg = static_cast<const typename Pair<T>::W*>(p.dsg) +
+                    b * S * D + de;
+  float cdsk = 0.f, cbias = 0.f;
+
+  stage_chunk<N, T, false>(p, s, b, d0, t0, rows);
+  __syncthreads();
+  // Forward from the carry-in: the state at each sub-segment's start.
+  for (int q = 0; q <= (rows - 1) / kQ; ++q) {
+#pragma unroll
+    for (int k = 0; k < kS; ++k) s.hb[q][k][tid] = h[k];
+#pragma unroll
+    for (int u = q * kQ; u < q * kQ + kQ; ++u) {  // past S: the identity
+      const float dt = s.tdy[u][g].x, dtx = dt * s.x[u][g];
+      float Bn[kS];
+      lds_states<kS>(&s.bc[u][l * kS], Bn);
+#pragma unroll
+      for (int k = 0; k < kS; ++k)
+        h[k] = fmaf(ex2(dt * A2[k]), h[k], Bn[k] * dtx);
+    }
+  }
+
+  for (int q = (rows - 1) / kQ; q >= 0; --q) {
+    const int u0 = q * kQ, len = rows - u0 < kQ ? rows - u0 : kQ;
+    auto& ns = s.ns[q & 1];
+    auto& dsum = s.dsum[q & 1];
+    // The epilogue's inputs, loaded before the walk that hides them.
+    float egy[kEpi];
+    float2 efac[kEpi];  // (dsil, sgs)
+#pragma unroll
+    for (int m = 0; m < kEpi; ++m) {
+      const int ue = ue0 + m * kStride;
+      const long long t = t0 + u0 + ue;
+      const bool ok = ue < len && eact;
+      egy[m] = ok ? E::load(gyp + t * p.sgy.t) : 0.f;
+      efac[m] = ok ? Pair<T>::unpack(dsg[t * D]) : make_float2(0.f, 0.f);
+    }
+    // The sub-segment's states again, into registers, and y32's partials.
+    float hs[kQ + 1][kS], ab[kQ][kS], yq[kQ];
+#pragma unroll
+    for (int k = 0; k < kS; ++k) hs[0][k] = s.hb[q][k][tid];
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      yq[u] = 0.f;
+      const int uu = u0 + u;  // past len: staged zeros, the identity step
+      const float dt = s.tdy[uu][g].x, dtx = dt * s.x[uu][g];
+      float Bn[kS], Cn[kS];
+      lds_states<kS>(&s.bc[uu][l * kS], Bn);
+      lds_states<kS>(&s.bc[uu][N + l * kS], Cn);
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        ab[u][k] = ex2(dt * A2[k]);
+        hs[u + 1][k] = fmaf(ab[u][k], hs[u][k], Bn[k] * dtx);
+        yq[u] = fmaf(hs[u + 1][k], Cn[k], yq[u]);
+      }
+    }
+    {
+      const int r0 = lane_reduce<kQ, kL / 2, 1>(yq, l);
+#pragma unroll
+      for (int k = 0; k < kNRows; ++k) ns[0][r0 + k][g] = yq[k];
+    }
+    // The adjoint back over the sub-segment; steps past len are the
+    // identity (staged zeros) and their rows are not read.
+    float aq[kQ], bq[kQ];
+#pragma unroll
+    for (int u = kQ - 1; u >= 0; --u) {
+      aq[u] = 0.f;
+      bq[u] = 0.f;
+      const int uu = u0 + u;
+      const float2 v = s.tdy[uu][g];
+      const float dt = v.x, dy = v.y, dtx = dt * s.x[uu][g];
+      float Bn[kS], Cn[kS], pd[2 * kS];
+      lds_states<kS>(&s.bc[uu][l * kS], Bn);
+      lds_states<kS>(&s.bc[uu][N + l * kS], Cn);
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        const float gk = fmaf(dy, Cn[k], gcar[k]);
+        const float dlin = gk * hs[u][k] * ab[u][k];  // dL/d(dt A)
+        dA[k] = fmaf(dlin, dt, dA[k]);
+        aq[u] = fmaf(dlin, A[k], aq[u]);
+        bq[u] = fmaf(gk, Bn[k], bq[u]);
+        pd[k] = gk * dtx;               // dBc
+        pd[kS + k] = dy * hs[u + 1][k];  // dCc
+        gcar[k] = ab[u][k] * gk;
+      }
+      const int r0 = lane_reduce<2 * kS, 16, kL>(pd, lane);
+      if ((lane & kDBits) == 0) {
+#pragma unroll
+        for (int k = 0; k < kDRows; ++k) {
+          const int row = r0 + k;  // (dBc | dCc, state l*kS + row % kS)
+          dsum[u][warp][(row < kS ? 0 : N) + l * kS + row % kS] = pd[k];
+        }
+      }
+    }
+    {
+      const int r0 = lane_reduce<kQ, kL / 2, 1>(aq, l);
+      lane_reduce<kQ, kL / 2, 1>(bq, l);
+#pragma unroll
+      for (int k = 0; k < kNRows; ++k) {
+        ns[1][r0 + k][g] = aq[k];
+        ns[2][r0 + k][g] = bq[k];
+      }
+    }
+    __syncthreads();
+    // The epilogue along d.
+#pragma unroll
+    for (int m = 0; m < kEpi; ++m) {
+      const int ue = ue0 + m * kStride, uu = u0 + ue;
+      if (ue >= len || !eact) continue;
+      const float x = s.x[uu][ge], dt = s.tdy[uu][ge].x;
+      const float dyp = s.tdy[uu][ge].y;
+      const float gB = ns[2][ue][ge];
+      const float ddt = fmaf(x, gB, ns[1][ue][ge]);
+      const float dx = dt * gB;
+      const float ypre = E::rnd(__fadd_rn(E::rnd(ns[0][ue][ge]),
+                                          E::rnd(__fmul_rn(dsk, x))));
+      const long long o = (b * S + t0 + uu) * D + de;
+      E::store(static_cast<T*>(p.dz) + o,
+               __fmul_rn(E::rnd(__fmul_rn(egy[m], ypre)), efac[m].x));
+      E::store(static_cast<T*>(p.dxin) + o,
+               __fadd_rn(E::rnd(__fmul_rn(dyp, dsk)), E::rnd(dx)));
+      const float ds = E::rnd(__fmul_rn(E::rnd(ddt), efac[m].y));
+      E::store(static_cast<T*>(p.ddt) + o, ds);
+      cbias += ds;
+      cdsk += E::rnd(__fmul_rn(dyp, x));
+    }
+    // The sub-segment's sums over d: the block's warps in order.
+    for (int i = tid; i < len * 2 * N; i += kTh) {
+      const int u = i / (2 * N), col = i % (2 * N);
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) v += dsum[u][w][col];
+      p.part[((b * S + t0 + u0 + u) * nblk + blockIdx.x) * 2 * N + col] = v;
+    }
+  }
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      p.dApart[e0 + k] = dA[k];
+      if (c == 0 && p.dh0 != nullptr)
+        p.dh0[(b * D + d) * N + l * kS + k] = gcar[k];  // Abar_0 g_0
+    }
+  }
+  // dDskip and ddt_bias: a channel's kStride threads in order.
+  float(&red)[2][kStride][G + 4] =
+      *reinterpret_cast<float(*)[2][kStride][G + 4]>(&s.ns[0][0][0][0]);
+  __syncthreads();  // the last epilogue has read ns
+  red[0][ue0][ge] = cdsk;
+  red[1][ue0][ge] = cbias;
+  __syncthreads();
+  if (ue0 == 0 && eact) {
+    const long long BC = p.B * p.C;
+#pragma unroll
+    for (int kind = 0; kind < 2; ++kind) {
+      float v = 0.f;
+#pragma unroll
+      for (int m = 0; m < kStride; ++m) v += red[kind][m][ge];
+      p.chan[(kind * BC + b * p.C + c) * D + de] = v;
+    }
+  }
+}
+
+// dproj's rows from part: columns below r are 0, column r + k the sum over
+// the blocks' partials of k in block order, rounded to T.
+template <typename T>
+__global__ void __launch_bounds__(256)
+proj_grad_kernel(const float* __restrict__ part, T* __restrict__ dproj,
+                 long long rows, long long r, int two_n, int nblk) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long width = r + two_n;
+  if (i >= rows * width) return;
+  const long long row = i / width, col = i % width;
+  float v = 0.f;
+  if (col >= r) {
+    const float* q = part + row * nblk * two_n + (col - r);
+    for (long long k = 0; k < nblk; ++k) v += __ldg(q + k * two_n);
+  }
+  Elt<T>::store(dproj + i, v);
+}
+
+template <int N, typename T>
+cudaError_t launch_fused_bwd(const FusedBwdArgs& a, float* dA, float* dchan,
+                             cudaStream_t st) {
+  using Sh = FusedBwdShape<N>;
+  const long long nblk = (a.D + Sh::kG - 1) / Sh::kG;
+  if (nblk > INT_MAX || a.C > 65535 || a.B > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(nblk), static_cast<unsigned>(a.C),
+                  static_cast<unsigned>(a.B));
+  constexpr int s1 = sizeof(FusedBwdStage<N>), s2 = sizeof(FusedBwdSmem<N>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_bwd_sum_kernel<N, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      s1);
   if (err != cudaSuccess) return err;
-  err = ckio::ordered_sum(a.part, dBC, B * a.S, nblk, 2 * N, st);
+  err = cudaFuncSetAttribute(fused_bwd_kernel<N, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, s2);
   if (err != cudaSuccess) return err;
-  return ckio::ordered_sum(a.dApart, dA, 1, B, a.D * N, st);
+  fused_bwd_sum_kernel<N, T><<<grid, Sh::kThreads, s1, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long states = 2 * a.B * a.D * N;  // two directions
+  if ((states + 255) / 256 > INT_MAX) return cudaErrorInvalidValue;
+  fused_bwd_carry_kernel<N>
+      <<<static_cast<unsigned>((states + 255) / 256), 256, 0, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fused_bwd_kernel<N, T><<<grid, Sh::kThreads, s2, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long outs = a.B * a.S * (a.r + 2 * N);
+  if ((outs + 255) / 256 > INT_MAX) return cudaErrorInvalidValue;
+  proj_grad_kernel<T><<<static_cast<unsigned>((outs + 255) / 256), 256, 0,
+                        st>>>(a.part, static_cast<T*>(a.dproj), a.B * a.S,
+                              a.r, 2 * N, static_cast<int>(nblk));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = ckio::ordered_sum(a.dApart, dA, 1, a.B * a.C, a.D * N, st);
+  if (err != cudaSuccess) return err;
+  return ckio::ordered_sum(a.chan, dchan, 2, a.B * a.C, a.D, st);
 }
 
 }  // namespace
@@ -987,28 +1461,48 @@ extern "C" int ckio_mamba_scan_backward(const float* A, const float* Bx,
   return static_cast<int>(err);
 }
 
-// The fused entry's discretization and scan, differentiated. dt, x, dy:
-// (B,S,D); bc: (B,S,2N) (Bc then Cc); A: (D,N) = -exp(A_log); h0: (B,D,N)
-// or null; all fp32, contiguous. Writes y32, ddt, dx (B,S,D), dBC (B,S,2N),
-// dA (D,N) and, when dh0 is not null, dh0 (B,D,N). Scratch: hseg
-// B*ceil(S/Q)*D*N floats (Q = 32, 16 at N = 32), part
-// B*S*ceil(D/(256/N))*2N floats, dApart B*D*N floats.
+// The fused entry's gradient. gy, xin, dt_pre, z: (B,S,D); proj:
+// (B,S,r+2N); each of the five with its (b, t, d) element strides in
+// strides[0..14], in that order, in the compute dtype (bf16 when bf16 != 0,
+// else fp32). dt_bias, Dskip: (D); A_log: (D,N); h0: (B,D,N) or null; all
+// fp32, contiguous. Writes dxin, ddt_pre, dz (B,S,D) and dproj (B,S,r+2N),
+// contiguous in the compute dtype; dA (D,N) = dL/dA with A = -exp(A_log),
+// dchan (2,D) = the fp32 sums of dDskip's and ddt_bias's terms; dh0 (B,D,N)
+// when not null. Scratch (floats), C = ceil(S/64), G = 64 at N = 32, else
+// 128: sums B*C*D*(2N+1), part B*S*ceil(D/G)*2N, dApart B*C*D*N, chan
+// 2*B*C*D, planes 2*B*S*D (bf16) or 4*B*S*D (fp32).
 extern "C" int ckio_mamba_scan_fused_backward(
-    const float* dt, const float* x, const float* bc, const float* A,
-    const float* h0, const float* dy, float* y32, float* hseg, float* ddt,
-    float* dx, float* part, float* dBC, float* dApart, float* dA, float* dh0,
-    long long B, long long S, long long D, int N, void* stream) {
-  if (B < 1 || S < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const void* gy, const void* xin, const void* dt_pre, const void* z,
+    const void* proj, const float* dt_bias, const float* A_log,
+    const float* Dskip, const float* h0, void* dxin, void* ddt, void* dz,
+    void* dproj, float* dh0, float* sums, float* part, float* dApart,
+    float* chan, void* planes, float* dA, float* dchan, long long B,
+    long long S, long long D, int N, long long r, int bf16,
+    const long long* strides, void* stream) {
+  if (B < 1 || S < 1 || D < 1 || r < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FusedBwdArgs a{};
+  a.gy = gy; a.xin = xin; a.dtp = dt_pre; a.z = z; a.proj = proj;
+  a.dt_bias = dt_bias; a.A_log = A_log; a.Dskip = Dskip; a.h0 = h0;
+  a.dxin = dxin; a.ddt = ddt; a.dz = dz; a.dproj = dproj; a.dh0 = dh0;
+  a.sums = sums; a.part = part; a.dApart = dApart; a.chan = chan;
+  // planes: tdy, then dsg, B*S*D words of 4 (bf16) or 8 (fp32) bytes each,
+  // 8-byte aligned.
+  a.tdy = planes;
+  a.dsg = static_cast<char*>(planes) + B * S * D * (bf16 ? 4 : 8);
+  a.B = B; a.S = S; a.D = D; a.r = r; a.C = (S + 63) / 64;
+  View3* views[5] = {&a.sgy, &a.sx, &a.sdt, &a.sz, &a.sp};
+  for (int i = 0; i < 5; ++i)
+    *views[i] = View3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  a.x_t = a.sx.t == 1 && a.sx.d != 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (N) {
-#define CKIO_FBWD(n)                                                         \
-  case n: {                                                                  \
-    FusedBwdArgs<n> a{dt, x, bc, A, h0, dy, y32, hseg, ddt, dx, part,        \
-                      dApart, dh0, S, D, 0};                                 \
-    err = launch_fused_bwd<n>(a, B, dBC, dA, st);                            \
-    break;                                                                   \
-  }
+#define CKIO_FBWD(n)                                                      \
+  case n:                                                                 \
+    err = bf16 ? launch_fused_bwd<n, __nv_bfloat16>(a, dA, dchan, st)     \
+               : launch_fused_bwd<n, float>(a, dA, dchan, st);            \
+    break;
     CKIO_FBWD(1) CKIO_FBWD(2) CKIO_FBWD(4) CKIO_FBWD(8) CKIO_FBWD(16)
     CKIO_FBWD(32)
 #undef CKIO_FBWD

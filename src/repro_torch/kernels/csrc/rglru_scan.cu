@@ -281,127 +281,240 @@ cudaError_t launch(const LruArgs& a, cudaStream_t st) {
 // -- backward -----------------------------------------------------------------
 // lru_bwd_kernel — the gradient of the gated entry (lru_kernel<T, true>).
 //   No TPU kernel: the reference differentiates _gates and the associative
-//   scan (src/repro/models/rglru.py) with XLA. One thread a channel (b, w):
-//   it runs the recurrence forward, writing h_t into dr_pre's buffer, then
-//   walks S backwards, reading h_{t-1} from there before it overwrites slot
-//   t with dL/dr_pre_t. With gh_t = rnd(gy_t gate_t):
+//   scan (src/repro/models/rglru.py) with XLA. With gh_t = rnd(gy_t gate_t):
 //     g_t = gh_t + a_{t+1} g_{t+1},  dh0 = a_0 g_0,  dgate_t = rnd(gy_t rnd(h_t))
 //     dlog_a = g h_{t-1} a + [1 - e2 >= 1e-12] 2 (-(g x i / (2 beta)) e2)
 //     dr_pre = dlog_a c r (1 - r),  di_pre = g x beta i (1 - i),
 //     dxr = rnd(g beta i),  dc += dlog_a r
 //   (c = -8 softplus(lam), e2 = exp(2 log_a), x = xr in fp32), each product
-//   in the order torch's autograd takes it. db_r, db_i and dc sum over S a
-//   segment of kSeg steps at a time, then over segments, in a thread, and
-//   over B in ordered_sum_kernel; the wrapper turns dc into dlam.
+//   in the order torch's autograd takes it; the wrapper turns dc into dlam.
 //
 //   Bound: bytes. r_pre, i_pre read and dr_pre, di_pre written (4 B each),
 //   xr, gate, gy read and dxr, dgate written (2 B each in bf16): 26 B an
-//   element, 273 MB -> 0.081 ms at B=2, S=2048, W=2560. This simple kernel
-//   reads r_pre, i_pre and xr twice and h back once: 46 B an element; its
-//   B*W threads (5,120 there) leave most of the card idle.
-constexpr int kBwdThreads = 128;
-
+//   element, 273 MB -> 0.081 ms at B=2, S=2048, W=2560.
+//
+//   Design: lru_kernel's layout, a block of kBwdLanes channels by kChunks
+//   chunks of kQ steps, so that B*W*kChunks threads share the work where
+//   one thread a channel walked S serially (5,120 threads at the bound's
+//   shape, 40 SMs). 16 channels a block (a warp spans two chunks, 64
+//   contiguous bytes of r_pre a step) give 320 blocks there, four an SM,
+//   against 160 blocks of 32 channels. Two walks over the segments of kSeg
+//   steps:
+//   (1) forward: lru_kernel's chunk summaries (cumA, local end) and its
+//       carry walk in index order, which keep the segment-start state in
+//       hseg (B, ceil(S/kSeg), W); the same kQ, kChunks and order give
+//       the forward's own h bits;
+//   (2) backward, segments from the last to the first: a thread loads its
+//       kQ steps at once (xr in 16-byte loads where channel-major), forms
+//       the gates, its chunk's summaries from zero in both directions --
+//       cumA_t and the local states as (1), and the reverse local adjoint
+//       G = sum_u cumA_u gh_u (= a_{t1} g_{t1} from g = 0 past the chunk)
+//       -- and parks (cumA, local end, G) in shared memory. After one
+//       barrier a chunk walks the earlier chunks forward from hseg for its
+//       carry-in, h_t = fma(cumA_t, carry, local_t) as lru_kernel, and the
+//       later chunks backward from the next segment's a*g for its adjoint
+//       carry, then runs g_t = gh_t + a_{t+1} g_{t+1} over its kQ steps and
+//       writes dr_pre, di_pre, dxr and dgate once. The gate inputs are read
+//       again there (L1-resident) rather than held: four blocks an SM
+//       leave 64 registers a thread.
+//   The summaries are double-buffered by segment parity, so a segment needs
+//   one barrier. db_r, db_i and dc sum over a thread's chunk, then over the
+//   chunks in index order, then over B (ordered_sum_kernel). Every order is
+//   fixed: the same bits on every run.
 struct LruBwdArgs {
   const float* r_pre;
   const float* i_pre;
   const void* xr;
   const void* gate;
-  const void* gy;      // (B,S,W) contiguous, compute dtype
+  const void* gy;
   const float* b_r;
   const float* b_i;
   const float* lam;
   const float* h0;
-  float* dr;           // (B,S,W): h in the forward pass, then dL/dr_pre
+  float* dr;           // (B,S,W) fp32, contiguous
   float* di;
   void* dxr;           // (B,S,W) contiguous, compute dtype
   void* dgate;
   float* dh0;
+  float* hseg;         // (B, ceil(S/kSeg), W): the state at each segment start
   float* part;         // (3, B, W): dc, db_r, db_i
   long long B, S, W;
-  View3 sxr, sg;
+  View3 sxr, sg, sgy;  // strides of xr, gate and gy
+  int vec_xr;
 };
 
+constexpr int kBwdLanes = 16;  // channels a block of lru_bwd_kernel
+
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdLanes * kChunks, 4)
 lru_bwd_kernel(const LruBwdArgs p) {
   using E = Elt<T>;
-  const long long c = static_cast<long long>(blockIdx.x) * kBwdThreads +
-                      threadIdx.x;
-  const long long S = p.S, W = p.W, BW = p.B * p.W;
-  if (c >= BW) return;
-  const long long bi = c / W, w = c % W;
-  const long long base = bi * S * W + w;
+  __shared__ float s_a[2][kChunks][kBwdLanes], s_h[2][kChunks][kBwdLanes];
+  __shared__ float s_g[2][kChunks][kBwdLanes];
+  __shared__ float s_red[3][kChunks][kBwdLanes];
+  const int x = threadIdx.x, j = threadIdx.y;
+  const long long S = p.S, W = p.W, channels = p.B * W;
+  const long long c = static_cast<long long>(blockIdx.x) * kBwdLanes + x;
+  const bool active = c < channels;
+  const long long cc = active ? c : channels - 1;  // shadow the last channel
+  const long long bi = cc / W, w = cc % W;
+  const long long base = bi * S * W + w;  // element (bi, 0, w), contiguous
+  const long long nseg = (S + kSeg - 1) / kSeg;
+  float* hseg = p.hseg + bi * nseg * W + w;
   const T* xr = static_cast<const T*>(p.xr) + bi * p.sxr.b + w * p.sxr.d;
   const T* gate = static_cast<const T*>(p.gate) + bi * p.sg.b + w * p.sg.d;
-  const T* gy = static_cast<const T*>(p.gy) + base;
-  const float neg_c = __fmul_rn(-8.f, softplus_f(__ldg(p.lam + w)));
-  const float br = __ldg(p.b_r + w), bin = __ldg(p.b_i + w);
-  const float hinit = p.h0 != nullptr ? __ldg(p.h0 + c) : 0.f;
+  const T* gy = static_cast<const T*>(p.gy) + bi * p.sgy.b + w * p.sgy.d;
+  LruArgs ga{};
+  ga.b_r = p.b_r; ga.b_i = p.b_i; ga.lam = p.lam;
+  const Gate gt = Gate::of(ga, w);
 
-  float h = hinit;
-  for (long long t = 0; t < S; ++t) {
-    const float r = sigmoid_f(__fadd_rn(__ldg(p.r_pre + base + t * W), br));
-    const float i = sigmoid_f(__fadd_rn(__ldg(p.i_pre + base + t * W), bin));
-    const float log_a = __fmul_rn(neg_c, r);
-    const float x = E::load(xr + t * p.sxr.t);
-    const float beta =
-        sqrtf(fmaxf(__fsub_rn(1.f, expf(2.f * log_a)), 1e-12f));
-    h = fmaf(expf(log_a), h, __fmul_rn(__fmul_rn(beta, i), x));
-    p.dr[base + t * W] = h;
+  // (1) the forward's segment-start states.
+  float carry = p.h0 != nullptr ? __ldg(p.h0 + cc) : 0.f;
+  for (long long k = 0; k < nseg; ++k) {
+    const int buf = static_cast<int>(k & 1);
+    const long long t1 = k * kSeg + static_cast<long long>(j) * kQ;
+    if (j == 0 && active) hseg[k * W] = carry;
+    float rp[kQ], ip[kQ], xv[kQ];
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      const long long t = t1 + u;
+      rp[u] = t < S ? __ldg(p.r_pre + base + t * W) : 0.f;
+      ip[u] = t < S ? __ldg(p.i_pre + base + t * W) : 0.f;
+    }
+    load_steps(xr + t1 * p.sxr.t, p.sxr.t, S - t1, p.vec_xr != 0, xv);
+    float ca = 1.f, lh = 0.f;
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      float a, b;
+      gt(rp[u], ip[u], xv[u], a, b);
+      if (t1 + u >= S) {  // past the end: the identity
+        a = 1.f;
+        b = 0.f;
+      }
+      lh = fmaf(a, lh, b);
+      ca = __fmul_rn(a, ca);
+    }
+    s_a[buf][j][x] = ca;
+    s_h[buf][j][x] = lh;
+    __syncthreads();
+    // lru_kernel's carry: the walk over every chunk in index order (its
+    // last step's h is fma(cumA, carry-in, local) of the last chunk).
+#pragma unroll
+    for (int m = 0; m < kChunks; ++m)
+      carry = fmaf(s_a[buf][m][x], carry, s_h[buf][m][x]);
   }
-  float ht = h, g = 0.f, anext = 0.f;  // h_t, g_{t+1}, a_{t+1}
-  float dc = 0.f, dbr = 0.f, dbi = 0.f;
-  for (long long t0 = (S - 1) / kSeg * kSeg; t0 >= 0; t0 -= kSeg) {
-    float sc = 0.f, sbr = 0.f, sbi = 0.f;
-    const long long t1 = S < t0 + kSeg ? S : t0 + kSeg;
-    for (long long t = t1 - 1; t >= t0; --t) {
+  __syncthreads();  // (2) reuses the summaries' buffers
+
+  // (2) the segments from the last to the first.
+  float gcarry = 0.f;  // a_t g_t at the next segment's first step
+  float sc = 0.f, sbr = 0.f, sbi = 0.f;
+  for (long long k = nseg - 1; k >= 0; --k) {
+    const int buf = static_cast<int>(k & 1);
+    const long long t1 = k * kSeg + static_cast<long long>(j) * kQ;
+    float a[kQ], cum[kQ], loc[kQ], gh[kQ];
+    {
+      float rp[kQ], ip[kQ], xv[kQ];
+#pragma unroll
+      for (int u = 0; u < kQ; ++u) {
+        const long long t = t1 + u;
+        rp[u] = t < S ? __ldg(p.r_pre + base + t * W) : 0.f;
+        ip[u] = t < S ? __ldg(p.i_pre + base + t * W) : 0.f;
+        gh[u] = t < S ? E::rnd(__fmul_rn(E::load(gy + t * p.sgy.t),
+                                         E::load(gate + t * p.sg.t)))
+                      : 0.f;
+      }
+      load_steps(xr + t1 * p.sxr.t, p.sxr.t, S - t1, p.vec_xr != 0, xv);
+      float ca = 1.f, lh = 0.f, G = 0.f;
+#pragma unroll
+      for (int u = 0; u < kQ; ++u) {
+        float b;
+        gt(rp[u], ip[u], xv[u], a[u], b);
+        if (t1 + u >= S) {
+          a[u] = 1.f;
+          b = 0.f;
+        }
+        lh = fmaf(a[u], lh, b);
+        ca = __fmul_rn(a[u], ca);
+        cum[u] = ca;
+        loc[u] = lh;
+        G = fmaf(ca, gh[u], G);  // sum_u cumA_u gh_u: a_{t1} g_{t1} from 0
+      }
+      s_a[buf][j][x] = ca;
+      s_h[buf][j][x] = lh;
+      s_g[buf][j][x] = G;
+    }
+    const float hs = hseg[k * W];  // written in (1), before its barriers
+    __syncthreads();
+    float cin = hs;
+    for (int m = 0; m < j; ++m) cin = fmaf(s_a[buf][m][x], cin, s_h[buf][m][x]);
+    float gc = gcarry;
+    for (int m = kChunks - 1; m > j; --m)
+      gc = fmaf(s_a[buf][m][x], gc, s_g[buf][m][x]);
+#pragma unroll
+    for (int m = kChunks - 1; m >= 0; --m)  // the earlier segment's carry
+      gcarry = fmaf(s_a[buf][m][x], gcarry, s_g[buf][m][x]);
+    float hv[kQ];  // lru_kernel's h bits
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) hv[u] = fmaf(cum[u], cin, loc[u]);
+#pragma unroll
+    for (int u = kQ - 1; u >= 0; --u) {
+      const long long t = t1 + u;
+      if (t >= S) continue;
       const long long e = base + t * W;
-      const float r = sigmoid_f(__fadd_rn(__ldg(p.r_pre + e), br));
-      const float i = sigmoid_f(__fadd_rn(__ldg(p.i_pre + e), bin));
-      const float log_a = __fmul_rn(neg_c, r);
-      const float a = expf(log_a), e2 = expf(2.f * log_a);
+      // The gate inputs again (L1-resident): two blocks an SM leave 64
+      // registers a thread, too few to hold them through the walks.
+      const float xu = E::load(xr + t * p.sxr.t);
+      const float r = sigmoid_f(__fadd_rn(__ldg(p.r_pre + e), gt.br));
+      const float i = sigmoid_f(__fadd_rn(__ldg(p.i_pre + e), gt.bi));
+      const float log_a = __fmul_rn(gt.neg_c_sp, r);
+      const float e2 = expf(2.f * log_a);
       const float inner = __fsub_rn(1.f, e2);
       const float beta = sqrtf(fmaxf(inner, 1e-12f));
-      const float x = E::load(xr + t * p.sxr.t);
-      const float gyv = E::load(gy + t * W);
-      const float gh = E::rnd(__fmul_rn(gyv, E::load(gate + t * p.sg.t)));
-      E::store(static_cast<T*>(p.dgate) + e, __fmul_rn(gyv, E::rnd(ht)));
-      g = fmaf(anext, g, gh);
-      const float hp = t > 0 ? p.dr[e - W] : hinit;
-      const float gx = __fmul_rn(g, x);
-      float dlog = __fmul_rn(__fmul_rn(g, hp), a);
+      const float g = __fadd_rn(gh[u], gc);
+      const float hp = u > 0 ? hv[u - 1] : cin;
+      const float gx = __fmul_rn(g, xu);
+      float dlog = __fmul_rn(__fmul_rn(g, hp), a[u]);
       if (inner >= 1e-12f) {
         const float dinner = __fdiv_rn(__fmul_rn(gx, i), __fmul_rn(2.f, beta));
         dlog = __fadd_rn(dlog, __fmul_rn(2.f, __fmul_rn(-dinner, e2)));
       }
-      const float di = __fmul_rn(gx, beta);
-      const float drp = __fmul_rn(__fmul_rn(__fmul_rn(dlog, neg_c),
-                                            __fsub_rn(1.f, r)), r);
-      const float dip = __fmul_rn(__fmul_rn(di, __fsub_rn(1.f, i)), i);
+      const float drp = __fmul_rn(
+          __fmul_rn(__fmul_rn(dlog, gt.neg_c_sp), __fsub_rn(1.f, r)), r);
+      const float dip =
+          __fmul_rn(__fmul_rn(__fmul_rn(gx, beta), __fsub_rn(1.f, i)), i);
       sc += __fmul_rn(dlog, r);
       sbr += drp;
       sbi += dip;
-      p.dr[e] = drp;
-      p.di[e] = dip;
-      E::store(static_cast<T*>(p.dxr) + e, __fmul_rn(g, __fmul_rn(beta, i)));
-      anext = a;
-      ht = hp;
+      if (active) {
+        p.dr[e] = drp;
+        p.di[e] = dip;
+        E::store(static_cast<T*>(p.dxr) + e, __fmul_rn(g, __fmul_rn(beta, i)));
+        E::store(static_cast<T*>(p.dgate) + e,
+                 __fmul_rn(E::load(gy + t * p.sgy.t), E::rnd(hv[u])));
+      }
+      gc = __fmul_rn(a[u], g);
     }
-    dc += sc;
-    dbr += sbr;
-    dbi += sbi;
   }
-  if (p.dh0 != nullptr) p.dh0[c] = anext * g;
-  p.part[c] = dc;
-  p.part[BW + c] = dbr;
-  p.part[2 * BW + c] = dbi;
+  if (j == 0 && active && p.dh0 != nullptr) p.dh0[c] = gcarry;  // a_0 g_0
+  // The chunks' sums in index order, one entry of part a channel.
+  s_red[0][j][x] = sc;
+  s_red[1][j][x] = sbr;
+  s_red[2][j][x] = sbi;
+  __syncthreads();
+  if (j < 3 && active) {
+    float v = 0.f;
+#pragma unroll
+    for (int m = 0; m < kChunks; ++m) v += s_red[j][m][x];
+    p.part[j * channels + c] = v;
+  }
 }
 
 template <typename T>
 cudaError_t launch_bwd(const LruBwdArgs& a, float* dsum, cudaStream_t st) {
-  const long long blocks = (a.B * a.W + kBwdThreads - 1) / kBwdThreads;
+  const long long blocks = (a.B * a.W + kBwdLanes - 1) / kBwdLanes;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  lru_bwd_kernel<T><<<static_cast<unsigned>(blocks), kBwdThreads, 0, st>>>(a);
+  lru_bwd_kernel<T><<<static_cast<unsigned>(blocks),
+                      dim3(kBwdLanes, kChunks), 0, st>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // (3, B, W) -> (3, W): each of dc, db_r, db_i summed over B in order.
@@ -448,27 +561,31 @@ extern "C" int ckio_rglru_scan_gated(
                                : launch<float, true>(p, st));
 }
 
-// The gated entry's gradient. gy: (B,S,W) contiguous in the compute dtype
-// (bf16 when bf16 != 0, else fp32); the forward's inputs as for
-// ckio_rglru_scan_gated (xr and gate with their strides in strides[0..5]).
-// Writes dr_pre, di_pre (B,S,W) fp32, dxr, dgate (B,S,W) contiguous in the
-// compute dtype, dsum (3, W) fp32 = (dc, db_r, db_i) with c = -8
-// softplus(lam), and dh0 (B,W) when not null; part is scratch of 3*B*W
-// floats.
+// The gated entry's gradient. gy, xr, gate: (B,S,W) in the compute dtype
+// (bf16 when bf16 != 0, else fp32) with their (b, t, w) element strides in
+// strides[0..2] (xr), [3..5] (gate) and [6..8] (gy); r_pre, i_pre the
+// forward's fp32 inputs as for ckio_rglru_scan_gated. Writes dr_pre, di_pre
+// (B,S,W) fp32, dxr, dgate (B,S,W) contiguous in the compute dtype, dsum
+// (3, W) fp32 = (dc, db_r, db_i) with c = -8 softplus(lam), and dh0 (B,W)
+// when not null. Scratch: hseg B*ceil(S/128)*W floats, part 3*B*W floats.
 extern "C" int ckio_rglru_scan_gated_backward(
     const float* r_pre, const float* i_pre, const void* xr, const void* gate,
     const void* gy, const float* b_r, const float* b_i, const float* lam,
     const float* h0, float* dr, float* di, void* dxr, void* dgate, float* dh0,
-    float* part, float* dsum, long long B, long long S, long long W, int bf16,
-    const long long* strides, void* stream) {
+    float* hseg, float* part, float* dsum, long long B, long long S,
+    long long W, int bf16, const long long* strides, void* stream) {
   if (B < 1 || S < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   LruBwdArgs p{};
   p.r_pre = r_pre; p.i_pre = i_pre; p.xr = xr; p.gate = gate; p.gy = gy;
   p.b_r = b_r; p.b_i = b_i; p.lam = lam; p.h0 = h0;
   p.dr = dr; p.di = di; p.dxr = dxr; p.dgate = dgate; p.dh0 = dh0;
-  p.part = part; p.B = B; p.S = S; p.W = W;
+  p.hseg = hseg; p.part = part; p.B = B; p.S = S; p.W = W;
   p.sxr = View3{strides[0], strides[1], strides[2]};
   p.sg = View3{strides[3], strides[4], strides[5]};
+  p.sgy = View3{strides[6], strides[7], strides[8]};
+  const int V = bf16 ? 8 : 4;
+  p.vec_xr = (reinterpret_cast<uintptr_t>(xr) & 15u) == 0 && strides[1] == 1 &&
+             strides[0] % V == 0 && strides[2] % V == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(bf16 ? launch_bwd<__nv_bfloat16>(p, dsum, st)
                                : launch_bwd<float>(p, dsum, st));

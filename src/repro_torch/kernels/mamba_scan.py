@@ -26,11 +26,11 @@ Each entry has a gradient: :class:`MambaScanFn` and
 :class:`MambaScanFusedFn` (``torch.autograd.Function``) save the inputs,
 not the states, and their backward recomputes the states. On the card it
 launches ``scan_bwd_kernel`` (``mamba_scan_backward_cuda``, counted under
-``LAUNCHES["mamba_scan_backward"]``) or ``fused_bwd_kernel``
-(``mamba_scan_fused_backward_cuda``, ``LAUNCHES["mamba_scan_fused_backward"]``;
-the skip, gate and softplus derivatives are torch ops around it); on the
-CPU the plain backward of ``kernels/ref.py``. A gradient through a returned
-state raises :data:`STATE_GRAD`: no loss reads it.
+``LAUNCHES["mamba_scan_backward"]``) or the chunked fused backward
+(``mamba_scan_fused_backward_cuda``, ``LAUNCHES["mamba_scan_fused_backward"]``:
+the softplus, skip and gate derivatives are folded into its loads and
+stores); on the CPU the plain backward of ``kernels/ref.py``. A gradient
+through a returned state raises :data:`STATE_GRAD`: no loss reads it.
 """
 from __future__ import annotations
 
@@ -39,14 +39,18 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import reassemble as _build
 from repro_torch.kernels import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: a power of two, one warp at most
-BWD_THREADS = 256                      # the backward kernels' block: 256/N channels
+BWD_THREADS = 256                      # scan_bwd_kernel's block: 256/N channels
+# The fused backward's chunking (csrc/mamba_scan.cu FusedBwdShape): a block
+# owns FUSED_BWD_CHUNK steps of fused_bwd_channels(N) channels and
+# recomputes FUSED_BWD_SUBSEG steps at a time.
+FUSED_BWD_CHUNK = 64
+FUSED_BWD_SUBSEG = 8
 STATE_GRAD = ("mamba_scan: a gradient through the returned state h_S (no "
               "loss reads it; the backward kernels take dL/dy alone)")
 
@@ -70,19 +74,38 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ckio_mamba_scan_fused.restype = ctypes.c_int
     lib.ckio_mamba_scan_backward.argtypes = [P] * 10 + [L, L, L, I, P]
     lib.ckio_mamba_scan_backward.restype = ctypes.c_int
-    lib.ckio_mamba_scan_fused_backward.argtypes = [P] * 15 + [L, L, L, I, P]
+    lib.ckio_mamba_scan_fused_backward.argtypes = [P] * 21 + [L, L, L, I, L, I,
+                                                               P, P]
     lib.ckio_mamba_scan_fused_backward.restype = ctypes.c_int
 
 
 def _blocks(D: int, N: int) -> int:
-    """The backward kernels' blocks a batch row: 256/N channels each."""
+    """``scan_bwd_kernel``'s blocks a batch row: 256/N channels each."""
     return -(-D // (BWD_THREADS // N))
 
 
-def segment_steps(N: int) -> int:
-    """Steps of a segment of ``fused_bwd_kernel``'s backward walk (its
-    ``BwdShape::kQ``): one state of each segment's start is kept."""
-    return 16 if N == 32 else 32
+def fused_bwd_channels(N: int) -> int:
+    """Channels a block of the fused backward (``FusedBwdShape::kG``):
+    their sums over d of dBc and dCc are taken before they leave it."""
+    return 64 if N == 32 else 128
+
+
+def fused_bwd_scratch(B: int, S: int, D: int, N: int,
+                      itemsize: int = 2) -> Dict[str, int]:
+    """Floats of each scratch buffer of the fused backward: the chunks'
+    summaries, then their carries (two (B, C, D, N) and a (B, C, D), C =
+    ceil(S / FUSED_BWD_CHUNK)), the blocks' partial sums of dBc | dCc (B,
+    S, ceil(D / fused_bwd_channels(N)), 2N), the (b, chunk) partials of dA
+    (B*C, D, N) and of dDskip and ddt_bias (2, B*C, D), and two (B, S, D)
+    planes of value pairs in the compute dtype (``itemsize`` bytes a
+    value): (dt, dy) and the epilogue's two factors, which the summary
+    kernel computes once for the emitting kernel."""
+    C = -(-S // FUSED_BWD_CHUNK)
+    nblk = -(-D // fused_bwd_channels(N))
+    # The planes first: their 8-byte pairs (fp32) need an aligned start.
+    return {"planes": B * S * D * itemsize,
+            "sums": B * C * D * (2 * N + 1), "part": B * S * nblk * 2 * N,
+            "dApart": B * C * D * N, "chan": 2 * B * C * D}
 
 
 def mamba_scan_cuda(
@@ -300,13 +323,17 @@ def mamba_scan_fused_backward_cuda(
 ):
     """The fused entry's gradient from ``dL/dy``: ``(dxin, ddt_pre,
     ddt_bias, dA_log, dproj, dDskip, dz, dh0)``, each in its input's dtype
-    and shape, ``dh0`` None without ``h0``. Torch ops compute the operands
-    the forward rounds in the compute dtype (``dt``, ``silu(z)``) and the
-    skip, gate and softplus derivatives around one launch of
-    ``ckio_mamba_scan_fused_backward``, which recomputes ``Abar`` and ``Bx``
-    from ``dt``, ``x``, ``Bc`` and the states from each segment's start,
-    and differentiates the discretization and the scan. No (B, S, D, N)
-    tensor is allocated. Counts under
+    and shape (the (B, S, ...) ones contiguous), ``dh0`` None without
+    ``h0``. One call of ``ckio_mamba_scan_fused_backward``: the chunked
+    kernels read ``gy``, ``xin``, ``dt_pre``, ``z`` and ``proj`` through
+    their strides in the compute dtype, recompute ``dt``, ``Abar``, ``Bx``
+    and the states, differentiate the discretization, the scan, the skip,
+    the gate and the softplus with the plain backward's rounding, and write
+    ``dxin``, ``ddt_pre``, ``dz`` and ``dproj`` (its first r columns 0)
+    once. What stays in torch: ``A = -exp(A_log)``, ``dA_log = dA * A``
+    and the rounding of the fp32 sums of ``dDskip`` and ``ddt_bias`` to the
+    compute dtype, on (D, N) and (D,) tensors. No (B, S, D, N) tensor is
+    allocated (:func:`fused_bwd_scratch`). Counts under
     ``LAUNCHES["mamba_scan_fused_backward"]``."""
     B, S, D, N, r = _fused_checks(xin, dt_pre, dt_bias, A_log, proj, Dskip,
                                   z, h0)
@@ -318,49 +345,41 @@ def mamba_scan_fused_backward_cuda(
         raise ValueError(f"mamba_scan_fused_backward: gy is {gy.dtype} "
                          f"{tuple(gy.shape)}, expected {dtype} {(B, S, D)}")
     f32 = torch.float32
-    s = dt_pre + dt_bias.to(dtype)
-    sz = F.silu(z)
-    dyp = gy * sz                                   # dL/d(y32.to + skip)
-    dtf = F.softplus(s).float().contiguous()
-    xf = xin.float().contiguous()
-    bc = proj[..., r:].float().contiguous()         # Bc | Cc
-    A = -torch.exp(A_log)
-    dy32 = dyp.float().contiguous()
-    y32 = torch.empty((B, S, D), dtype=f32, device=dev)
-    ddt = torch.empty_like(y32)
-    dx = torch.empty_like(y32)
-    dBC = torch.empty((B, S, 2 * N), dtype=f32, device=dev)
+    dxin = torch.empty((B, S, D), dtype=dtype, device=dev)
+    ddt = torch.empty_like(dxin)
+    dz = torch.empty_like(dxin)
+    dproj = torch.empty((B, S, r + 2 * N), dtype=dtype, device=dev)
     dA = torch.empty((D, N), dtype=f32, device=dev)
+    dchan = torch.empty((2, D), dtype=f32, device=dev)   # dDskip, ddt_bias
     dh0 = None if h0 is None else torch.empty_like(h0)
     if B * S * D == 0:
-        for t in (y32, ddt, dx, dBC, dA):
+        for t in (dxin, ddt, dz, dproj, dA, dchan) + (
+                () if dh0 is None else (dh0,)):
             t.zero_()
-        if dh0 is not None:
-            dh0.zero_()
     else:
-        Q = segment_steps(N)
-        hseg = torch.empty(B * -(-S // Q) * D * N, dtype=f32, device=dev)
-        part = torch.empty(B * S * _blocks(D, N) * 2 * N, dtype=f32,
-                           device=dev)
-        dApart = torch.empty((B, D, N), dtype=f32, device=dev)
+        sizes = fused_bwd_scratch(B, S, D, N, xin.element_size())
+        scratch = torch.empty(sum(sizes.values()), dtype=f32, device=dev)
+        ptrs, at = {}, scratch.data_ptr()
+        for name, n in sizes.items():
+            ptrs[name] = at
+            at += 4 * n
+        strides = (ctypes.c_longlong * 15)(
+            *gy.stride(), *xin.stride(), *dt_pre.stride(), *z.stride(),
+            *proj.stride())
         rc = _build.load_library(SOURCE, _bind).ckio_mamba_scan_fused_backward(
-            dtf.data_ptr(), xf.data_ptr(), bc.data_ptr(), A.data_ptr(),
-            None if h0 is None else h0.data_ptr(), dy32.data_ptr(),
-            y32.data_ptr(), hseg.data_ptr(), ddt.data_ptr(), dx.data_ptr(),
-            part.data_ptr(), dBC.data_ptr(), dApart.data_ptr(), dA.data_ptr(),
-            None if dh0 is None else dh0.data_ptr(), B, S, D, N,
-            _build.stream_of(y32))
+            gy.data_ptr(), xin.data_ptr(), dt_pre.data_ptr(), z.data_ptr(),
+            proj.data_ptr(), dt_bias.data_ptr(), A_log.data_ptr(),
+            Dskip.data_ptr(), None if h0 is None else h0.data_ptr(),
+            dxin.data_ptr(), ddt.data_ptr(), dz.data_ptr(), dproj.data_ptr(),
+            None if dh0 is None else dh0.data_ptr(), ptrs["sums"],
+            ptrs["part"], ptrs["dApart"], ptrs["chan"], ptrs["planes"],
+            dA.data_ptr(), dchan.data_ptr(), B, S, D, N, r,
+            int(dtype == torch.bfloat16), strides, _build.stream_of(dxin))
         _build.check_rc(rc, "mamba_scan_fused_backward")
         LAUNCHES["mamba_scan_fused_backward"] += 1
-        del hseg, part, dApart
-    ypre = y32.to(dtype) + Dskip.to(dtype) * xin
-    dz = torch.ops.aten.silu_backward(gy * ypre, z)
-    dDskip = (dyp * xin).sum((0, 1)).to(f32)
-    dxin = dyp * Dskip.to(dtype) + dx.to(dtype)
-    ds = torch.ops.aten.softplus_backward(ddt.to(dtype), s, 1.0, 20.0)
-    dproj = torch.zeros_like(proj)
-    dproj[..., r:] = dBC.to(dtype)
-    return (dxin, ds, ds.sum((0, 1)).to(f32), dA * A, dproj, dDskip, dz, dh0)
+        del scratch
+    dDskip, dbias = dchan.to(dtype).to(f32)
+    return (dxin, ddt, dbias, dA * -torch.exp(A_log), dproj, dDskip, dz, dh0)
 
 
 class MambaScanFn(torch.autograd.Function):

@@ -25,10 +25,11 @@ The gated entry has a gradient: :class:`RGLRUScanGatedFn`
 (``torch.autograd.Function``) saves the inputs, not the states; its
 backward launches ``lru_bwd_kernel`` on the card
 (``rglru_scan_gated_backward_cuda``, counted under
-``LAUNCHES["rglru_scan_gated_backward"]``), which recomputes the states,
-and runs ``ref.rglru_scan_gated_bwd_ref`` on the CPU. A gradient through
-the returned state raises :data:`STATE_GRAD`. The literal instance stays
-forward-only (:data:`FORWARD_ONLY`).
+``LAUNCHES["rglru_scan_gated_backward"]``), which recomputes the states in
+the forward kernel's chunks (:data:`BWD_CHUNKS` of :data:`BWD_STEPS`
+steps a segment), and runs ``ref.rglru_scan_gated_bwd_ref`` on the CPU. A
+gradient through the returned state raises :data:`STATE_GRAD`. The literal
+instance stays forward-only (:data:`FORWARD_ONLY`).
 """
 from __future__ import annotations
 
@@ -54,6 +55,10 @@ STATE_GRAD = ("rglru_scan_gated: a gradient through the returned state h_S "
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0, "rglru_scan_gated": 0,
                             "rglru_scan_gated_backward": 0}
 COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
+# lru_kernel's and lru_bwd_kernel's chunking (csrc/rglru_scan.cu): a block
+# walks segments of BWD_CHUNKS chunks of BWD_STEPS steps.
+BWD_CHUNKS, BWD_STEPS = 16, 8
+BWD_SEGMENT = BWD_CHUNKS * BWD_STEPS
 
 
 def reset_launch_counts() -> None:
@@ -67,7 +72,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ckio_rglru_scan.restype = ctypes.c_int
     lib.ckio_rglru_scan_gated.argtypes = [P] * 10 + [L, L, L, I, P, P]
     lib.ckio_rglru_scan_gated.restype = ctypes.c_int
-    lib.ckio_rglru_scan_gated_backward.argtypes = [P] * 16 + [L, L, L, I, P,
+    lib.ckio_rglru_scan_gated_backward.argtypes = [P] * 17 + [L, L, L, I, P,
                                                               P]
     lib.ckio_rglru_scan_gated_backward.restype = ctypes.c_int
 
@@ -182,6 +187,13 @@ def rglru_scan_gated_cuda(
     return y, h_out
 
 
+def backward_scratch(B: int, S: int, W: int) -> Dict[str, int]:
+    """Floats of each scratch buffer of ``lru_bwd_kernel``: the state at
+    each segment's start (B, ceil(S / BWD_SEGMENT), W), and the per-row
+    sums of dc, db_r and db_i (3, B, W)."""
+    return {"hseg": B * -(-S // BWD_SEGMENT) * W, "part": 3 * B * W}
+
+
 def rglru_scan_gated_backward_cuda(
     gy: torch.Tensor,                   # (B, S, W) compute dtype
     r_pre: torch.Tensor,
@@ -195,10 +207,11 @@ def rglru_scan_gated_backward_cuda(
 ):
     """The gated entry's gradient from ``dL/dy``: ``(dr_pre, di_pre, db_r,
     db_i, dlam, dxr, dgate, dh0)``, each in its input's dtype and shape
-    (``dxr``, ``dgate`` contiguous), ``dh0`` None without ``h0``. One
-    launch of ``ckio_rglru_scan_gated_backward`` (the kernel and the
-    ordered sum over B of its per-row sums), then ``dlam`` from the summed
-    ``dL/dc``, ``c = -8 softplus(lam)``, by torch's softplus derivative.
+    (``dxr``, ``dgate`` contiguous), ``dh0`` None without ``h0``; ``gy``,
+    ``xr`` and ``gate`` are read through their strides. One call of
+    ``ckio_rglru_scan_gated_backward`` (the kernel and the ordered sum over
+    B of its per-row sums), then ``dlam`` from the summed ``dL/dc``, ``c =
+    -8 softplus(lam)``, by torch's softplus derivative on a (W,) tensor.
     Counts under ``LAUNCHES["rglru_scan_gated_backward"]``."""
     B, S, W = _gated_checks(r_pre, i_pre, b_r, b_i, lam, xr, gate, h0)
     ins = [gy, r_pre, i_pre, b_r, b_i, lam, xr, gate]
@@ -213,7 +226,6 @@ def rglru_scan_gated_backward_cuda(
         raise ValueError(f"rglru_scan_gated_backward: gy is {gy.dtype} "
                          f"{tuple(gy.shape)}, expected {xr.dtype} "
                          f"{(B, S, W)}")
-    gy = gy.contiguous()
     dr = torch.empty_like(r_pre)
     di = torch.empty_like(i_pre)
     dxr = torch.empty((B, S, W), dtype=xr.dtype, device=dev)
@@ -224,18 +236,22 @@ def rglru_scan_gated_backward_cuda(
         for t in (dr, di, dxr, dgate) + (() if dh0 is None else (dh0,)):
             t.zero_()
     else:
-        part = torch.empty(3 * B * W, dtype=torch.float32, device=dev)
-        strides = (ctypes.c_longlong * 6)(*xr.stride(), *gate.stride())
+        sizes = backward_scratch(B, S, W)
+        hseg = torch.empty(sizes["hseg"], dtype=torch.float32, device=dev)
+        part = torch.empty(sizes["part"], dtype=torch.float32, device=dev)
+        strides = (ctypes.c_longlong * 9)(*xr.stride(), *gate.stride(),
+                                          *gy.stride())
         rc = _build.load_library(SOURCE, _bind).ckio_rglru_scan_gated_backward(
             r_pre.data_ptr(), i_pre.data_ptr(), xr.data_ptr(),
             gate.data_ptr(), gy.data_ptr(), b_r.data_ptr(), b_i.data_ptr(),
             lam.data_ptr(), None if h0 is None else h0.data_ptr(),
             dr.data_ptr(), di.data_ptr(), dxr.data_ptr(), dgate.data_ptr(),
-            None if dh0 is None else dh0.data_ptr(), part.data_ptr(),
-            dsum.data_ptr(), B, S, W, int(xr.dtype == torch.bfloat16),
-            strides, _build.stream_of(dr))
+            None if dh0 is None else dh0.data_ptr(), hseg.data_ptr(),
+            part.data_ptr(), dsum.data_ptr(), B, S, W,
+            int(xr.dtype == torch.bfloat16), strides, _build.stream_of(dr))
         _build.check_rc(rc, "rglru_scan_gated_backward")
         LAUNCHES["rglru_scan_gated_backward"] += 1
+        del hseg, part
     dc, dbr, dbi = dsum
     dlam = torch.ops.aten.softplus_backward(dc * -ref.RGLRU_C, lam, 1.0, 20.0)
     return dr, di, dbr, dbi, dlam, dxr, dgate, dh0

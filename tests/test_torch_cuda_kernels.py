@@ -1066,10 +1066,22 @@ def test_cuda_mamba_scan_backward_matches_plain(cuda, B, S, D, N):
         assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
 
 
+# The chunked backwards' edges: the fused Mamba's chunks of
+# MS.FUSED_BWD_CHUNK steps (sub-segments of 8) and blocks of 128 channels
+# (64 at N = 32); the RG-LRU's chunks of 8 steps and segments of 128.
+FUSED_BWD_CASES = [(1, 1, 64, 16, 4), (2, 17, 48, 16, 3), (1, 40, 40, 4, 5),
+                   (1, 70, 32, 32, 2), (2, 63, 130, 16, 3),
+                   (2, 64, 130, 16, 256), (2, 65, 200, 16, 5),
+                   (2, 157, 70, 8, 2), (2, 129, 65, 32, 1), (2, 9, 30, 1, 0),
+                   (2, 33, 257, 2, 4), (1, 5, 33, 4, 3)]  # B*C*D odd
+LRU_BWD_CASES = [(1, 1, 64), (3, 37, 50), (2, 300, 33), (2, 7, 40),
+                 (2, 8, 33), (2, 9, 64), (2, 128, 50), (2, 129, 33),
+                 (2, 293, 70)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", FUSED_DTYPES)
-@pytest.mark.parametrize("B,S,D,N,r", [(1, 1, 64, 16, 4), (2, 17, 48, 16, 3),
-                                       (1, 40, 40, 4, 5), (1, 70, 32, 32, 2)])
+@pytest.mark.parametrize("B,S,D,N,r", FUSED_BWD_CASES)
 def test_cuda_mamba_scan_fused_backward_matches_plain(cuda, B, S, D, N, r,
                                                       dtype, tol):
     t = _fused_inputs(B, S, D, N, r, dtype, cuda, seed=S + D,
@@ -1087,10 +1099,11 @@ def test_cuda_mamba_scan_fused_backward_matches_plain(cuda, B, S, D, N, r,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,S,W", [(1, 1, 64), (3, 37, 50), (2, 300, 33)])
+@pytest.mark.parametrize("B,S,W", LRU_BWD_CASES)
 def test_cuda_rglru_scan_gated_backward_matches_plain(cuda, B, S, W, dtype,
                                                       tol):
     g = _gated_inputs(B, S, W, dtype, cuda, seed=S + W, channel_major=True)
+    g["gate"] = torch.cat([g["gate"], g["gate"]], -1)[..., W:]  # a view
     gy = torch.randn((B, S, W), device=cuda).to(dtype)
     for h in (None, g["h0"]):
         got = LRU.rglru_scan_gated_backward_cuda(gy, *_gargs(g), h)
