@@ -328,7 +328,10 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              each gradient's largest magnitude, S = 1, 17 and 2048 with and
              without h0, ``z`` and ``proj`` strided views, ragged D and odd
              r, the fused backward's chunk edges (S = 63, 64, 65, 157; B=2,
-             D past one block), and a microbatch of the train step (B=2,
+             D past one block), the literal one's cluster plan edges (a
+             chunk less one and one more at S=2048, windows at S = 4096,
+             4097 and 8193, every state size), and a microbatch of
+             the train step (B=2,
              S=2048, D=8192, N=16; bf16 with channel-major xin for the
              fused one); each twice on the same inputs for the same bits,
              timed at the microbatch beside its plain version and its
@@ -399,7 +402,7 @@ SOURCES = {
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "mamba_scan_fused": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "rglru_scan_gated": "src/repro_torch/kernels/csrc/rglru_scan.cu",
-    "mamba_scan_backward": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+    "mamba_scan_backward": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
     "mamba_scan_fused_backward": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "rglru_scan_gated_backward": "src/repro_torch/kernels/csrc/rglru_scan.cu",
 }
@@ -427,7 +430,7 @@ REPLACES = {
 BWD_KERNELS = ("mamba_scan_backward", "mamba_scan_fused_backward",
                "rglru_scan_gated_backward")
 # The device kernels the three backward entries launch (profiler names).
-BWD_DEVICE_KERNELS = ("scan_bwd_kernel", "fused_bwd_sum_kernel",
+BWD_DEVICE_KERNELS = ("scan_bwd_cluster_kernel", "fused_bwd_sum_kernel",
                       "fused_bwd_carry_kernel", "fused_bwd_kernel",
                       "proj_grad_kernel", "lru_bwd_kernel",
                       "ordered_sum_kernel")
@@ -4562,10 +4565,16 @@ class Smoke:
         log(f"time {name}/train: {self.card_line}: {json.dumps(r)}")
 
     def _bwd_literal(self):
-        """``scan_bwd_kernel`` against ``ref.ssm_scan_bwd_ref`` (1e-4): S =
-        1, 17 and 2048 with and without h0, and a microbatch of the train
+        """``scan_bwd_cluster_kernel`` against ``ref.ssm_scan_bwd_ref``
+        (1e-4): S = 1, 17 and 2048 with and without h0; the plan's edges
+        (``MS.scan_bwd_plan``): a chunk less one and one more at the train
+        length, a window of 16 chunks of 256 steps and one more step, three
+        windows, every state size by TMA copies and a state a
+        thread, D * N off the block's states, with and without h0 in turn;
+        and a microbatch of the train
         step (B=2, S=2048, D=8192, N=16: 2^29 elements an input); twice on
-        the same inputs for the same bits; timed at the microbatch shape."""
+        the same inputs for the same bits; timed at the microbatch shape,
+        with the plan and the clusters the card runs at once."""
         import torch
 
         from repro_torch.kernels import mamba_scan as MS
@@ -4576,6 +4585,13 @@ class Smoke:
         g.manual_seed(8)
         cases = [(None, b, s, d, SSM_N, h) for b, s, d in (
             (1, 1, 64), (2, 17, 520), (1, S, 256)) for h in (False, True)]
+        cases += [("edge", b, s, d, n, i % 2 == 1) for i, (b, s, d, n) in
+                  enumerate(((2, S - 1, 40, SSM_N), (2, S + 1, 40, SSM_N),
+                             (1, 4096, 5, SSM_N), (1, 4097, 5, SSM_N),
+                             (1, 8193, 5, SSM_N),
+                             (2, 300, 37, 1), (2, 300, 37, 2),
+                             (2, 300, 44, 4), (2, 300, 44, 8),
+                             (2, 300, 44, 32)))]
         cases.append(("train", MB, S, SSM_D, SSM_N, False))
         for key, b, s, d, n, with_h0 in cases:
             A = torch.randn((b, s, d, n), device=dev, generator=g).sigmoid_()
@@ -4590,11 +4606,14 @@ class Smoke:
             self._same_bits("mamba_scan_backward", got,
                             MS.mamba_scan_backward_cuda(gy, A, Bx, C, h0))
             torch.cuda.synchronize()
+            plan = MS.scan_bwd_plan(b, s, d, n)
             log(f"scan backward: B={b} S={s} D={d} N={n}"
-                f"{' h0' if with_h0 else ''}: within 1e-4 of the plain "
-                f"backward, the same bits twice; max abs err so far "
+                f"{' h0' if with_h0 else ''} (chunks of {plan['chunk']}, "
+                f"{plan['states']} states a block, {plan['windows']} "
+                f"window(s)): within 1e-4 of the plain backward, the same "
+                f"bits twice; max abs err so far "
                 f"{self.err['mamba_scan_backward']}")
-            if key is not None:
+            if key == "train":
                 # gy, Abar, Bx, C read once; dAbar, dBx, dC written once.
                 # FLOPs: the state's FMA, g's FMA, dAbar's product and dC's
                 # product and sum a state element.
@@ -4605,7 +4624,11 @@ class Smoke:
                     "shape": f"B={b} S={s} D={d} N={n} fp32",
                     "bytes": nbytes, "flops": flops,
                     "bound_ms": max(b_bytes, b_ops),
-                    "bound_by": "bytes" if b_bytes >= b_ops else "operations"},
+                    "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                    "plan": {k: plan[k] for k in (
+                        "cluster", "chunk", "states", "threads", "windows",
+                        "smem", "elem_bytes")},
+                    "clusters": MS.scan_bwd_clusters(plan, n)},
                     lambda: MS.mamba_scan_backward_cuda(gy, A, Bx, C, h0),
                     lambda: ref.ssm_scan_bwd_ref(gy, A, Bx, C, h0))
             del A, Bx, C, h0, gy, got

@@ -5,7 +5,8 @@
                                   [--entries all|forward|backward]
 
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``),
-builds its ``mamba_scan.cu`` and ``rglru_scan.cu`` into ``--build`` and
+builds its scan sources (``mamba_scan.cu``, ``mamba_scan_bwd.cu`` where the
+tree has it, ``rglru_scan.cu``) into ``--build`` and
 prints one JSON line: the card's name and power limit, and the mean device
 time in ms (CUDA events behind a spin kernel, as ``chip_smoke.py`` times)
 of each entry the tree has, at the shapes ``chip_smoke.py`` times:

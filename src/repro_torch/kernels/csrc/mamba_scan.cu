@@ -685,129 +685,6 @@ cudaError_t launch_fused_n(const FusedArgs& a, int N, cudaStream_t st) {
 }
 
 // -- backward -----------------------------------------------------------------
-// scan_bwd_kernel (the literal entry's gradient): one thread a state element
-// (b, d, n), as scan_kernel; a block is one batch
-// row b and G = 256/N channels, so that the sums over d of dC (and dBc) start
-// as fixed-order block partials. A thread first runs the recurrence forward,
-// then walks S backwards in segments of Q steps: at the end of a segment the
-// block sums its warps' partials of the segment's steps and writes one row a
-// step to `part` (B, S, nblk, K, N); ordered_sum_kernel then adds the nblk
-// blocks' rows in block order. No atomics: every sum has a fixed order.
-constexpr int kBwdThreads = 256;
-constexpr int kBwdWarps = kBwdThreads / 32;
-
-template <int N>
-struct BwdShape {
-  static constexpr int kG = kBwdThreads / N;      // channels a block
-  static constexpr int kQ = N == 32 ? 16 : 32;    // steps a segment
-};
-
-// Sum over the channels of a warp: lanes n, n + N, n + 2N, ... all end with
-// the warp's sum for state n, added in the same order on every run.
-template <int N>
-__device__ __forceinline__ float warp_channel_sum(float v) {
-#pragma unroll
-  for (int o = N; o < 32; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// The block's sums of a segment's `len` steps: s[u][w][k][n] holds warp w's
-// partial of step u; row (row0 + u) of part gets their sum in warp order.
-template <int N, int K, int Q>
-__device__ __forceinline__ void flush_partials(const float (&s)[Q][kBwdWarps][K][N],
-                                               float* part, long long row0,
-                                               int len, int nblk) {
-  for (int i = threadIdx.x; i < len * K * N; i += kBwdThreads) {
-    const int u = i / (K * N), kn = i % (K * N);
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < kBwdWarps; ++w) v += s[u][w][kn / N][kn % N];
-    part[((row0 + u) * nblk + blockIdx.x) * (K * N) + kn] = v;
-  }
-}
-
-// scan_bwd_kernel — the gradient of scan_kernel (the literal entry). No TPU
-//   kernel: the reference differentiates _chunked_scan (src/repro/models/
-//   ssm.py) with XLA. From gy (B,S,D) and the forward's inputs:
-//     g_t    = gy_t[d] C_t[n] + Abar_{t+1} g_{t+1}       (g_S = 0)
-//     dBx_t  = g_t,  dAbar_t = g_t h_{t-1},  dh0 = Abar_0 g_0
-//     dC_t[n] = sum_d gy_t[d] h_t[d,n]
-//   The forward pass writes h_t into dAbar's buffer; the backward pass reads
-//   h_{t-1} from there before it overwrites slot t with dAbar_t, so no other
-//   (B,S,D,N) buffer is needed. Shadow lanes (d >= D) read no h and write
-//   nothing.
-//
-//   Bound: bytes. Abar, Bx read and dAbar, dBx written once are 16 bytes an
-//   element: 1.07 GB -> 0.32 ms at B=2, S=2048, D=8192, N=16 (gy, C, dC and
-//   h0 are 1/N of that or less). This simple kernel moves about 28 bytes an
-//   element (Abar twice, h written and read back).
-template <int N>
-__global__ void __launch_bounds__(kBwdThreads)
-scan_bwd_kernel(const float* __restrict__ A, const float* __restrict__ Bx,
-                const float* __restrict__ C, const float* __restrict__ h0,
-                const float* __restrict__ gy, float* dA, float* __restrict__ dBx,
-                float* __restrict__ part, float* __restrict__ dh0, long long S,
-                long long D, int nblk) {
-  constexpr int G = BwdShape<N>::kG, Q = BwdShape<N>::kQ;
-  __shared__ float s_part[Q][kBwdWarps][1][N];
-  const int n = threadIdx.x % N, lane = threadIdx.x % 32,
-            warp = threadIdx.x / 32;
-  const long long b = blockIdx.y;
-  const long long d = static_cast<long long>(blockIdx.x) * G + threadIdx.x / N;
-  const bool active = d < D;
-  const long long dc = active ? d : D - 1;  // shadow the last channel
-  const long long step = D * N;
-  const long long base = (b * S * D + dc) * N + n;  // (b, 0, dc, n)
-  const float* cp = C + b * S * N + n;
-  const float* gp = gy + b * S * D + dc;
-  const float hinit =
-      h0 != nullptr && active ? h0[(b * D + dc) * N + n] : 0.f;
-
-  float h = hinit;
-  for (long long t = 0; t < S; ++t) {
-    h = fmaf(__ldg(A + base + t * step), h, __ldg(Bx + base + t * step));
-    if (active) dA[base + t * step] = h;
-  }
-  float ht = h, g = 0.f, anext = 0.f;  // h_t, g_{t+1}, Abar_{t+1}
-  for (long long t0 = (S - 1) / Q * Q; t0 >= 0; t0 -= Q) {
-    const int len = S - t0 < Q ? static_cast<int>(S - t0) : Q;
-    for (int u = len - 1; u >= 0; --u) {
-      const long long t = t0 + u, e = base + t * step;
-      const float gyt = __ldg(gp + t * D);
-      g = fmaf(anext, g, gyt * __ldg(cp + t * N));
-      const float hp = !active ? 0.f : t > 0 ? dA[e - step] : hinit;
-      const float pc = warp_channel_sum<N>(active ? gyt * ht : 0.f);
-      if (lane < N) s_part[u][warp][0][lane] = pc;
-      if (active) {
-        dBx[e] = g;
-        dA[e] = g * hp;
-      }
-      anext = __ldg(A + e);
-      ht = hp;
-    }
-    __syncthreads();
-    flush_partials<N, 1, Q>(s_part, part, b * S + t0, len, nblk);
-    __syncthreads();
-  }
-  if (dh0 != nullptr && active) dh0[(b * D + dc) * N + n] = anext * g;
-}
-
-template <int N>
-cudaError_t launch_bwd(const float* A, const float* Bx, const float* C,
-                       const float* h0, const float* gy, float* dA, float* dBx,
-                       float* dC, float* dh0, float* part, long long B,
-                       long long S, long long D, cudaStream_t st) {
-  constexpr long long G = BwdShape<N>::kG;
-  const long long nblk = (D + G - 1) / G;
-  if (nblk > INT_MAX || B > 65535) return cudaErrorInvalidValue;
-  scan_bwd_kernel<N><<<dim3(static_cast<unsigned>(nblk),
-                            static_cast<unsigned>(B)), kBwdThreads, 0, st>>>(
-      A, Bx, C, h0, gy, dA, dBx, part, dh0, S, D, static_cast<int>(nblk));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return ckio::ordered_sum(part, dC, B * S, nblk, N, st);
-}
-
 // The fused entry's gradient: the kernels below, launched in this order by
 // launch_fused_bwd.
 //   No TPU kernel: the reference differentiates _fused_chunk_scan
@@ -1433,31 +1310,6 @@ extern "C" int ckio_mamba_scan_fused(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bf16 ? launch_fused_n<__nv_bfloat16>(a, N, st)
                                : launch_fused_n<float>(a, N, st);
-  return static_cast<int>(err);
-}
-
-// The literal scan's gradient. gy: (B,S,D); A, Bx: (B,S,D,N); C: (B,S,N);
-// h0: (B,D,N) or null; all fp32, contiguous. Writes dA, dBx (B,S,D,N), dC
-// (B,S,N) and, when dh0 is not null, dh0 (B,D,N); part is scratch of
-// B*S*ceil(D/(256/N))*N floats.
-extern "C" int ckio_mamba_scan_backward(const float* A, const float* Bx,
-                                        const float* C, const float* h0,
-                                        const float* gy, float* dA, float* dBx,
-                                        float* dC, float* dh0, float* part,
-                                        long long B, long long S, long long D,
-                                        int N, void* stream) {
-  if (B < 1 || S < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (N) {
-#define CKIO_BWD(n)                                                          \
-  case n:                                                                    \
-    err = launch_bwd<n>(A, Bx, C, h0, gy, dA, dBx, dC, dh0, part, B, S, D, st); \
-    break;
-    CKIO_BWD(1) CKIO_BWD(2) CKIO_BWD(4) CKIO_BWD(8) CKIO_BWD(16) CKIO_BWD(32)
-#undef CKIO_BWD
-    default: err = cudaErrorInvalidValue;
-  }
   return static_cast<int>(err);
 }
 

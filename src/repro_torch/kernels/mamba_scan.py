@@ -1,7 +1,8 @@
 """Mamba-1 selective scan for Hopper, literal and fused: bind and launch.
 
-``csrc/mamba_scan.cu`` holds the kernel (what it replaces, what bounds it
-and its design are noted there). It is built at first launch by the
+``csrc/mamba_scan.cu`` holds the kernels, but the literal backward's,
+which is in ``csrc/mamba_scan_bwd.cu`` (what each replaces, what bounds it
+and its design are noted there). Each is built at first launch by the
 package's builder (``kernels/reassemble.py``: ``nvcc`` for ``sm_90a`` into
 the build directory, loaded with ``ctypes``), never at import.
 
@@ -25,7 +26,10 @@ version is ``ref.mamba_scan_fused_ref``.
 Each entry has a gradient: :class:`MambaScanFn` and
 :class:`MambaScanFusedFn` (``torch.autograd.Function``) save the inputs,
 not the states, and their backward recomputes the states. On the card it
-launches ``scan_bwd_kernel`` (``mamba_scan_backward_cuda``, counted under
+launches ``scan_bwd_cluster_kernel`` (``mamba_scan_backward_cuda``, from
+``csrc/mamba_scan_bwd.cu``: a thread-block cluster a batch row and group
+of states, the chunks' carries traded through distributed shared memory;
+counted under
 ``LAUNCHES["mamba_scan_backward"]``) or the chunked fused backward
 (``mamba_scan_fused_backward_cuda``, ``LAUNCHES["mamba_scan_fused_backward"]``:
 the softplus, skip and gate derivatives are folded into its loads and
@@ -44,8 +48,18 @@ from repro_torch.kernels import reassemble as _build
 from repro_torch.kernels import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
+BWD_SOURCE = SOURCE.with_name("mamba_scan_bwd.cu")   # the literal backward
 STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: a power of two, one warp at most
-BWD_THREADS = 256                      # scan_bwd_kernel's block: 256/N channels
+# The literal backward's plan (csrc/mamba_scan_bwd.cu scan_bwd_cluster_kernel,
+# scan_bwd_plan): clusters of SCAN_BWD_CLUSTER blocks; at most
+# SCAN_BWD_MAX_STATES states a block, SCAN_BWD_SPLIT threads a state; chunks
+# of at most SCAN_BWD_MAX_CHUNK steps (one TMA box of rows); SCAN_BWD_SMEM
+# bytes of shared memory a block, the most an H100 block may have.
+SCAN_BWD_CLUSTER = 16
+SCAN_BWD_MAX_STATES = 128
+SCAN_BWD_SPLIT = 4
+SCAN_BWD_MAX_CHUNK = 256
+SCAN_BWD_SMEM = 227 * 1024
 # The fused backward's chunking (csrc/mamba_scan.cu FusedBwdShape): a block
 # owns FUSED_BWD_CHUNK steps of fused_bwd_channels(N) channels and
 # recomputes FUSED_BWD_SUBSEG steps at a time.
@@ -72,16 +86,90 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ckio_mamba_scan.restype = ctypes.c_int
     lib.ckio_mamba_scan_fused.argtypes = [P] * 10 + [L, L, L, I, L, I, P, P]
     lib.ckio_mamba_scan_fused.restype = ctypes.c_int
-    lib.ckio_mamba_scan_backward.argtypes = [P] * 10 + [L, L, L, I, P]
-    lib.ckio_mamba_scan_backward.restype = ctypes.c_int
     lib.ckio_mamba_scan_fused_backward.argtypes = [P] * 21 + [L, L, L, I, L, I,
                                                                P, P]
     lib.ckio_mamba_scan_fused_backward.restype = ctypes.c_int
 
 
-def _blocks(D: int, N: int) -> int:
-    """``scan_bwd_kernel``'s blocks a batch row: 256/N channels each."""
-    return -(-D // (BWD_THREADS // N))
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.ckio_mamba_scan_backward.argtypes = [P] * 11 + [L] * 3 + [I] * 7 + [P]
+    lib.ckio_mamba_scan_backward.restype = ctypes.c_int
+    lib.ckio_mamba_scan_backward_clusters.argtypes = [I, I, I, I, P]
+    lib.ckio_mamba_scan_backward_clusters.restype = ctypes.c_int
+
+
+def _scan_bwd_smem(G: int, L: int, N: int) -> int:
+    """Shared-memory bytes of a backward block (``bwd_smem_floats``): two
+    buffers, each of Abar and Bx (L x G each), gy (L rows of ``cols``: the
+    G/N channels from an offset below 4, so that a row's TMA box starts
+    16-byte aligned; rounded up to 128 bytes) and C (L x N), rounded up to
+    128 bytes; the sub-chunks' (P, e, r) (SCAN_BWD_SPLIT x 3 x G), two of
+    the chunk's (3 x G) and its carries (2 x G); two 8-byte mbarriers."""
+    up = lambda v, q: -(-v // q) * q  # noqa: E731
+    gc = G // N
+    cols = up(gc + 4 - min(gc & -gc, 4), 4)
+    gy = up(L * cols, 32)
+    buf = up(2 * L * G + gy + L * N, 32)
+    return 4 * (2 * buf + (3 * SCAN_BWD_SPLIT + 8) * G + 4)
+
+
+def scan_bwd_plan(B: int, S: int, D: int, N: int,
+                  smem: Optional[int] = None) -> Dict[str, object]:
+    """The launch of ``scan_bwd_cluster_kernel`` for (B, S, D, N): clusters
+    of ``cluster`` blocks take items (b, group of ``states`` states, a
+    multiple of 32: ``states`` // N channels) in turn; block k walks chunk
+    k of ``chunk`` steps of each with ``threads`` threads (SCAN_BWD_SPLIT a
+    state), the chunk's inputs held in shared memory, two items' worth in
+    ``smem`` bytes (the next item's copies land while this one is walked).
+    The most states that fit at ``chunk`` = ceil(S / cluster) are taken;
+    where ``chunk`` would pass SCAN_BWD_MAX_CHUNK or not even 32 states
+    fit, the sequence is walked in ``windows`` windows of ``cluster``
+    chunks (24 bytes a state element instead of 16, ``elem_bytes``).
+    ``scratch`` gives the floats of ``part`` (the groups' dC partials, (B,
+    groups, S, N)) and ``carry`` (the windows' carry-in states, (B,
+    windows, D, N), 0 with one window); ``side_bytes`` the bytes of gy, C
+    (read by each group), part (written and read), dC, h0 and dh0, and
+    carry. ``smem`` is a block's budget, SCAN_BWD_SMEM by default (a
+    smaller one makes windows at small shapes)."""
+    smem = SCAN_BWD_SMEM if smem is None else smem
+    K = SCAN_BWD_CLUSTER
+    L = max(1, -(-S // K))
+    top = min(SCAN_BWD_MAX_STATES, 32 * -(-(D * N) // 32))
+    fits = [G for G in range(top, 0, -32) if _scan_bwd_smem(G, L, N) <= smem]
+    windows = 1
+    if fits and L <= SCAN_BWD_MAX_CHUNK:
+        G = fits[0]
+    else:
+        G = 32
+        L = max([n for n in range(1, SCAN_BWD_MAX_CHUNK + 1)
+                 if _scan_bwd_smem(G, n, N) <= smem], default=0)
+        if L < 1:
+            raise ValueError(f"mamba_scan_backward: {smem} bytes of shared "
+                             f"memory hold no step of {G} states")
+        windows = -(-S // (K * L))
+        L = -(-S // (K * windows))
+    groups = -(-(D * N) // G)
+    scratch = {"part": B * groups * S * N,
+               "carry": B * windows * D * N if windows > 1 else 0}
+    side = 4 * (B * S * D + B * S * N * groups + 2 * scratch["part"]
+                + B * S * N + 2 * B * D * N + 2 * scratch["carry"])
+    return {"cluster": K, "chunk": L, "states": G,
+            "threads": SCAN_BWD_SPLIT * G, "windows": windows,
+            "groups": groups, "smem": _scan_bwd_smem(G, L, N),
+            "scratch": scratch, "elem_bytes": 16 if windows == 1 else 24,
+            "side_bytes": side}
+
+
+def scan_bwd_clusters(plan: Dict[str, object], N: int) -> int:
+    """How many clusters of ``plan``'s shape the card runs at once (the
+    occupancy query the launch makes; 0 where it refuses the shape)."""
+    out = ctypes.c_int(0)
+    lib = _build.load_library(BWD_SOURCE, _bind_bwd)
+    rc = lib.ckio_mamba_scan_backward_clusters(
+        N, plan["cluster"], plan["states"], plan["smem"], ctypes.byref(out))
+    _build.check_rc(rc, "mamba_scan_backward")
+    return out.value
 
 
 def fused_bwd_channels(N: int) -> int:
@@ -265,10 +353,15 @@ def mamba_scan_backward_cuda(
     h0: Optional[torch.Tensor] = None,  # (B, D, N) fp32
 ):
     """The literal scan's gradient from ``dL/dy``: ``(dAbar, dBx, dC,
-    dh0)``, ``dh0`` None without ``h0``. The states are recomputed from the
-    inputs inside the kernel (they live in ``dAbar``'s buffer until it is
-    overwritten); ``dC``'s sum over D is block partials, then an ordered
-    sum. Counts under ``LAUNCHES["mamba_scan_backward"]``."""
+    dh0)``, ``dh0`` None without ``h0``. One launch of
+    ``scan_bwd_cluster_kernel`` on :func:`scan_bwd_plan`'s plan: each
+    cluster's blocks hold their chunks of Abar and Bx in shared memory,
+    trade the chunks' products, local end states and local adjoints through
+    distributed shared memory, fold them in rank order into each chunk's
+    state and adjoint carries, and write dAbar and dBx once; the states are
+    recomputed, never stored. ``dC``'s sum over D is the groups' partials,
+    then an ordered sum. Raises before any launch on a plan the card
+    refuses. Counts under ``LAUNCHES["mamba_scan_backward"]``."""
     ins = [gy, Abar, Bx, C] + ([] if h0 is None else [h0])
     dev = _on_one_device("mamba_scan_backward", ins)
     if Abar.dim() != 4:
@@ -298,13 +391,18 @@ def mamba_scan_backward_cuda(
         for t in (dA, dBx, dC) + (() if dh0 is None else (dh0,)):
             t.zero_()
         return dA, dBx, dC, dh0
-    part = torch.empty(B * S * _blocks(D, N) * N, dtype=torch.float32,
-                       device=dev)
-    rc = _build.load_library(SOURCE, _bind).ckio_mamba_scan_backward(
+    plan = scan_bwd_plan(B, S, D, N)
+    sizes = plan["scratch"]
+    scratch = torch.empty(sizes["part"] + sizes["carry"], dtype=torch.float32,
+                          device=dev)
+    carry = scratch.data_ptr() + 4 * sizes["part"] if sizes["carry"] else None
+    rc = _build.load_library(BWD_SOURCE, _bind_bwd).ckio_mamba_scan_backward(
         Abar.data_ptr(), Bx.data_ptr(), C.data_ptr(),
         None if h0 is None else h0.data_ptr(), gy.data_ptr(), dA.data_ptr(),
         dBx.data_ptr(), dC.data_ptr(), None if dh0 is None else dh0.data_ptr(),
-        part.data_ptr(), B, S, D, N, _build.stream_of(dA))
+        scratch.data_ptr(), carry, B, S, D, N, plan["cluster"], plan["chunk"],
+        plan["states"], plan["windows"], plan["groups"], plan["smem"],
+        _build.stream_of(dA))
     _build.check_rc(rc, "mamba_scan_backward")
     LAUNCHES["mamba_scan_backward"] += 1
     return dA, dBx, dC, dh0

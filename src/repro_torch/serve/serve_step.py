@@ -2,7 +2,7 @@
 loop.
 
 The reference jits its steps; the port runs eagerly (a CUDA graph over the
-decode call is later work, ROADMAP.md Queue D), so ``make_prefill_step``
+decode call is later work, ROADMAP.md A4), so ``make_prefill_step``
 and ``make_decode_step`` only fix the model and turn autograd off.
 """
 from __future__ import annotations

@@ -1040,8 +1040,20 @@ def test_cuda_kernel_error_passes_through_the_supervisor(cuda, tmp_path):
 # Each backward kernel against its plain backward (kernels/ref.py) on the
 # same inputs and dL/dy, at the forward's tolerances (the gradients of fp32
 # recurrences summed in another order), and twice for the same bits.
+# The literal backward's plan (MS.scan_bwd_plan): clusters of 16 chunks of
+# ceil(S/16) steps, four sub-chunks a chunk; past 16 * 256 steps (S = 4096
+# here) windows of 16 chunks. Its edges: a chunk less one, exact and one
+# more at the train length; a window less one, exact and one more; three
+# windows; every state size, by TMA copies (D a multiple of 4, N >= 4) and
+# a state a thread (odd D, N <= 2); D * N never a multiple of the block's
+# states but at N = 32.
 BWD_SCAN_CASES = [(1, 1, 64, 16), (2, 17, 48, 16), (1, 33, 40, 4),
-                  (2, 70, 32, 8), (1, 5, 16, 32)]
+                  (2, 70, 32, 8), (1, 5, 16, 32),
+                  (2, 2047, 40, 16), (2, 2048, 40, 16), (2, 2049, 40, 16),
+                  (1, 4095, 5, 16), (1, 4096, 5, 16), (1, 4097, 5, 16),
+                  (1, 12000, 5, 16), (2, 300, 37, 1), (2, 300, 37, 2),
+                  (2, 300, 44, 4), (2, 300, 44, 8), (2, 300, 44, 16),
+                  (2, 300, 44, 32), (2, 300, 45, 32)]
 
 
 def _grads_within(got, want, tol):
@@ -1064,6 +1076,21 @@ def test_cuda_mamba_scan_backward_matches_plain(cuda, B, S, D, N):
         torch.cuda.synchronize()
         _grads_within(got, ref.ssm_scan_bwd_ref(gy, A, Bx, C, h), 1e-4)
         assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_cuda_mamba_scan_backward_refuses_a_plan_the_card_cannot_run(
+        cuda, monkeypatch):
+    """A plan past a block's 227 KB of shared memory is refused before any
+    launch: a ``KernelError``, no launch counted, no other route."""
+    A, Bx, C, _ = _scan_inputs(1, 2048, 64, 16, cuda)
+    gy = torch.ones((1, 2048, 64), device=cuda)
+    monkeypatch.setattr(MS, "SCAN_BWD_SMEM", 300_000)
+    assert MS.scan_bwd_plan(1, 2048, 64, 16)["smem"] > 227 * 1024
+    before = MS.LAUNCHES["mamba_scan_backward"]
+    with pytest.raises(K.KernelError, match="mamba_scan_backward"):
+        MS.mamba_scan_backward_cuda(gy, A, Bx, C)
+    assert MS.LAUNCHES["mamba_scan_backward"] == before
 
 
 # The chunked backwards' edges: the fused Mamba's chunks of
