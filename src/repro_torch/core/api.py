@@ -48,8 +48,6 @@ Tuning knobs (``FileOptions``)
 * ``splinter_bytes`` — unit of physical I/O / early fulfilment (§VI-C);
 * ``work_stealing`` — straggler mitigation between reader threads;
 * ``placement`` — reader→PE mapping policy (``core/placement.py``);
-* ``piece_timing_every`` — sample rate for per-piece delivery timing
-  (0 = off, keeping instrumentation off the hot path);
 * ``network`` — optional cross-node transfer model for locality studies.
 """
 from __future__ import annotations

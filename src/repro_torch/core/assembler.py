@@ -26,8 +26,6 @@ Hot-path structure (this is the per-piece cost every delivered byte pays):
   ``memoryview`` into the session arena instead of a filled buffer. The view
   is a *session-lifetime borrow* — it is invalidated (released) by
   ``close_read_session``; copy out anything needed beyond that.
-* per-piece wall timing runs only when ``metrics.should_time_piece()`` says
-  so (sampled/off by default), keeping instrumentation off the hot path.
 """
 from __future__ import annotations
 
@@ -175,7 +173,7 @@ class ReadAssembler:
 
         def finish() -> None:
             lat = time.perf_counter() - state.t0
-            metrics.record_request(lat)
+            metrics.record_request()
             if zero_copy:
                 data = (readers.borrow_view(abs_off, nbytes)
                         if materialize_view else None)
@@ -197,20 +195,13 @@ class ReadAssembler:
                             and readers.reader_domain(reader) != my_domain)
 
             def deliver_on_pe() -> None:
-                timed = metrics.should_time_piece()
-                t0 = time.perf_counter() if timed else 0.0
                 copied = 0
                 if not zero_copy:
                     src = readers.view(p_off, p_len)
                     dest_view[dst_lo : dst_lo + p_len] = src
                     copied = p_len
                 metrics.record_piece(
-                    p_len,
-                    cross,
-                    (time.perf_counter() - t0) if timed else None,
-                    copied=copied,
-                    borrowed=zero_copy,
-                )
+                    p_len, cross, copied=copied, borrowed=zero_copy)
                 if my_domain is not None:
                     readers.locality.record_delivery(p_len, not cross_domain)
                 if state.piece_done():

@@ -115,8 +115,6 @@ class ReaderOptions:
     delay_model: Optional[Callable[[int, Splinter], float]] = None
     # optional cross-node transfer model (None = immediate hand-off)
     network: Optional["NetworkModel"] = None
-    # per-piece delivery timing sample rate (0 = off; N = every Nth piece)
-    piece_timing_every: int = 0
     # PE -> NUMA-domain model (core/placement.py). Enables domain-coalesced
     # pieces, cross-domain delivery accounting, and — with prefault_arena —
     # per-stripe first-touch on the owning reader's thread.
@@ -251,8 +249,6 @@ class BufferReaderSet:
         self.reader_pes = reader_pes[: plan.num_readers]
         self.opts = opts
         self.metrics = metrics or SessionMetrics()
-        if opts.piece_timing_every:
-            self.metrics.piece_timing_every = opts.piece_timing_every
 
         self.locality = LocalityMetrics()
         # FileSet sessions: the handle resolves offsets to shard ids

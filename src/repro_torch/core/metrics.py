@@ -7,10 +7,11 @@ keeps the session, recovery, locality, ingest, stream and per-shard
 counters the training path fills on either reader backend, the reader
 service's ``ServiceMetrics`` and the serving subsystem's ``ServeMetrics``.
 
-Per-piece *timing* (two ``perf_counter`` calls per delivered piece) is the
-one non-negligible probe, so it sits behind ``piece_timing_every``: 0 (the
-default) disables it entirely, N samples every Nth piece — delivery
-instrumentation stays off the hot path unless a benchmark opts in.
+A session read by ``data/pipeline.py`` also carries its phases there:
+when its window was requested, when the window's last consumer callback
+ran, and the one fetch that consumed it, split into the scheduler pump
+(the part parked waiting for readers, the tasks it ran) and the staging
+after it (``SessionMetrics.record_fetch``).
 ``bytes_copied`` counts bytes physically memcpy'd into a client destination
 buffer; the borrowed-view path leaves it untouched, which is how benchmarks
 and tests *prove* zero-copy delivery rather than assume it.
@@ -230,11 +231,7 @@ class SessionMetrics:
     # phantom transfer does not).
     cross_node_bytes: int = 0
     cross_node_view_bytes: int = 0
-    permute_time_s: float = 0.0
-    timed_pieces: int = 0             # pieces that contributed to permute_time_s
-    piece_timing_every: int = 0       # 0 = timing off; N = time every Nth piece
     requests: int = 0
-    request_latencies_s: List[float] = field(default_factory=list)
     # I/O retry observables; travels the same Director observer path as the
     # rest of the session counters. Has its own lock.
     recovery: RecoveryMetrics = field(default_factory=RecoveryMetrics)
@@ -272,7 +269,20 @@ class SessionMetrics:
     service_epoch: int = 0
     service_checkout_s: float = 0.0
     arena_recycled: bool = False
-    _piece_seq: int = 0               # sampling counter (racy by design)
+    # The training pipeline's phases of this session (``perf_counter``, the
+    # clock of t_start; 0 where no pipeline stamped them): its window
+    # requested (``start_step``), the window's last consumer callback run,
+    # and the one fetch (``get_batch*``) that consumed it — entry, length,
+    # the scheduler pump inside it, the part of the pump parked on the
+    # scheduler's condition variable (waiting for readers), and the tasks
+    # the pump ran. The fetch's stage time is fetch_s - fetch_pump_s.
+    t_requested: float = 0.0
+    t_ready: float = 0.0
+    fetch_t0: float = 0.0
+    fetch_s: float = 0.0
+    fetch_pump_s: float = 0.0
+    fetch_parked_s: float = 0.0
+    fetch_tasks: int = 0
 
     def session_started(self, nbytes: int, num_readers: int) -> None:
         with self.lock:
@@ -351,19 +361,10 @@ class SessionMetrics:
                 self.steals_from_reader.get(victim, 0) + 1
             )
 
-    def should_time_piece(self) -> bool:
-        """Cheap sampling decision — no lock; an off-by-one under contention
-        only shifts which piece gets sampled."""
-        if self.piece_timing_every <= 0:
-            return False
-        self._piece_seq += 1
-        return self._piece_seq % self.piece_timing_every == 0
-
     def record_piece(
         self,
         nbytes: int,
         cross_node: bool,
-        dt: Optional[float] = None,
         copied: int = 0,
         borrowed: bool = False,
     ) -> None:
@@ -379,14 +380,33 @@ class SessionMetrics:
                     self.cross_node_view_bytes += nbytes
                 else:
                     self.cross_node_bytes += nbytes
-            if dt is not None:
-                self.permute_time_s += dt
-                self.timed_pieces += 1
 
-    def record_request(self, latency_s: float) -> None:
+    def record_request(self) -> None:
         with self.lock:
             self.requests += 1
-            self.request_latencies_s.append(latency_s)
+
+    def record_requested(self, t: float) -> None:
+        """When the pipeline asked for this session's window."""
+        with self.lock:
+            self.t_requested = t
+
+    def record_ready(self) -> None:
+        """The window's last consumer callback ran (now)."""
+        t = time.perf_counter()
+        with self.lock:
+            self.t_ready = t
+
+    def record_fetch(self, t0: float, fetch_s: float, pump_s: float,
+                     parked_s: float, tasks: int) -> None:
+        """The fetch that consumed this session: entered at ``t0``, took
+        ``fetch_s``, ``pump_s`` of it pumping the scheduler (``parked_s``
+        of that parked), which ran ``tasks`` tasks."""
+        with self.lock:
+            self.fetch_t0 = t0
+            self.fetch_s = fetch_s
+            self.fetch_pump_s = pump_s
+            self.fetch_parked_s = parked_s
+            self.fetch_tasks = tasks
 
     # -- derived -------------------------------------------------------------
     def ingest_seconds(self) -> float:
@@ -421,8 +441,6 @@ class SessionMetrics:
             "bytes_copied": float(self.bytes_copied),
             "cross_node_bytes": float(self.cross_node_bytes),
             "cross_node_view_bytes": float(self.cross_node_view_bytes),
-            "permute_time_s": self.permute_time_s,
-            "timed_pieces": float(self.timed_pieces),
             "requests": float(self.requests),
             "imbalance": self.imbalance(),
             "shards_read": float(len(self.shard_bytes)),

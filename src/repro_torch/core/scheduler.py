@@ -57,6 +57,9 @@ class TaskScheduler:
         self._cv = threading.Condition()
         self._pending = 0           # tasks enqueued but not yet executed
         self._executed = 0
+        # Seconds pumping threads spent parked on ``_cv`` in ``run_until``
+        # and ``pump_until_deadline`` (waiting for I/O threads), cumulative.
+        self.parked_s = 0.0
         # O(1) dispatch: deque of PEs with non-empty queues (round-robin by
         # rotation) + membership flags, instead of scanning all num_pes
         # queues per pop — per-task dispatch cost no longer grows with the
@@ -148,6 +151,12 @@ class TaskScheduler:
             if staged:
                 self._flush(staged)
 
+    def _park(self, seconds: float) -> None:
+        """Wait on ``_cv`` (caller holds it) and count the time parked."""
+        t = time.perf_counter()
+        self._cv.wait(seconds)
+        self.parked_s += time.perf_counter() - t
+
     # -- pump ----------------------------------------------------------------
     def _pop_next(self) -> Optional[_Task]:
         with self._cv:
@@ -204,7 +213,7 @@ class TaskScheduler:
                             f"predicate still false after {timeout}s "
                             f"(executed={self._executed})"
                         )
-                    self._cv.wait(min(remaining, 0.1))
+                    self._park(min(remaining, 0.1))
             if time.monotonic() > deadline:
                 raise QuiescenceTimeout(
                     f"predicate still false after {timeout}s "
@@ -225,7 +234,7 @@ class TaskScheduler:
                 continue
             with self._cv:
                 if self._pending == 0:
-                    self._cv.wait(min(deadline - now, 0.005))
+                    self._park(min(deadline - now, 0.005))
 
     def run_to_quiescence(self, *, timeout: float = 60.0,
                           settle: float = 0.0) -> int:

@@ -51,7 +51,6 @@ class FileOptions:
     placement: str = "node_spread"          # see core/placement.py
     network: Optional[NetworkModel] = None
     delay_model: object = None              # test hook, forwarded to readers
-    piece_timing_every: int = 0             # 0 = delivery timing off (hot path)
     # PE -> NUMA-domain model (core/placement.py Topology): turns on
     # domain-coalesced pieces, cross-domain delivery accounting, topology-
     # aware placement policies, and the first-touch arena prefault.
@@ -168,7 +167,6 @@ class FileOptions:
             ring_fault=ring_fault,
             delay_model=delay_model,  # type: ignore[arg-type]
             network=self.network,
-            piece_timing_every=self.piece_timing_every,
             topology=self.topology,
             numa_pin=self.numa_pin,
             prefault_arena=self.prefault_arena,

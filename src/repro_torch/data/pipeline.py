@@ -170,6 +170,28 @@ construction instead. ``ShardMetrics`` (``pipe.ck.director.shards``)
 carries both sides of the ledger: the read side (bytes a FileSet shard) and
 the stage side (``record_stage`` / ``record_window`` /
 ``record_cross_host``, written here).
+
+The input path's own trace
+--------------------------
+Each step session carries its phases on its ``SessionMetrics``, through
+the Director's observer path like every other session counter:
+``t_requested`` (``start_step``), ``t_start`` and ``t_last_read`` (the
+readers), ``t_ready`` (the window's last consumer callback, or the
+streamed window's residency callback), and the one ``get_batch*`` call
+that consumed it (``record_fetch``): its entry, its length, the time in
+the scheduler pump waiting for the window, the part of that parked on the
+scheduler's condition variable (``TaskScheduler.parked_s``: waiting for
+reader threads) and the tasks the pump ran (CkIO's task code on the
+caller's thread). The rest of the call is the stage: retiring the previous
+step, the borrow, the host→device copy, the reassembly launch and the
+lookahead request. The scheduler is cooperative: a session that
+``start_step`` requests starts only when some thread pumps, which in a
+loop of ``get_batch*`` and compute is the next fetch. While a
+``torch.profiler`` records, each call also opens the host ranges
+``ckio.fetch``, ``ckio.fetch.pump`` and ``ckio.fetch.stage``
+(``repro_torch/profiling.py``) on the trace's clock; ``ckio.fetch`` starts
+at the session's ``fetch_t0`` less a constant offset, which maps every
+stamp above onto the trace.
 """
 from __future__ import annotations
 
@@ -190,6 +212,7 @@ from repro_torch.core.metrics import IngestMetrics, StreamMetrics
 from repro_torch.data.packing import batch_from_tokens, window_rows
 from repro_torch.data.tokenfile import read_meta
 from repro_torch.device import resolve_device
+from repro_torch.profiling import close_range, open_range, recording
 
 
 def device_token_spans(indices_map, global_batch: int, width: int) -> Dict:
@@ -289,6 +312,59 @@ class _StepBuffer:
     outstanding: int = 0
     stream: Optional[_StreamState] = None
     ready: CkFuture = field(default_factory=CkFuture)
+    t_requested: float = 0.0           # start_step's perf_counter stamp
+
+
+class _Fetch:
+    """One ``get_batch*`` call, stamped with ``perf_counter``: entry
+    (``t0``), the scheduler pump inside it (its length, the part parked,
+    the tasks run) and the length of the whole call; then written onto the
+    session it consumed (``SessionMetrics.record_fetch``). While a profiler
+    records, the call also opens ``ckio.fetch`` around itself,
+    ``ckio.fetch.pump`` around the pump and ``ckio.fetch.stage`` around the
+    rest; ``ckio.fetch`` opens just before ``t0`` is taken, so the two
+    differ by the constant offset between the trace's clock and
+    ``perf_counter``."""
+
+    __slots__ = ("ranges", "t0", "fetch_s", "pump_s", "parked_s", "tasks",
+                 "buf")
+
+    def __init__(self):
+        self.ranges = [open_range("ckio.fetch")] if recording() else None
+        self.t0 = time.perf_counter()
+        self.fetch_s = self.pump_s = self.parked_s = 0.0
+        self.tasks = 0
+        self.buf: Optional[_StepBuffer] = None
+
+    def pump(self, buf: _StepBuffer, sched, timeout: float) -> None:
+        """Wait for ``buf``'s window, pumping ``sched``; the stage range
+        opens as the wait ends."""
+        rs = self.ranges
+        if rs is not None:
+            rs.append(open_range("ckio.fetch.pump"))
+        tasks, parked = sched.stats["executed"], sched.parked_s
+        t = time.perf_counter()
+        try:
+            buf.ready.wait(sched, timeout=timeout)
+        finally:
+            self.pump_s = time.perf_counter() - t
+            self.parked_s = sched.parked_s - parked
+            self.tasks = sched.stats["executed"] - tasks
+            if rs is not None:
+                close_range(rs.pop())
+                rs.append(open_range("ckio.fetch.stage"))
+        self.buf = buf
+
+    def close(self) -> None:
+        self.fetch_s = time.perf_counter() - self.t0
+        while self.ranges:
+            close_range(self.ranges.pop())
+
+    def record(self) -> None:
+        """Write the stamps onto the consumed session (one fetch a
+        session; the session closes at a later fetch's pump)."""
+        self.buf.session.metrics.record_fetch(
+            self.t0, self.fetch_s, self.pump_s, self.parked_s, self.tasks)
 
 
 @dataclass
@@ -450,7 +526,7 @@ class CkIOPipeline:
         with self._lock:
             if step in self._bufs or step >= self.num_steps:
                 return
-            buf = _StepBuffer(step=step)
+            buf = _StepBuffer(step=step, t_requested=time.perf_counter())
             self._bufs[step] = buf
 
         start_row, num_rows = window_rows(step, self.global_batch, self.seq_len)
@@ -465,6 +541,7 @@ class CkIOPipeline:
 
         def on_session(session: Session) -> None:
             buf.session = session
+            session.metrics.record_requested(buf.t_requested)
             if self.streaming:
                 # The splinter stream drives staging; completeness is one
                 # whole-window residency waiter.
@@ -472,6 +549,7 @@ class CkIOPipeline:
                 buf.outstanding = 1
 
                 def window_resident(_msg) -> None:
+                    session.metrics.record_ready()
                     with self._lock:
                         buf.outstanding = 0
                     buf.ready.set(buf)
@@ -503,6 +581,7 @@ class CkIOPipeline:
                     with self._lock:
                         buf.outstanding -= 1
                         if buf.outstanding == 0:
+                            session.metrics.record_ready()
                             buf.ready.set(buf)
 
                 return done
@@ -789,12 +868,25 @@ class CkIOPipeline:
             sess.readers.invalidate_borrows()
             self.ck.close_read_session(sess)
 
-    def _wait_step(self, step: int, timeout: float) -> _StepBuffer:
+    def _fetch(self, body, *args):
+        """One ``get_batch*`` call: ``body(fetch, *args)`` under a
+        ``_Fetch``, whose stamps go onto the consumed session once the body
+        has returned."""
+        fetch = _Fetch()
+        try:
+            out = body(fetch, *args)
+        finally:
+            fetch.close()
+        fetch.record()
+        return out
+
+    def _wait_step(self, step: int, timeout: float,
+                   fetch: _Fetch) -> _StepBuffer:
         if step >= self.num_steps:
             raise IndexError(f"step {step} >= {self.num_steps}")
         self.start_step(step)  # no-op if already started
         buf = self._bufs[step]
-        buf.ready.wait(self.ck.sched, timeout=timeout)
+        fetch.pump(buf, self.ck.sched, timeout)
         # Launch the lookahead before handing the batch to the trainer.
         self.start_step(step + self.prefetch_depth)
         with self._lock:
@@ -832,7 +924,10 @@ class CkIOPipeline:
 
         In zero-copy mode the returned arrays alias the step's session arena
         and remain valid until the next ``get_batch*``/``close`` call."""
-        buf = self._wait_step(step, timeout)
+        return self._fetch(self._host_batch, step, timeout)
+
+    def _host_batch(self, fetch: _Fetch, step: int, timeout: float):
+        buf = self._wait_step(step, timeout, fetch)
         tokens, _ = self._window_tokens(buf)
         inputs, labels = batch_from_tokens(
             tokens, self.global_batch, self.seq_len,
@@ -854,6 +949,10 @@ class CkIOPipeline:
         With a constructor sharding (or a per-call one) the two are global
         DTensors of shape ``(B, S)`` whose local blocks hold this rank's
         rows; see "Sharded staging" in the module docstring."""
+        return self._fetch(self._device_batch, step, sharding, timeout)
+
+    def _device_batch(self, fetch: _Fetch, step: int, sharding,
+                      timeout: float):
         from repro_torch.kernels import ops
 
         if self.sharding is not None:
@@ -864,7 +963,7 @@ class CkIOPipeline:
                     "get_batch_device(sharding=...) differs from the "
                     "pipeline's constructor sharding; streamed pieces are "
                     "already placed against the constructor's spans")
-            buf = self._wait_step(step, timeout)
+            buf = self._wait_step(step, timeout, fetch)
             if buf.stream is not None:
                 return self._get_batch_device_streamed_sharded(buf)
             return self._get_batch_device_window_sharded(
@@ -872,7 +971,7 @@ class CkIOPipeline:
         if sharding is not None:
             spans, key = _resolve_sharding(sharding, self.global_batch,
                                            self.seq_len)
-            buf = self._wait_step(step, timeout)
+            buf = self._wait_step(step, timeout, fetch)
             if buf.stream is not None and not self._warned_stream_sharding:
                 # Explicit, not silent: streamed chunks were placed before
                 # this call-site sharding existed, so the step falls back to
@@ -884,10 +983,10 @@ class CkIOPipeline:
                     "is known; falling back to the whole-window staging "
                     "path (overlap lost) for every sharded call. Pass the "
                     "sharding to the constructor instead.",
-                    RuntimeWarning, stacklevel=2)
+                    RuntimeWarning, stacklevel=4)
             return self._get_batch_device_window_sharded(buf, sharding, spans,
                                                          key)
-        buf = self._wait_step(step, timeout)
+        buf = self._wait_step(step, timeout, fetch)
         if buf.stream is not None:
             return self._get_batch_device_streamed(buf)
         tokens, view = self._window_tokens(buf)

@@ -17,7 +17,9 @@ written if missing), and ``--direct-io``, ``--queue-depth N``,
 ``--readahead-mb M``, ``--submit-mode``, ``--adaptive-queue`` and
 ``--adaptive-splinters`` set the cold-path read engine (``io/submit.py``,
 ``core/autotune.py``); the summary's ``read`` and ``shards`` blocks report
-what the sessions ran with and read.
+what the sessions ran with and read, and its ``fetch`` block how long a
+requested window waited to start and where each batch fetch spent its time
+(``fetch_summary``).
 
 ``--backend process --max-workers N`` reads every step window through
 reader worker processes that fill a shared-memory arena (``ipc/``), and
@@ -252,6 +254,33 @@ def read_summary(sessions: List[SessionMetrics]) -> Dict:
     }
 
 
+def fetch_summary(sessions: List[SessionMetrics]) -> Dict:
+    """The input path's phases over the step sessions a fetch consumed
+    (``data/pipeline.py``, "The input path's own trace"), in ms, mean and
+    max: how long a requested window waited for its session to start, and
+    each fetch split into waiting for reader threads, CkIO's task code run
+    on the training thread, and the stage after the wait; and the
+    scheduler tasks a fetch ran, mean."""
+    fetched = [m for m in sessions if m.fetch_s]
+
+    def ms(vals):
+        if not vals:
+            return None
+        return {"mean": sum(vals) / len(vals) * 1e3, "max": max(vals) * 1e3}
+
+    return {
+        "sessions": len(fetched),
+        "session_queue_ms": ms([m.t_start - m.t_requested for m in fetched
+                                if m.t_requested and m.t_start]),
+        "fetch_io_wait_ms": ms([m.fetch_parked_s for m in fetched]),
+        "fetch_tasks_ms": ms([m.fetch_pump_s - m.fetch_parked_s
+                              for m in fetched]),
+        "fetch_stage_ms": ms([m.fetch_s - m.fetch_pump_s for m in fetched]),
+        "fetch_tasks": (sum(m.fetch_tasks for m in fetched) / len(fetched)
+                        if fetched else None),
+    }
+
+
 def make_supervisor(step_fn, cfg: ModelConfig, ckpt_dir: str, *,
                     ckpt_every: int, keep: int = 3) -> StepSupervisor:
     """``step_fn`` (``(state, batch) -> (state, metrics)`` on a
@@ -426,6 +455,7 @@ def _train(args, cfg: ModelConfig, model, dev, data_source, ckio: CkIO,
         "ingest": pipe.ingest.summary(),
         "stream": pipe.stream.summary() if args.streaming else None,
         "read": read_summary(sessions),
+        "fetch": fetch_summary(sessions),
         "locality": (ckio.director.locality.summary()
                      if topology is not None else None),
         "shards": (ckio.director.shards.summary()

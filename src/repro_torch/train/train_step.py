@@ -4,7 +4,9 @@ The global batch is split into ``num_microbatches`` slices run one after
 the other, accumulating grads in ``accum_dtype`` (fp32 default). Remat
 lives inside the model's block loop. Gradient compression (bf16, or int8
 with error feedback) optionally wraps the accumulated grads before the
-optimizer.
+optimizer. While a ``torch.profiler`` records, each microbatch's loss and
+gradients run inside a ``train.microbatch`` host range and the AdamW update
+inside ``train.update`` (``repro_torch/profiling.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.models.convert import reference_leaf_groups
 from repro_torch.models.model_zoo import Model
+from repro_torch.profiling import host_range
 from repro_torch.train import grad_compress
 from repro_torch.train.optimizer import (
     OptConfig, adamw_update, leaves, like_layout)
@@ -48,8 +51,9 @@ def make_loss_and_grads(
             acc = None
             metrics = {}
             for mb in split(batch, nmb):
-                loss, metrics = model.loss(params, mb)
-                grads = torch.autograd.grad(loss, ps)
+                with host_range("train.microbatch"):
+                    loss, metrics = model.loss(params, mb)
+                    grads = torch.autograd.grad(loss, ps)
                 if acc is None:
                     acc = [g.to(accum_dtype) for g in grads]
                 else:
@@ -103,8 +107,9 @@ def make_train_step(
                 groups.extend(reference_leaf_groups(params, model.cfg))
             _, grads, ef_state = grad_compress.ef_compress(
                 grads, ef_state, groups)
-        params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, opt_cfg)
+        with host_range("train.update"):
+            params, opt_state, opt_metrics = adamw_update(
+                grads, opt_state, params, opt_cfg)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         if compression == "int8_ef":
             return params, opt_state, metrics, ef_state

@@ -278,6 +278,14 @@ def test_driver_ingest_block_matches_reference(tmp_path, mode):
     if port["stream"] is not None:
         for key in ("splinters_staged", "bytes_staged", "stage_chunks"):
             assert port["stream"][key] == ref["stream"][key]
+    fetch = port["fetch"]                       # the port's alone
+    assert set(fetch) == {"sessions", "session_queue_ms", "fetch_io_wait_ms",
+                          "fetch_tasks_ms", "fetch_stage_ms", "fetch_tasks"}
+    assert fetch["sessions"] == 3 and fetch["fetch_tasks"] >= 0
+    for key in ("session_queue_ms", "fetch_io_wait_ms", "fetch_tasks_ms",
+                "fetch_stage_ms"):
+        assert set(fetch[key]) == {"mean", "max"}
+        assert 0 <= fetch[key]["mean"] <= fetch[key]["max"]
 
 
 def test_driver_resume_from_step_4_equals_an_unbroken_run(tmp_path):
