@@ -308,7 +308,9 @@ Phases (each failure is reported; any failure exits 1 and prints no result):
              count must equal the card's aten count plus the registered
              formula (``kernels/meta.py``) of every kernel the card
              launched through ctypes, which aten does not see (the decode
-             call's 32 flash-attention launches); the predicted per-device
+             call's 32 flash-attention launches; the train step's
+             attention entries at the dense products of the ``_sdpa`` that
+             the meta pass runs in their place); the predicted per-device
              argument + temp bytes must be within 25 % of the step's
              ``torch.cuda.max_memory_allocated``. The measured step and
              call times are printed against the roofline's ``step_s``
@@ -405,6 +407,9 @@ SOURCES = {
     "mamba_scan_backward": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
     "mamba_scan_fused_backward": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "rglru_scan_gated_backward": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "flash_attention_train": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_backward":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "reassemble_window": "src/repro/kernels/reassemble.py:81",
@@ -426,9 +431,17 @@ REPLACES = {
     "rglru_scan_gated_backward": "none: XLA's autodiff of "
                                  "src/repro/models/rglru.py:52 (_gates) and "
                                  "the associative scan of rglru.py:88",
+    "flash_attention_train": "none: the forward of XLA's autodiff of "
+                             "src/repro/models/attention.py (_sdpa), with "
+                             "the log-sum-exp its backward reads",
+    "flash_attention_backward": "none: XLA's autodiff of "
+                                "src/repro/models/attention.py (_sdpa)",
 }
 BWD_KERNELS = ("mamba_scan_backward", "mamba_scan_fused_backward",
                "rglru_scan_gated_backward")
+# The training attention's two entries (the forward with its log-sum-exp,
+# the backward), timed at phi4-mini's microbatch.
+ATTN_TRAIN = ("flash_attention_train", "flash_attention_backward")
 # The device kernels the three backward entries launch (profiler names).
 BWD_DEVICE_KERNELS = ("scan_bwd_cluster_kernel", "fused_bwd_sum_kernel",
                       "fused_bwd_carry_kernel", "fused_bwd_kernel",
@@ -761,7 +774,8 @@ class Smoke:
                     "reassemble_tokens": 0, "flash_attention": 0, "sdpa": 0,
                     "mamba_scan": 0, "rglru_scan": 0,
                     "mamba_scan_fused": 0, "rglru_scan_gated": 0,
-                    **{k: 0 for k in BWD_KERNELS}}
+                    "flash_attention_train_rows": 0,
+                    **{k: 0 for k in BWD_KERNELS + ATTN_TRAIN}}
         self.launches = {}
         self.main_inputs = {}      # kernel -> args captured from the main path
         self.timing = {}
@@ -992,6 +1006,7 @@ class Smoke:
         import numpy as np
         import torch
 
+        from repro_torch.kernels import flash_attention as FA
         from repro_torch.kernels import reassemble as K
         from repro_torch.models import build_model
 
@@ -1024,6 +1039,7 @@ class Smoke:
         pipe._to_device = timed_to_device
         losses, batches, t_steps, t_ingest = [], [], [], []
         K.reset_launch_counts()
+        FA.reset_launch_counts()
         K.reassemble_window_cuda = capture
         try:
             for step in range(STEPS):
@@ -1038,7 +1054,7 @@ class Smoke:
         finally:
             K.reassemble_window_cuda = orig
             pipe.close()
-        counts = dict(K.LAUNCHES)
+        counts = {**K.LAUNCHES, **{k: FA.LAUNCHES[k] for k in ATTN_TRAIN}}
         uploads = K.TABLE_UPLOADS
         self.launches[mode] = counts
         peak = torch.cuda.max_memory_allocated()
@@ -1075,6 +1091,13 @@ class Smoke:
         if counts["reassemble_window"] < STEPS:
             raise AssertionError(f"{mode}: reassemble_window launched "
                                  f"{counts['reassemble_window']} < {STEPS}")
+        # Attention trains through the kernels: a forward and a recompute a
+        # layer a microbatch, and one backward.
+        calls = cfg.num_layers * MICROBATCHES * STEPS
+        if (counts["flash_attention_train"], counts["flash_attention_backward"]
+                ) != (2 * calls, calls):
+            raise AssertionError(f"{mode}: attention launches {counts}, "
+                                 f"{2 * calls} and {calls} expected")
         if uploads != 0:
             raise AssertionError(f"{mode}: the window wrapper uploaded "
                                  f"{uploads} chunk tables (0 expected: the "
@@ -1874,6 +1897,135 @@ class Smoke:
             log(f"time flash_attention/{key}: {json.dumps(r)}")
         log(f"attention: scaled_dot_product_attention within 2e-2 of the "
             f"plain version; max abs err {self.err['sdpa']}")
+        self._attention_train()
+
+    def _attention_train(self):
+        """The training attention (``ops.flash_attention_train``'s two CUDA
+        entries) at phi4-mini's microbatch (B=2, S=2048, 24 / 8 heads of
+        128, causal) and at recurrentgemma's hd-256 MQA heads under windows
+        of 2,048 and 1,024: the forward's output within 2^-5 of each row's
+        largest magnitude (four bf16 steps; ``ref.row_relative_error``) and
+        its lse within 1e-4 of the plain versions, each gradient within 2e-2
+        of its largest magnitude, and the backward's bits equal on a second
+        run; then both timed at phi4-mini's microbatch beside their plain
+        versions and, as a yardstick only, the library's fused attention
+        (``scaled_dot_product_attention``, forward; its backward alone); and
+        the backward at recurrentgemma's B=1 shape (window 2,048), whose
+        dK/dV key tiles are split over blocks (``FA.dkv_splits``), beside
+        the same kernels with the split off and the plain version."""
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.kernels import ref
+
+        def inputs(b, h, kv, hd, seed):
+            g = torch.Generator(device=self.dev).manual_seed(seed)
+            mk = lambda n: torch.randn(  # noqa: E731
+                b, S, n, hd, generator=g, device=self.dev).to(
+                torch.bfloat16).transpose(1, 2)
+            return mk(h), mk(kv), mk(kv), mk(h)
+
+        mb = B // MICROBATCHES
+        for b, h, kv, hd, window in ((mb, H, KV, HD, 0),
+                                     (1, RG_H, RG_KV, RG_HD, RG_WINDOW),
+                                     (1, RG_H, RG_KV, RG_HD, G3_WINDOW)):
+            q, k, v, do = inputs(b, h, kv, hd, hd + window)
+            out, lse = FA.flash_attention_train_cuda(q, k, v, window=window)
+            want, want_lse = ref.attention_train_ref(q, k, v, window=window)
+            row_err = ref.row_relative_error(out, want)
+            self.err["flash_attention_train_rows"] = max(
+                self.err["flash_attention_train_rows"], row_err)
+            if row_err > 2.0 ** -5:
+                raise AssertionError(f"flash_attention_train: a row's error "
+                                     f"is {row_err} of its largest magnitude")
+            self._close("flash_attention_train", lse, want_lse, 1e-4)
+            got = FA.flash_attention_backward_cuda(do, q, k, v, out, lse,
+                                                   window=window)
+            again = FA.flash_attention_backward_cuda(do, q, k, v, out, lse,
+                                                     window=window)
+            wants = ref.attention_train_bwd_ref(do, q, k, v, out, lse,
+                                                window=window)
+            for name, g_, a_, w_ in zip(("dq", "dk", "dv"), got, again, wants):
+                if not torch.equal(g_, a_):
+                    raise AssertionError(f"flash_attention_backward: {name} "
+                                         f"differs between two runs")
+                err = (g_.float() - w_.float()).abs().max().item()
+                top = w_.float().abs().max().item()
+                self.err["flash_attention_backward"] = max(
+                    self.err["flash_attention_backward"], err)
+                if err > 2e-2 * top:
+                    raise AssertionError(f"flash_attention_backward: {name} "
+                                         f"max abs err {err}, largest {top}")
+            del got, again, wants
+        torch.cuda.synchronize()
+        log(f"attention: the training forward and backward within "
+            f"tolerance of the plain versions at phi4-mini's microbatch and "
+            f"hd 256 windows 2,048 / 1,024, the backward's bits the same "
+            f"twice; output rows within "
+            f"{self.err['flash_attention_train_rows']} of their largest, lse "
+            f"max abs err {self.err['flash_attention_train']}, gradients "
+            f"{self.err['flash_attention_backward']}")
+
+        q, k, v, do = inputs(mb, H, KV, HD, 1)
+        out, lse = FA.flash_attention_train_cuda(q, k, v)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                 enable_gqa=True)
+        pairs = S * (S + 1) // 2
+        cases = {
+            "flash_attention_train": (
+                4, lambda: FA.flash_attention_train_cuda(q, k, v),
+                lambda: ref.attention_train_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)),
+            "flash_attention_backward": (
+                10, lambda: FA.flash_attention_backward_cuda(
+                    do, q, k, v, out, lse),
+                lambda: ref.attention_train_bwd_ref(do, q, k, v, out, lse),
+                lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                            retain_graph=True)),
+        }
+        for name, (per_pair, kernel, plain, library) in cases.items():
+            flops = per_pair * mb * H * HD * pairs
+            r = {"shape": f"B={mb} H={H} K={KV} S={S} hd={HD} bf16 causal",
+                 "flops": flops, "bound_ms": flops / BF16_PEAK * 1e3,
+                 "bound_by": "operations"}
+            times = alternate({"kernel": kernel, "plain": plain}, 20, 5, 3)
+            r["ms"], r["plain_ms"] = times["kernel"], times["plain"]
+            r["library_ms"] = time_ms(library, 20)
+            self.timing[f"{name}/train"] = r
+            log(f"time {name}/train: {json.dumps(r)}")
+
+        q, k, v, do = inputs(1, RG_H, RG_KV, RG_HD, 2)
+        out, lse = FA.flash_attention_train_cuda(q, k, v, window=RG_WINDOW)
+        splits = FA.dkv_splits(1, RG_KV, S, S, RG_H, RG_HD,
+                               FA._sm_count(self.dev.index or 0))
+        auto = FA.dkv_splits
+
+        def unsplit():
+            FA.dkv_splits = lambda *a: 1
+            try:
+                return FA.flash_attention_backward_cuda(
+                    do, q, k, v, out, lse, window=RG_WINDOW)
+            finally:
+                FA.dkv_splits = auto
+
+        flops = 10 * RG_H * RG_HD * (S * (S + 1) // 2)
+        r = {"shape": f"B=1 H={RG_H} K={RG_KV} S={S} hd={RG_HD} bf16 "
+                      f"window {RG_WINDOW}",
+             "splits": splits, "flops": flops,
+             "bound_ms": flops / BF16_PEAK * 1e3, "bound_by": "operations"}
+        times = alternate({
+            "kernel": lambda: FA.flash_attention_backward_cuda(
+                do, q, k, v, out, lse, window=RG_WINDOW),
+            "unsplit": unsplit,
+            "plain": lambda: ref.attention_train_bwd_ref(
+                do, q, k, v, out, lse, window=RG_WINDOW)}, 20, 5, 3)
+        r["ms"], r["unsplit_ms"], r["plain_ms"] = (
+            times["kernel"], times["unsplit"], times["plain"])
+        self.timing["flash_attention_backward/mqa"] = r
+        log(f"time flash_attention_backward/mqa: {json.dumps(r)}")
 
     # -- 11 --------------------------------------------------------------------
     def scan(self):
@@ -4322,7 +4474,7 @@ class Smoke:
 
     def _dryrun_card(self, name, run, rec, launched):
         """Run ``run()`` on the card under the dry run's FLOP counter with
-        the flash-attention wrapper recording each launch's formula; hold
+        the flash-attention wrappers recording each launch's formula; hold
         the meta count (``rec``) to aten's count plus the formulas."""
         import torch
 
@@ -4331,6 +4483,8 @@ class Smoke:
         from repro_torch.launch import dryrun as D
 
         fa = ops.FA.flash_attention_cuda
+        train = ops.FA.flash_attention_train_cuda
+        backward = ops.FA.flash_attention_backward_cuda
 
         def counted(qt, kt, vt, **kw):      # (B, H, S, hd), as ops passes them
             launched.append(meta.formula_flops(
@@ -4340,14 +4494,33 @@ class Smoke:
                 (vt.shape[0], vt.shape[2], vt.shape[1], vt.shape[3])))
             return fa(qt, kt, vt, **kw)
 
+        # The training entries: what the meta pass counts for the _sdpa it
+        # runs in their place (its einsums, unmasked: two products forward,
+        # four backward, of 2 B H Sq Sk hd FLOPs each).
+        def dense(qt, kt):
+            B, H, Sq, hd = qt.shape
+            return 2 * B * H * Sq * kt.shape[2] * hd
+
+        def counted_train(qt, kt, vt, **kw):
+            launched.append(2 * dense(qt, kt))
+            return train(qt, kt, vt, **kw)
+
+        def counted_backward(dout, qt, kt, vt, out, lse, **kw):
+            launched.append(4 * dense(qt, kt))
+            return backward(dout, qt, kt, vt, out, lse, **kw)
+
         fc = D.flop_counter()
         ops.FA.flash_attention_cuda = counted
+        ops.FA.flash_attention_train_cuda = counted_train
+        ops.FA.flash_attention_backward_cuda = counted_backward
         try:
             with fc:
                 run()
             torch.cuda.synchronize()
         finally:
             ops.FA.flash_attention_cuda = fa
+            ops.FA.flash_attention_train_cuda = train
+            ops.FA.flash_attention_backward_cuda = backward
         card = fc.get_total_flops()
         log(f"dryrun {name}: meta {rec['hlo_flops']:.0f} FLOPs; card aten "
             f"{card} + {len(launched)} kernel launches' formulas "
@@ -5053,7 +5226,7 @@ class Smoke:
                     "rglru_scan": "rglru_scan/decode",
                     "mamba_scan_fused": "mamba_scan_fused/decode",
                     "rglru_scan_gated": "rglru_scan_gated/decode",
-                    **{k: f"{k}/train" for k in BWD_KERNELS}}
+                    **{k: f"{k}/train" for k in BWD_KERNELS + ATTN_TRAIN}}
         out = []
         for name, key in main_key.items():
             r = self.timing[key]

@@ -1,6 +1,7 @@
 // Flash-attention forward on an NVIDIA Hopper card (sm_90a).
 //
-// Four kernels behind one plain C entry point (loaded through ctypes by
+// Four kernels behind one plain C entry point, and the training forward
+// behind a second (loaded through ctypes by
 // repro_torch/kernels/flash_attention.py). The launcher picks a path from
 // the shapes and the dtype alone, enqueues on the stream it is given,
 // allocates nothing (the wrapper passes the decode path's fp32 scratch),
@@ -74,6 +75,13 @@
 //    w+4, w+8, w+12; lane j scores key j; the PV product gives each lane
 //    hd/32 dims.
 //
+// Training (ckio_flash_attention_train): tc_kernel with LSE set, at every
+// shape, also writes each row's log-sum-exp of its kept scaled scores,
+// (m + log2(l)) ln 2 from the running max m and denominator l it already
+// keeps (+inf for a row with no kept key), for the backward kernels of
+// flash_attention_bwd.cu; bf16, causal with an optional window, hd 64 /
+// 128 / 256. The output is the inference entry's, bit for bit.
+//
 // Every sum is taken in a fixed order (no atomics; the split combine runs
 // in split order), so the result is the same on every run.
 //
@@ -85,6 +93,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_tiles.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;                      // 4 warps
@@ -95,6 +105,7 @@ constexpr int kRowsPerWarp = kMaxRows / kWarps;    // 4: warp w owns rows w + kW
 constexpr int kMaxSplits = 64;                     // split_plan's cap
 constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -118,6 +129,7 @@ struct Params {
   int q_vec;      // q's dims contiguous and 16-byte aligned
   float* part_ml;
   float* part_acc;
+  float* lse;     // tc_kernel<.., LSE>: each row's log-sum-exp, (B, H, Sq)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -144,59 +156,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
-}
-
-// -- asynchronous copies, ldmatrix, mma ---------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with `full` false nothing is read and the 16
-// bytes are zero-filled (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special-function unit (2 ulp; subnormal results flush to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // ============================================================================
@@ -737,44 +696,7 @@ struct TcLayout {
   static constexpr size_t kBytes = kQ + 4 * kTile;    // q, 2 stages of k and v
 };
 
-// Byte offset of 16-byte chunk c of row r in a tile of C chunks a row:
-// the chunk index is XORed with the row's place in a 128-byte line, so the
-// 8 rows an ldmatrix reads at one logical chunk fall in 8 distinct banks.
-template <int C>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int kRowsPerLine = C >= 8 ? 1 : 8 / C;
-  constexpr int kMask = (C >= 8 ? 8 : C) - 1;
-  return (r * C + (c ^ ((r / kRowsPerLine) & kMask))) * 16;
-}
-
-// ROWS rows of HD bf16 into a swizzled tile; rows at or past n_valid are
-// zero. row_off(r) is row r's element offset; VEC asks for unit dim stride
-// and 16-byte alignment (cp.async), else scalar loads.
-template <int HD, int ROWS, bool VEC, typename RowOff>
-__device__ __forceinline__ void tc_stage(unsigned char* dst, const __nv_bfloat16* src,
-                                         long long dim_stride, int n_valid,
-                                         RowOff row_off) {
-  constexpr int C = HD / 8;
-  for (int e = threadIdx.x; e < ROWS * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    const bool in = r < n_valid;
-    unsigned char* d = dst + swz<C>(r, c);
-    if constexpr (VEC) {
-      cp_async16(d, src + row_off(in ? r : 0) + c * 8, in);
-    } else {
-      union {
-        uint4 u;
-        __nv_bfloat16 h[8];
-      } x;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        x.h[i] = in ? src[row_off(r) + (c * 8 + i) * dim_stride] : __float2bfloat16(0.f);
-      *reinterpret_cast<uint4*>(d) = x.u;
-    }
-  }
-}
-
-template <int HD, bool VEC>
+template <int HD, bool VEC, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
 tc_kernel(const Params p) {
   using L = TcLayout<HD>;
@@ -841,14 +763,14 @@ tc_kernel(const Params p) {
   auto stage_kv = [&](int t, int s) {
     const int k0 = t * BK;
     const int n = min(BK, p.Sk - k0);
-    tc_stage<HD, BK, VEC>(kv_sm + (2 * s) * L::kTile, k, p.ks[3], n,
+    tc_stage<HD, BK, VEC, kThreads>(kv_sm + (2 * s) * L::kTile, k, p.ks[3], n,
                           [&](int j) { return kbase + (k0 + j) * p.ks[2]; });
-    tc_stage<HD, BK, VEC>(kv_sm + (2 * s + 1) * L::kTile, v, p.vs[3], n,
+    tc_stage<HD, BK, VEC, kThreads>(kv_sm + (2 * s + 1) * L::kTile, v, p.vs[3], n,
                           [&](int j) { return vbase + (k0 + j) * p.vs[2]; });
   };
 
   if (t1 > t0) {
-    tc_stage<HD, ROWS, VEC>(q_sm, q, p.qs[3], nrows, [&](int r) {
+    tc_stage<HD, ROWS, VEC, kThreads>(q_sm, q, p.qs[3], nrows, [&](int r) {
       const int f = f0 + r;
       return qbase + static_cast<long long>(f % p.G) * p.qs[1] +
              static_cast<long long>(f / p.G) * p.qs[2];
@@ -972,6 +894,13 @@ tc_kernel(const Params p) {
     const int f = f0 + r;
     const long long h = static_cast<long long>(kh) * p.G + f % p.G;
     const long long iq = f / p.G;
+    if constexpr (LSE) {
+      // log(sum_j exp(s_j)) = (m + log2(den)) ln 2, m the log2e-scaled
+      // running max; +inf for a row with no kept key (P = 0 everywhere).
+      if (tq == 0)
+        p.lse[(b * p.H + h) * p.Sq + iq] =
+            den > 0.f ? (m_r[hr] + log2f(den)) * kLn2 : __int_as_float(0x7f800000);
+    }
     __nv_bfloat16* out = o + b * p.os[0] + h * p.os[1] + iq * p.os[2];
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
@@ -1034,14 +963,14 @@ cudaError_t launch_decode(const Params& p, dim3 grid, long long rows, cudaStream
   return cudaGetLastError();
 }
 
-template <int HD, bool VEC>
+template <int HD, bool VEC, bool LSE = false>
 cudaError_t launch_tc(const Params& p, dim3 grid, cudaStream_t st) {
   constexpr int rows = TcLayout<HD>::kRows;
   grid.x = static_cast<unsigned>((static_cast<long long>(p.Sq) * p.G + rows - 1) / rows);
   constexpr size_t smem = TcLayout<HD>::kBytes;
-  static const cudaError_t attr = allow_smem(tc_kernel<HD, VEC>, smem);
+  static const cudaError_t attr = allow_smem(tc_kernel<HD, VEC, LSE>, smem);
   if (attr != cudaSuccess) return attr;
-  tc_kernel<HD, VEC><<<grid, kThreads, smem, st>>>(p);
+  tc_kernel<HD, VEC, LSE><<<grid, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -1113,6 +1042,7 @@ extern "C" int ckio_flash_attention(const void* q, const void* k, const void* v,
   p.ns = 1;
   p.part_ml = nullptr;
   p.part_acc = nullptr;
+  p.lse = nullptr;
   if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int elem = dtype == 0 ? 4 : 2;
   const long long qsz[3] = {B, p.H, p.Sq}, ksz[3] = {B, p.K, p.Sk};
@@ -1179,5 +1109,54 @@ extern "C" int ckio_flash_attention(const void* q, const void* k, const void* v,
       : hd == 64  ? dispatch<64>(p, dtype, path, vec, grid, rows, st)
       : hd == 128 ? dispatch<128>(p, dtype, path, vec, grid, rows, st)
       : hd == 256 ? dispatch<256>(p, dtype, path, vec, grid, rows, st)
+                  : cudaErrorInvalidValue);
+}
+
+// The training forward: tc_kernel writing each row's log-sum-exp beside
+// the output, for the backward (flash_attention_bwd.cu). bf16, causal with
+// an optional window, hd 64 / 128 / 256, any Sq >= 1: every shape takes the
+// tensor-core path, since the backward needs the lse of every row. dims as
+// ckio_flash_attention's; lse: B*H*Sq floats, row (b, h, iq) at
+// (b*H + h)*Sq + iq.
+extern "C" int ckio_flash_attention_train(const void* q, const void* k, const void* v,
+                                          void* out, float* lse, const long long* dims,
+                                          int hd, int window, double scale,
+                                          void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = out;
+  p.lse = lse;
+  const long long B = dims[0];
+  p.H = static_cast<int>(dims[1]);
+  p.K = static_cast<int>(dims[2]);
+  p.Sq = static_cast<int>(dims[3]);
+  p.Sk = static_cast<int>(dims[4]);
+  for (int i = 0; i < 4; ++i) {
+    p.qs[i] = dims[5 + i];
+    p.ks[i] = dims[9 + i];
+    p.vs[i] = dims[13 + i];
+    p.os[i] = dims[17 + i];
+  }
+  if (B < 1 || B > 65535 || p.K < 1 || p.K > 65535 || p.H % p.K != 0 || p.Sq < 1 ||
+      p.Sk < 0 || window < 0 || B * p.H * static_cast<long long>(p.Sq) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.G = p.H / p.K;
+  p.causal = 1;
+  p.window = window;
+  p.scale = static_cast<float>(scale);
+  const long long qsz[3] = {B, p.H, p.Sq}, ksz[3] = {B, p.K, p.Sk};
+  const bool vec = vec_ok(q, p.qs, qsz, 2) && vec_ok(k, p.ks, ksz, 2) &&
+                   vec_ok(v, p.vs, ksz, 2);
+  const dim3 grid(1, static_cast<unsigned>(p.K), static_cast<unsigned>(B));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      hd == 64    ? (vec ? launch_tc<64, true, true>(p, grid, st)
+                         : launch_tc<64, false, true>(p, grid, st))
+      : hd == 128 ? (vec ? launch_tc<128, true, true>(p, grid, st)
+                         : launch_tc<128, false, true>(p, grid, st))
+      : hd == 256 ? (vec ? launch_tc<256, true, true>(p, grid, st)
+                         : launch_tc<256, false, true>(p, grid, st))
                   : cudaErrorInvalidValue);
 }

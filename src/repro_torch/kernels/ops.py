@@ -7,13 +7,14 @@ hand-written kernels in ``kernels/reassemble.py``,
 ``kernels/flash_attention.py``, ``kernels/mamba_scan.py`` and
 ``kernels/rglru_scan.py`` (which raise if they cannot launch), CPU
 tensors to the plain PyTorch versions in ``kernels/ref.py``. There is no
-fallback from one to the other. ``mamba_scan``, ``mamba_scan_fused`` and
-``rglru_scan_gated`` are differentiable: where autograd needs their
-gradient they run through a ``torch.autograd.Function`` whose backward is a
-hand-written kernel on the card and a plain backward on the CPU;
-``flash_attention`` and the literal ``rglru_scan``, which no path
-differentiates, raise there. The five compute entries also take meta
-tensors (the dry run's, ``launch/dryrun.py``): those go to the
+fallback from one to the other. ``flash_attention_train``,
+``mamba_scan``, ``mamba_scan_fused`` and ``rglru_scan_gated`` are
+differentiable: where autograd needs their gradient they run through a
+``torch.autograd.Function`` whose backward is a hand-written kernel on the
+card and a plain backward on the CPU; ``flash_attention`` and the literal
+``rglru_scan``, which no path differentiates, raise there. The five
+other compute entries also take meta tensors (the dry run's,
+``launch/dryrun.py``): those go to the
 ``ckio_meta`` ops of ``kernels/meta.py``, which give shapes, FLOPs and a
 DTensor sharding rule and run nothing; the check is one attribute read,
 ahead of the CUDA and CPU dispatch, which is unchanged. Host metadata
@@ -101,6 +102,23 @@ def flash_attention(
         out = ref.attention_ref(qt, kt, vt, causal=causal, window=window,
                                 softcap=softcap)
     return out.transpose(1, 2)
+
+
+def flash_attention_train(
+    q: torch.Tensor,              # (B, S, H, hd)
+    k: torch.Tensor,              # (B, S, K, hd)
+    v: torch.Tensor,              # (B, S, K, hd)
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """Causal attention (with ``window`` > 0, a sliding window too) in the
+    ``(B, S, H, hd)`` layout, differentiable (``FA.FlashAttentionTrainFn``):
+    on the card the training forward keeps each row's log-sum-exp for the
+    backward kernels, and the score tensor is never written; on the CPU the
+    plain versions. The card takes bf16 and hd in ``FA.TRAIN_HEAD_DIMS``;
+    ``models/attention.py`` routes what it cannot take to ``_sdpa``."""
+    return FA.FlashAttentionTrainFn.apply(_on_cuda(q, k, v), q, k, v,
+                                          int(window))
 
 
 def mamba_scan(

@@ -53,6 +53,91 @@ def attention_ref(
     return o.reshape(B, H, Sq, hd).to(q.dtype)
 
 
+def _train_mask(Sq: int, Sk: int, window: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: the keys a row keeps under the end-aligned causal
+    mask and, with ``window`` > 0, the sliding window."""
+    i = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    j = torch.arange(Sk, device=device)[None, :]
+    m = j <= i
+    if window > 0:
+        m &= (i - j) < window
+    return m
+
+
+def attention_train_ref(
+    q: torch.Tensor,          # (B, H, Sq, hd)
+    k: torch.Tensor,          # (B, K, Sk, hd)
+    v: torch.Tensor,          # (B, K, Sk, hd)
+    *,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward written plainly: causal attention in fp32 (the
+    output cast to q's dtype) and each row's log-sum-exp of its kept scaled
+    scores, ``(B, H, Sq)`` fp32. A row that keeps no key gives 0 and an lse
+    of +inf, as the kernel does."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.reshape(B, K, G, Sq, hd).float(),
+                     k.float()) * (hd ** -0.5)
+    m = _train_mask(Sq, Sk, window, q.device)
+    s = s.masked_fill(~m, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    live = m.any(dim=-1)
+    lse = torch.where(live, lse, torch.full_like(lse, float("inf")))
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return (o.reshape(B, H, Sq, hd).to(q.dtype),
+            lse.reshape(B, H, Sq))
+
+
+def row_relative_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of a row (the last dim) over the row's largest
+    magnitude, over all rows: how an attention output is held, each row
+    being an average of values whose rounding scales with the row. A row
+    of zeros (no key kept) counts its error over 2^-14."""
+    g, w = got.float(), want.float()
+    if not w.numel():
+        return 0.0
+    den = w.abs().amax(-1).clamp_min(2.0 ** -14)
+    return ((g - w).abs().amax(-1) / den).max().item()
+
+
+def attention_train_bwd_ref(
+    dout: torch.Tensor,       # (B, H, Sq, hd)
+    q: torch.Tensor,          # (B, H, Sq, hd)
+    k: torch.Tensor,          # (B, K, Sk, hd)
+    v: torch.Tensor,          # (B, K, Sk, hd)
+    out: torch.Tensor,        # (B, H, Sq, hd)
+    lse: torch.Tensor,        # (B, H, Sq) fp32
+    *,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`attention_train_ref` from its output and
+    log-sum-exp, as the backward kernels form them, in fp32: P = exp(s -
+    lse) on the kept pairs, D = rowsum(dO * O), dS = P (dO V^T - D); dV =
+    P^T dO, dK = scale dS^T Q, dQ = scale dS K, the G query heads of a kv
+    head summed. Each cast to its input's dtype."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    scale = hd ** -0.5
+    qf = q.reshape(B, K, G, Sq, hd).float()
+    do = dout.reshape(B, K, G, Sq, hd).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    m = _train_mask(Sq, Sk, window, q.device)
+    p = torch.where(m, torch.exp(s - lse.reshape(B, K, G, Sq, 1)),
+                    torch.zeros_like(s))
+    d = (do * out.reshape(B, K, G, Sq, hd).float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", do, vf) - d)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, do)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    return (dq.reshape(B, H, Sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def attention_split_ref(
     q: torch.Tensor,          # (B, H, Sq, hd)
     k: torch.Tensor,          # (B, K, Sk, hd)

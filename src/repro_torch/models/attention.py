@@ -3,7 +3,14 @@ cache for decode.
 
 The train/prefill half is the reference's XLA path
 (``repro/models/attention.py``): scores in fp32, probabilities cast back to
-the compute dtype before the PV product.
+the compute dtype before the PV product. Where autograd records a causal
+attention on plain CUDA tensors in bf16, with no softcap and a head size
+the kernels take, ``attention_train`` computes the same function through
+``ops.flash_attention_train`` instead: the hand-written training forward
+and backward, which keep the scores in fp32 on chip and never write them
+(the probabilities are rounded to bf16 as the PV operand, as here). Every
+other call keeps ``_sdpa``: the CPU, meta tensors and DTensors (the dry
+run), a softcap, fp32, and the no-grad prefill of ``forward_logits``.
 
 Decode departs from the reference on purpose: its attention goes through
 ``ops.flash_attention`` (the hand-written kernel on CUDA tensors, the plain
@@ -38,6 +45,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, fan_in_init, rmsnorm, rmsnorm_init, shard_act
 
@@ -179,6 +187,16 @@ def _chunked_sdpa(q, k, v, *, causal: bool, window: int, softcap: float,
     return torch.cat(outs, dim=1)
 
 
+def _trains_through_kernels(q, k, v, *, causal: bool, softcap: float) -> bool:
+    """Whether ``attention_train`` takes ``ops.flash_attention_train``:
+    from what the call shows (tensor type, device, dtype, head size, mask,
+    softcap, grad mode), never from a model's name."""
+    return (causal and softcap == 0.0 and torch.is_grad_enabled()
+            and q.shape[-1] in FA.TRAIN_HEAD_DIMS
+            and all(type(t) is torch.Tensor and t.device.type == "cuda"
+                    and t.dtype == torch.bfloat16 for t in (q, k, v)))
+
+
 def attention_train(
     params: dict,
     x: torch.Tensor,               # (B, S, d)
@@ -200,7 +218,9 @@ def attention_train(
     k = shard_act(k, "batch", None, "model", None)
     v = shard_act(v, "batch", None, "model", None)
     S = x.shape[1]
-    if q_chunk and S > q_chunk and S % q_chunk == 0 and causal:
+    if _trains_through_kernels(q, k, v, causal=causal, softcap=softcap):
+        out = ops.flash_attention_train(q, k, v, window=window)
+    elif q_chunk and S > q_chunk and S % q_chunk == 0 and causal:
         out = _chunked_sdpa(q, k, v, causal=causal, window=window,
                             softcap=softcap, q_chunk=q_chunk)
     else:

@@ -7,6 +7,10 @@ Imports torch and numpy only, so the file runs where JAX is not installed:
 Token movement is exact, so every reassembly comparison is ``torch.equal``.
 Attention is held to ``attention_ref`` at 1e-5 in float32 (another
 summation order) and 2e-2 in bfloat16 (outputs rounded to bf16); the
+training attention's output at 2^-5 of each row's largest magnitude (four
+bf16 steps; ``ref.row_relative_error``) and its gradients at 2e-2 of their
+largest, against the plain versions and against the reference's own
+``jax.vjp`` stored by ``tests/attention_fixture.py``; the
 selective scan to ``ssm_scan_ref`` at 1e-4, the tolerance of the
 reference's own sweep (fp32, another summation order, FMA); the RG-LRU
 recurrence to ``lru_scan_ref`` at 1e-5, that of its sweep (one FMA against
@@ -289,6 +293,11 @@ def _attn_inputs(B, H, K, Sq, Sk, hd, dtype, device, seed=0):
     return mk(B, H, Sq, hd), mk(B, K, Sk, hd), mk(B, K, Sk, hd)
 
 
+def _fa_launches(n: int, train: int = 0, backward: int = 0) -> dict:
+    return {"flash_attention": n, "flash_attention_train": train,
+            "flash_attention_backward": backward}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", FA_DTYPES)
 @pytest.mark.parametrize("B,H,K,Sq,Sk,hd,causal,window", FA_CASES)
@@ -318,7 +327,7 @@ def test_cuda_flash_attention_reads_a_cache_prefix_in_place(cuda, dtype, tol):
             1, 2), vc[:, :pos + 1].transpose(1, 2)).transpose(1, 2)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
-    assert FA.LAUNCHES == {"flash_attention": 4}
+    assert FA.LAUNCHES == _fa_launches(4)
 
 
 @pytest.mark.gpu
@@ -348,7 +357,7 @@ def test_cuda_split_decode_at_split_boundaries(cuda, Sk, H, K, hd, dtype, tol):
     got = FA.flash_attention_cuda(q, k, v)
     want = ref.attention_ref(q, k, v)
     torch.cuda.synchronize()
-    assert FA.LAUNCHES == {"flash_attention": 1}
+    assert FA.LAUNCHES == _fa_launches(1)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
@@ -401,7 +410,7 @@ def test_cuda_decode_at_the_served_families_shapes(cuda, H, K, Sk, window, B,
     got = FA.flash_attention_cuda(q, k, v, window=window)
     want = ref.attention_ref(q, k, v, window=window)
     torch.cuda.synchronize()
-    assert FA.LAUNCHES == {"flash_attention": 1}
+    assert FA.LAUNCHES == _fa_launches(1)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
@@ -434,7 +443,7 @@ def test_cuda_attention_at_qwen2_vl_and_whisper_shapes(cuda, H, K, Sq, Sk, hd,
     got = FA.flash_attention_cuda(q, k, v, causal=causal)
     want = ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert FA.LAUNCHES == {"flash_attention": 1}
+    assert FA.LAUNCHES == _fa_launches(1)
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     if Sq == 1 and B == 4:          # a row's bits do not depend on B
@@ -451,10 +460,10 @@ def test_cuda_flash_attention_refuses_autograd(cuda):
     with pytest.raises(NotImplementedError) as e:
         ops.flash_attention(q, k.requires_grad_(), v, causal=False)
     assert str(e.value) == FA.FORWARD_ONLY and "forward-only" in str(e.value)
-    assert FA.LAUNCHES == {"flash_attention": 0}
+    assert FA.LAUNCHES == _fa_launches(0)
     with torch.no_grad():
         ops.flash_attention(q, k, v, causal=False)   # no gradient needed
-    assert FA.LAUNCHES == {"flash_attention": 1}
+    assert FA.LAUNCHES == _fa_launches(1)
 
 
 def _odd_views(B, H, K, Sq, Sk, hd, dtype, device, how):
@@ -551,7 +560,220 @@ def test_cuda_flash_attention_counts_one_launch_a_call(cuda):
     for B, H, K, Sq, Sk, hd, dtype in calls:
         FA.flash_attention_cuda(*_attn_inputs(B, H, K, Sq, Sk, hd, dtype, cuda))
     torch.cuda.synchronize()
-    assert FA.LAUNCHES == {"flash_attention": len(calls)}
+    assert FA.LAUNCHES == _fa_launches(len(calls))
+
+
+# -- training attention: the forward with its lse, the backward --------------
+
+# (B, S, H, K, hd, window): phi4-mini's microbatch, recurrentgemma's local
+# layers (MQA, hd 256, window 2,048), gemma3-style windows of 1,024 at hd
+# 256, ragged tails at each head size, a group of 4.
+FA_TRAIN_CASES = [
+    (2, 2048, 24, 8, 128, 0),
+    (1, 2048, 10, 1, 256, 2048),
+    (1, 2048, 10, 1, 256, 1024),
+    (2, 37, 6, 2, 64, 9),
+    (1, 130, 12, 3, 128, 0),
+    (2, 70, 4, 1, 256, 16),
+    (1, 1, 3, 1, 128, 0),
+]
+ROW_TOL = 2.0 ** -5      # the output, per row: four bf16 steps of its largest
+
+
+def _train_inputs(B, S, H, K, hd, device, seed=0, strided=False):
+    """q, k, v and dO as (B, heads, S, hd) views of (B, S, heads, hd)
+    tensors, as ``ops.flash_attention_train`` passes them; ``strided``
+    takes every other element of the last dim (no 16-byte staging)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = 2 if strided else 1
+    mk = lambda h: torch.randn(B, S, h, hd * w, generator=g, device=device  # noqa: E731
+                               ).to(torch.bfloat16)[..., ::w].transpose(1, 2)
+    return mk(H), mk(K), mk(K), mk(H)
+
+
+def _grad_close(name, got, want, tol=2e-2):
+    """Within ``tol`` of the gradient's largest magnitude, the scans'
+    bf16 rule; bf16 rounding of P and dS as MMA operands."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(want.float().abs().max().item(), 1e-6)
+    assert err <= tol * scale, f"{name}: max abs err {err}, largest {scale}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("B,S,H,K,hd,window", FA_TRAIN_CASES)
+def test_cuda_train_attention_matches_plain(cuda, B, S, H, K, hd, window,
+                                            strided):
+    q, k, v, do = _train_inputs(B, S, H, K, hd, cuda, seed=S + hd,
+                                strided=strided)
+    FA.reset_launch_counts()
+    out, lse = FA.flash_attention_train_cuda(q, k, v, window=window)
+    want, want_lse = ref.attention_train_ref(q, k, v, window=window)
+    assert ref.row_relative_error(out, want) <= ROW_TOL
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    grads = FA.flash_attention_backward_cuda(do, q, k, v, out, lse,
+                                             window=window)
+    again = FA.flash_attention_backward_cuda(do, q, k, v, out, lse,
+                                             window=window)
+    wants = ref.attention_train_bwd_ref(do, q, k, v, out, lse, window=window)
+    for name, g, a, w in zip(("dq", "dk", "dv"), grads, again, wants):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert torch.equal(g, a), f"{name}: two runs differ"   # no atomics
+        if S > 1 or name == "dv":   # at S = 1, dq and dk vanish
+            _grad_close(name, g, w)
+    assert FA.LAUNCHES == _fa_launches(0, 1, 2)
+
+
+@pytest.mark.gpu
+def test_cuda_train_attention_matches_stored_jax_result(cuda):
+    """The kernels on the inputs of ``tests/attention_fixture.py`` (phi4-mini's
+    head size and group, a ragged third tile, the backward's key tiles split
+    in two) against ``jax.vjp`` of the reference's ``_sdpa``, computed in
+    float32 on the CPU and stored."""
+    import attention_fixture
+
+    x = {n: torch.from_numpy(a).to(cuda, torch.bfloat16).transpose(1, 2)
+         for n, a in attention_fixture.inputs().items()}
+    want = {n: torch.from_numpy(a).to(cuda).transpose(1, 2)
+            for n, a in attention_fixture.load().items()}
+    B, H, S, hd = x["q"].shape
+    assert FA.dkv_splits(B, x["k"].shape[1], S, S, H, hd, 132) == 2
+    out, lse = FA.flash_attention_train_cuda(x["q"], x["k"], x["v"])
+    assert ref.row_relative_error(out, want["out"]) <= ROW_TOL
+    grads = FA.flash_attention_backward_cuda(x["dout"], x["q"], x["k"], x["v"],
+                                             out, lse)
+    for name, g in zip(("dq", "dk", "dv"), grads):
+        _grad_close(name, g, want[name])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 7, 64])
+@pytest.mark.parametrize("B,S,H,K,hd,window", [
+    (1, 130, 12, 3, 128, 0), (2, 70, 4, 1, 256, 16), (1, 200, 8, 1, 64, 33)])
+def test_cuda_backward_split_key_tiles_match_plain(cuda, monkeypatch, B, S, H,
+                                                    K, hd, window, splits):
+    """dK/dV with each key tile's steps split over 1 to 64 blocks (64: most
+    parts walk nothing and write zeros) against the plain backward, the
+    same bits on a second run."""
+    monkeypatch.setattr(FA, "dkv_splits", lambda *a: splits)
+    q, k, v, do = _train_inputs(B, S, H, K, hd, cuda, seed=splits)
+    out, lse = FA.flash_attention_train_cuda(q, k, v, window=window)
+    grads = FA.flash_attention_backward_cuda(do, q, k, v, out, lse,
+                                             window=window)
+    again = FA.flash_attention_backward_cuda(do, q, k, v, out, lse,
+                                             window=window)
+    wants = ref.attention_train_bwd_ref(do, q, k, v, out, lse, window=window)
+    for name, g, a, w in zip(("dq", "dk", "dv"), grads, again, wants):
+        assert torch.equal(g, a), f"{name}: two runs differ"
+        _grad_close(name, g, w)
+
+
+def _tiny_lm(arch, layers, remat="dots"):
+    from repro_torch.configs.registry import get_config
+
+    return get_config(arch).replace(num_layers=layers, vocab_size=512,
+                                    remat_policy=remat)
+
+
+def _lm_grads(cfg, device, B=4, S=256, seed=0):
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import leaves as tree_leaves
+
+    model = build_model(cfg)
+    params = model.init(0, device=device)
+    leaves = [t for t in tree_leaves(params) if t.is_floating_point()]
+    for t in leaves:
+        t.requires_grad_()
+    g = torch.Generator(device=device).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                        device=device, dtype=torch.int32)
+    loss = model.loss(params, {"tokens": tok[:, :-1], "labels": tok[:, 1:]})[0]
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpointed_block_gives_the_same_gradients(cuda):
+    """phi4-mini's blocks recomputed in the backward pass (the train
+    step's remat) and kept whole give the same bits: the kernels' forward
+    is deterministic, so the recompute is the forward."""
+    FA.reset_launch_counts()
+    a = _lm_grads(_tiny_lm("phi4-mini-3.8b", 2, "dots"), cuda)
+    assert FA.LAUNCHES == _fa_launches(0, 4, 2)      # forward and recompute
+    b = _lm_grads(_tiny_lm("phi4-mini-3.8b", 2, "none"), cuda)
+    assert FA.LAUNCHES == _fa_launches(0, 6, 4)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers,train,backward", [
+    ("phi4-mini-3.8b", 3, 24, 12),     # 8L and 4L: forward, recompute, backward
+    ("falcon-mamba-7b", 2, 0, 0),      # no attention layer
+])
+def test_cuda_train_step_counts_attention_launches(cuda, monkeypatch, arch,
+                                                   layers, train, backward):
+    """The launches of one train step, and no call of ``_sdpa``: the
+    kernels take every attention of the step."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import build_model
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step
+
+    sdpa_calls = []
+    sdpa = A._sdpa
+    monkeypatch.setattr(A, "_sdpa",
+                        lambda *a, **kw: sdpa_calls.append(1) or sdpa(*a, **kw))
+    cfg = _tiny_lm(arch, layers)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    step = make_train_step(model, OptConfig(), num_microbatches=4)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (8, 257), generator=g,
+                        device=cuda, dtype=torch.int32)
+    FA.reset_launch_counts()
+    _, _, metrics = step(params, init_opt_state(params),
+                         {"tokens": tok[:, :-1], "labels": tok[:, 1:]})
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.as_tensor(metrics["loss"])).all()
+    assert FA.LAUNCHES == _fa_launches(0, train, backward)
+    assert not sdpa_calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,launches", [
+    ("bf16", (1, 1)), ("fp32", (0, 0)), ("softcap", (0, 0)),
+    ("no_grad", (0, 0)),
+])
+def test_cuda_attention_train_takes_the_kernels_in_bf16_with_grad(
+        cuda, case, launches):
+    from repro_torch.models import attention as A
+
+    d, H, K, hd = 256, 4, 2, 64
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(5)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
+    params = {"wq": mk(d, H, hd), "wk": mk(d, K, hd), "wv": mk(d, K, hd),
+              "wo": mk(H, hd, d)}
+    x = (mk(2, 40, d) * 0.1).to(dtype).requires_grad_()
+    FA.reset_launch_counts()
+    kw = dict(dtype=dtype, eps=1e-6, causal=True, use_rope=False,
+              softcap=30.0 if case == "softcap" else 0.0)
+    if case == "no_grad":
+        with torch.no_grad():
+            out = A.attention_train(params, x, None, None, **kw)
+    else:
+        out = A.attention_train(params, x, None, None, **kw)
+        out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == _fa_launches(0, *launches)
+    if case == "bf16":
+        # the same function as _sdpa, held in fp32 (bf16 _sdpa rounds the
+        # scores to bf16 before its softmax; the kernel keeps them fp32)
+        q, k, v = A._project_qkv(params, x, dtype, 1e-6)
+        want = A._sdpa(q.float(), k.float(), v.float(),
+                       mask=A.causal_window_mask(40, 40, 0, device=cuda))
+        got = ops.flash_attention_train(q, k, v)
+        assert ref.row_relative_error(got, want) <= ROW_TOL
 
 
 SCAN_CASES = [   # (B, S, D, N)

@@ -104,8 +104,10 @@ def test_kernel_modules_build_nothing_at_import(tmp_path):
     build = tmp_path / "build"
     code = ("import repro_torch.kernels.flash_attention as FA, "
             "repro_torch.kernels.reassemble as R, repro_torch.kernels.ops\n"
-            "assert FA.LAUNCHES == {'flash_attention': 0}\n"
-            "assert FA.SOURCE.exists() and R.SOURCE.exists()\n")
+            "assert FA.LAUNCHES == {'flash_attention': 0, "
+            "'flash_attention_train': 0, 'flash_attention_backward': 0}\n"
+            "assert FA.SOURCE.exists() and FA.SOURCE_BWD.exists() "
+            "and R.SOURCE.exists()\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                REPRO_TORCH_BUILD_DIR=str(build), PATH="/nonexistent",
                CUDA_HOME="/nonexistent")
