@@ -8,6 +8,14 @@ and its traffic (``perfbench/traffic/<name>.json``); each metric is read by
 ``perfbench/counts/``; the limits of the comparison in
 ``perfbench/limits/<cell>.json``.
 
+A configuration file gives its layers as ``model.schedule``, one period of
+``{"mixer": ..., "ffn": ...}`` kinds cycled to ``run.num_layers``, or as a
+single ``model.kind`` that every layer has. Its plain reference is
+``perfbench/reference/model.py``, or the module under
+``perfbench/reference/`` that the file names as ``"reference"``; either
+gives ``param_shapes(m)`` and ``train(...)`` with ``model.py``'s
+signatures.
+
 The window drives the port's train loop as ``repro_torch.launch.train``
 builds it: ``CkIOPipeline.get_batch_device(step % num_steps)``, then the
 ``make_train_step`` step under ``StepSupervisor`` (checkpoints off), then
@@ -60,8 +68,9 @@ def load_module(path: str):
 
 
 def load_spec(cell: str, root: str = REPO) -> SimpleNamespace:
-    """The cell's entry, configuration, traffic, limits and metrics, read
-    from ``root/BENCHMARK.json`` and the data files under ``root/perfbench``."""
+    """The cell's entry, configuration, traffic, limits, metrics and plain
+    reference, read from ``root/BENCHMARK.json`` and the files under
+    ``root/perfbench``."""
     bench = _json(os.path.join(root, "BENCHMARK.json"))
     data = os.path.join(root, "perfbench")
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -78,9 +87,13 @@ def load_spec(cell: str, root: str = REPO) -> SimpleNamespace:
     e2e = [m for m in bench["end_to_end"] if mine(m, [])]
     names = [m["name"] for m in e2e]
     layer = [m for m in bench["per_layer"] if mine(m, names)]
+    config = _json(os.path.join(data, "configs", f"{w['config']}.json"))
+    reference = (load_module(os.path.join(data, "reference",
+                                          f"{config['reference']}.py"))
+                 if "reference" in config else ref_model)
     return SimpleNamespace(
-        cell=cell, root=root, data=data, entry=w,
-        config=_json(os.path.join(data, "configs", f"{w['config']}.json")),
+        cell=cell, root=root, data=data, entry=w, config=config,
+        reference=reference,
         traffic=_json(os.path.join(data, "traffic", f"{w['traffic']}.json")),
         limits=limits,
         compared_steps=limits.get("compared_steps", COMPARED_STEPS),
@@ -96,10 +109,20 @@ def counts_module(spec, name: str):
     return load_module(os.path.join(spec.data, "counts", f"{name}.py"))
 
 
+def layer_schedule(m: Dict) -> List[Dict[str, str]]:
+    """Each layer's ``{"mixer", "ffn"}`` kinds: the file's ``schedule`` (or
+    its single ``kind``) cycled to ``run.num_layers``, as the port's
+    ``ModelConfig.layer_schedule()`` cycles its ``block_pattern``."""
+    period = [{"mixer": k["mixer"], "ffn": k["ffn"]}
+              for k in (m["schedule"] if "schedule" in m else [m["kind"]])]
+    return [period[i % len(period)] for i in range(m["run"]["num_layers"])]
+
+
 # -- the program --------------------------------------------------------------
 def port_config(spec):
     """The port's ``ModelConfig`` from the registry, cut as the file says;
-    refuses to run where a width differs from the file."""
+    refuses to run where a width or a layer's kinds differ from the file,
+    naming the first layer that differs."""
     from repro_torch.configs.registry import get_config, smoke_config
 
     m = spec.config["model"]
@@ -109,9 +132,12 @@ def port_config(spec):
     cfg = cfg.replace(**m["run"])
     wrong = {k: (getattr(cfg, k), v) for k, v in m["widths"].items()
              if getattr(cfg, k) != v}
-    kinds = {(s.mixer, s.ffn) for s in cfg.layer_schedule()}
-    if kinds != {(m["kind"]["mixer"], m["kind"]["ffn"])}:
-        wrong["layer kinds"] = (sorted(kinds), m["kind"])
+    port = [f"{s.mixer}+{s.ffn}" for s in cfg.layer_schedule()]
+    want = [f"{k['mixer']}+{k['ffn']}" for k in layer_schedule(m)]
+    for i, (a, b) in enumerate(zip(port, want)):
+        if a != b:
+            wrong[f"layer {i}"] = (a, b)
+            break
     if wrong:
         raise SystemExit(f"{spec.config['name']}: the port's config differs "
                          f"from the file (port, file): {wrong}")
@@ -119,14 +145,16 @@ def port_config(spec):
 
 
 def reference_model(spec) -> Dict:
+    """The reference's ``m``: the file's widths and run, and each layer's
+    kinds as ``schedule``."""
     m = spec.config["model"]
-    return dict(m["widths"], **m["run"], **m["kind"])
+    return dict(m["widths"], **m["run"], schedule=layer_schedule(m))
 
 
 def shape_tree(spec):
     """The parameter tree's shapes in the reference's layout."""
     return weights.tree_from_shapes(
-        ref_model.param_shapes(reference_model(spec)))
+        spec.reference.param_shapes(reference_model(spec)))
 
 
 def check_layout(spec, model) -> None:
@@ -134,7 +162,7 @@ def check_layout(spec, model) -> None:
     reference's leaf for leaf."""
     port = {k: tuple(v.shape)
             for k, v in weights.leaf_paths(model.abstract_params())}
-    ref = ref_model.param_shapes(reference_model(spec))
+    ref = spec.reference.param_shapes(reference_model(spec))
     if port != ref:
         diff = sorted(set(port.items()) ^ set(ref.items()))
         raise SystemExit(f"{spec.config['name']}: the port's parameter tree "
@@ -461,8 +489,9 @@ def _profiled_steps(spec, prog: Program, dev) -> Optional[Dict]:
 def reference_run(spec, seed: int, dev, tokens: np.ndarray,
                   precision: str = "fp32", rows: Optional[Callable] = None
                   ) -> Dict:
-    """The plain reference over the first steps' batches, from the weights
-    made again from the seed; ``rows`` as in ``reference.model.train``."""
+    """The configuration's plain reference over the first steps' batches,
+    from the weights made again from the seed; ``rows`` as in
+    ``reference.model.train``."""
     m = reference_model(spec)
     shapes = shape_tree(spec)
     params, flat = weights.make(shapes, spec.config["init"], seed, dev)
@@ -472,9 +501,9 @@ def reference_run(spec, seed: int, dev, tokens: np.ndarray,
         x, y = traffic_gen.expected_batch(tokens, spec.traffic, w)
         batches.append((torch.as_tensor(x, device=dev),
                         torch.as_tensor(y, device=dev)))
-    out = ref_model.train(params, paths, m, spec.traffic["optimizer"],
-                          batches, spec.traffic["microbatches"], precision,
-                          rows)
+    out = spec.reference.train(params, paths, m, spec.traffic["optimizer"],
+                               batches, spec.traffic["microbatches"],
+                               precision, rows)
     del params, flat
     gc.collect()
     if dev.type == "cuda":

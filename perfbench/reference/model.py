@@ -1,26 +1,32 @@
 """Plain PyTorch reference of the benchmark's training step, in fp32.
 
-The forward pass, the loss, the gradients (autograd) and the AdamW step
-of the two layer kinds that the configurations run, written from their
-published equations on the parameter tree's layout (``perfbench/weights``
-makes the tree from the seed):
+The forward pass, the loss, the gradients (autograd) and the AdamW step,
+written from the published equations on the parameter tree's layout
+(``perfbench/weights`` makes the tree from the seed). Each layer is a
+pre-norm residual mixer, then, unless its FFN is ``none``, a pre-norm
+residual FFN; ``m["schedule"]`` gives each layer's ``{"mixer", "ffn"}``,
+looked up in ``MIXERS`` and ``FFNS`` (their parameters' shapes in
+``MIXER_SHAPES`` and ``FFN_SHAPES``), in any mix:
 
-* ``attn`` + ``dense``: pre-norm RMSNorm (scale ``1 + w``), grouped-query
-  attention with rotary embeddings (rotate-half, over the whole head) and
-  a causal softmax, then a SwiGLU MLP (Phi-4-mini);
-* ``mamba``: pre-norm RMSNorm, the Mamba-1 mixer (in-projection, causal
-  depthwise conv + SiLU, x/dt projections, softplus, the selective scan
+* mixer ``attn``: grouped-query attention with rotary embeddings
+  (rotate-half, over the whole head) and a causal softmax (Phi-4-mini);
+* mixer ``mamba``: the Mamba-1 mixer (in-projection, causal depthwise
+  conv + SiLU, x/dt projections, softplus, the selective scan
   ``h_t = exp(dt A) h_{t-1} + dt B x``, readout with C, skip D, SiLU gate,
-  out-projection) and no MLP (Falcon-Mamba);
+  out-projection) (Falcon-Mamba);
+* FFN ``dense``: a SwiGLU MLP; ``none``: no FFN and no second norm;
 
-then a final RMSNorm, the tied or untied head and the mean cross-entropy.
+each norm an RMSNorm with scale ``1 + w``; then a final RMSNorm, the tied
+or untied head and the mean cross-entropy.
 Matmuls run in fp32 with TF32 off. Each layer is recomputed in the
 backward pass (``torch.utils.checkpoint``), so that a deep stack's fp32
 activations fit beside its parameters and AdamW's state: one layer's are
 held at a time, and the arithmetic is the same. ``precision="fp8"`` rounds both
 operands of every matmul, forward and backward, to float8 e4m3 with a
 per-tensor scale: the control, one step below the bf16 the configurations
-compute in. Nothing of the program is imported.
+compute in. Nothing of the program is imported. A configuration's own
+reference module may reuse these pieces and ``train``'s loop with a loss
+of its own (``train(..., loss_fn=...)``).
 """
 from __future__ import annotations
 
@@ -166,7 +172,7 @@ def attention(p: Dict, h: torch.Tensor, m: Dict, mm: Callable) -> torch.Tensor:
     return mm(out, p["wo"].reshape(H * hd, d)).view(B, S, d)
 
 
-def swiglu(p: Dict, h: torch.Tensor, mm: Callable) -> torch.Tensor:
+def swiglu(p: Dict, h: torch.Tensor, m: Dict, mm: Callable) -> torch.Tensor:
     B, S, d = h.shape
     x2 = h.reshape(B * S, d)
     a = F.silu(mm(x2, p["gate"])) * mm(x2, p["up"])
@@ -197,15 +203,24 @@ def mamba(p: Dict, h: torch.Tensor, m: Dict, mm: Callable) -> torch.Tensor:
     return mm(y.reshape(B * S, di), p["out_proj"]).view(B, S, d)
 
 
+def _kind(table: Dict, part: str, kind: Dict[str, str]):
+    if kind[part] not in table:
+        raise ValueError(f"unknown {part} {kind[part]!r}")
+    return table[kind[part]]
+
+
 MIXERS = {"attn": attention, "mamba": mamba}
+FFNS: Dict[str, Optional[Callable]] = {"dense": swiglu, "none": None}
 
 
-def layer(lp: Dict, m: Dict, x: torch.Tensor, mm: Callable) -> torch.Tensor:
+def layer(lp: Dict, kind: Dict[str, str], m: Dict, x: torch.Tensor,
+          mm: Callable) -> torch.Tensor:
     eps = m["norm_eps"]
-    x = x + MIXERS[m["mixer"]](lp["mixer"], rmsnorm(x, lp["norm1"]["scale"],
-                                                    eps), m, mm)
-    if m["ffn"] == "dense":
-        x = x + swiglu(lp["ffn"], rmsnorm(x, lp["norm2"]["scale"], eps), mm)
+    x = x + _kind(MIXERS, "mixer", kind)(
+        lp["mixer"], rmsnorm(x, lp["norm1"]["scale"], eps), m, mm)
+    ffn = _kind(FFNS, "ffn", kind)
+    if ffn is not None:
+        x = x + ffn(lp["ffn"], rmsnorm(x, lp["norm2"]["scale"], eps), m, mm)
     return x
 
 
@@ -213,8 +228,8 @@ def loss_fn(params: Dict, m: Dict, tokens: torch.Tensor, labels: torch.Tensor,
             mm: Callable) -> torch.Tensor:
     eps = m["norm_eps"]
     x = params["embed"]["table"][tokens]
-    for lp in params["layers"]:
-        x = checkpoint(layer, lp, m, x, mm, use_reentrant=False)
+    for lp, kind in zip(params["layers"], m["schedule"], strict=True):
+        x = checkpoint(layer, lp, kind, m, x, mm, use_reentrant=False)
     x = rmsnorm(x, params["final_norm"]["scale"], eps)
     B, S, d = x.shape
     head = (params["embed"]["table"].t() if m["tie_embeddings"]
@@ -224,34 +239,45 @@ def loss_fn(params: Dict, m: Dict, tokens: torch.Tensor, labels: torch.Tensor,
     return (torch.logsumexp(logits, dim=-1) - gold).mean()
 
 
+def attention_shapes(m: Dict) -> Dict[str, tuple]:
+    d, H, K, hd = m["d_model"], m["num_heads"], m["num_kv_heads"], m["head_dim"]
+    return {"wq": (d, H, hd), "wk": (d, K, hd), "wv": (d, K, hd),
+            "wo": (H, hd, d)}
+
+
+def mamba_shapes(m: Dict) -> Dict[str, tuple]:
+    d, di, n, r, cw = (m["d_model"], m["d_inner"], m["ssm_state"],
+                       m["dt_rank"], m["conv_width"])
+    return {"in_proj": (d, 2 * di), "conv_w": (cw, di), "conv_b": (di,),
+            "x_proj": (di, r + 2 * n), "dt_proj": (r, di), "dt_bias": (di,),
+            "A_log": (di, n), "D": (di,), "out_proj": (di, d)}
+
+
+def swiglu_shapes(m: Dict) -> Dict[str, tuple]:
+    d, ff = m["d_model"], m["d_ff"]
+    return {"gate": (d, ff), "up": (d, ff), "down": (ff, d)}
+
+
+MIXER_SHAPES = {"attn": attention_shapes, "mamba": mamba_shapes}
+FFN_SHAPES: Dict[str, Optional[Callable]] = {"dense": swiglu_shapes,
+                                             "none": None}
+
+
 def param_shapes(m: Dict) -> Dict[str, tuple]:
-    """``{leaf path: shape}`` of the parameter tree the layers above read."""
+    """``{leaf path: shape}`` of the parameter tree the layers above read,
+    each layer's from its kinds in ``m["schedule"]``."""
     d, V = m["d_model"], m["vocab_size"]
     out = {"embed.table": (V, d), "final_norm.scale": (d,)}
-    for i in range(m["num_layers"]):
+    for i, kind in enumerate(m["schedule"]):
         p = f"layers.{i}."
         out[p + "norm1.scale"] = (d,)
-        if m["mixer"] == "attn":
-            H, K, hd = m["num_heads"], m["num_kv_heads"], m["head_dim"]
-            out.update({p + "mixer.wq": (d, H, hd), p + "mixer.wk": (d, K, hd),
-                        p + "mixer.wv": (d, K, hd), p + "mixer.wo": (H, hd, d)})
-        elif m["mixer"] == "mamba":
-            di, n, r, cw = (m["d_inner"], m["ssm_state"], m["dt_rank"],
-                            m["conv_width"])
-            out.update({p + "mixer.in_proj": (d, 2 * di),
-                        p + "mixer.conv_w": (cw, di), p + "mixer.conv_b": (di,),
-                        p + "mixer.x_proj": (di, r + 2 * n),
-                        p + "mixer.dt_proj": (r, di), p + "mixer.dt_bias": (di,),
-                        p + "mixer.A_log": (di, n), p + "mixer.D": (di,),
-                        p + "mixer.out_proj": (di, d)})
-        else:
-            raise ValueError(f"unknown mixer {m['mixer']!r}")
-        if m["ffn"] == "dense":
-            ff = m["d_ff"]
-            out.update({p + "norm2.scale": (d,), p + "ffn.gate": (d, ff),
-                        p + "ffn.up": (d, ff), p + "ffn.down": (ff, d)})
-        elif m["ffn"] != "none":
-            raise ValueError(f"unknown ffn {m['ffn']!r}")
+        for k, shape in _kind(MIXER_SHAPES, "mixer", kind)(m).items():
+            out[p + "mixer." + k] = shape
+        ffn = _kind(FFN_SHAPES, "ffn", kind)
+        if ffn is not None:
+            out[p + "norm2.scale"] = (d,)
+            for k, shape in ffn(m).items():
+                out[p + "ffn." + k] = shape
     if not m["tie_embeddings"]:
         out["lm_head.w"] = (d, V)
     return out
@@ -270,11 +296,14 @@ def lr_at(opt: Dict, step: int) -> float:
 
 def train(params: Dict, paths: List[str], m: Dict, opt: Dict, batches,
           microbatches: int, precision: str = "fp32",
-          rows: Optional[Callable] = None) -> Dict:
+          rows: Optional[Callable] = None,
+          loss_fn: Callable = loss_fn) -> Dict:
     """Run ``len(batches)`` AdamW steps from ``params`` (a tree whose
     leaves, in ``paths`` order, are updated in place). ``batches`` yields
     (tokens, labels) on the params' device; ``rows`` maps a microbatch's
-    (tokens, labels) to the rows that enter the loss (a planted fault).
+    (tokens, labels) to the rows that enter the loss (a planted fault);
+    ``loss_fn(params, m, tokens, labels, mm)`` is this module's unless a
+    configuration's reference gives its own.
     Returns each step's loss, the first step's clipped gradient norm by
     leaf path and each leaf's change over the run by path."""
     mm = matmul_for(precision)

@@ -1,11 +1,15 @@
 """The harness on the CPU at a smoke size: each cell runs end to end with
 its metrics and checks; a cell, a traffic mix and a metric added as files
-are found by name; the trace reader's arithmetic on a made-up trace."""
+are found by name, and so are a configuration whose layers mix kinds and
+one that brings its own reference; the trace reader's arithmetic on a
+made-up trace."""
 import json
 import os
+import shutil
 
 import pytest
 
+import control
 import harness
 import smokecell
 import tracereader
@@ -43,8 +47,6 @@ def test_traced_run_reads_its_per_layer_metrics(root):
 
 
 def test_a_cell_and_a_metric_added_as_files_are_found(root, tmp_path):
-    import shutil
-
     new = str(tmp_path / "added")
     shutil.copytree(root, new, ignore=shutil.ignore_patterns("build"))
     data = os.path.join(new, "perfbench")
@@ -75,6 +77,113 @@ def test_a_cell_and_a_metric_added_as_files_are_found(root, tmp_path):
     r = harness.run("phi4-mini.train.short", 3, 0.2, True, device="cpu",
                     root=new)
     assert r["metrics"]["steps_seen"]["value"] == r["attempted"]
+
+
+def _copy_with_hybrid(root, tmp_path, monkeypatch, port=None):
+    """A copy of ``root`` whose registry knows the mixed configuration
+    (``port``: its port config, by default ``hybrid_port_config()``)."""
+    from repro_torch.configs import registry
+
+    monkeypatch.setattr(registry, "get_config",
+                        smokecell.with_hybrid(registry.get_config, port))
+    new = str(tmp_path / "added")
+    shutil.copytree(root, new, ignore=shutil.ignore_patterns("build"))
+    return new
+
+
+def test_a_mixed_configuration_added_as_files_runs_correct(
+        root, tmp_path, monkeypatch):
+    new = _copy_with_hybrid(root, tmp_path, monkeypatch)
+    cell = smokecell.add_hybrid_cell(new)
+    spec = harness.load_spec(cell, new)
+    m = spec.config["model"]
+    assert [k["mixer"] for k in m["schedule"]] == ["mamba"] * 3 + ["attn"]
+    # the smoke cut reaches both families' widths with no list of them
+    assert (m["widths"]["d_model"], m["widths"]["d_inner"],
+            m["widths"]["num_kv_heads"]) == (64, 128, 1)
+    kinds = [(k["mixer"], k["ffn"])
+             for k in harness.reference_model(spec)["schedule"]]
+    assert kinds == ([("mamba", "dense")] * 3 + [("attn", "dense")]) * 2
+    r = harness.run(cell, 2**31 + 13, 0.3, False, device="cpu", root=new)
+    assert r["correct"] is True, r["checks"]
+    assert r["attempted"] >= 1 and r["failed"] == 0
+
+
+COUNTED = '''"""model.py's reference, each call written to calls.log."""
+import os
+
+from reference import model
+
+LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "calls.log")
+
+
+def _count(name):
+    with open(LOG, "a") as f:
+        f.write(name + "\\n")
+
+
+def param_shapes(m):
+    _count("param_shapes")
+    return model.param_shapes(m)
+
+
+def loss_fn(*a):
+    _count("loss_fn")
+    return model.loss_fn(*a)
+
+
+def train(*a, **kw):
+    _count("train")
+    return model.train(*a, loss_fn=loss_fn, **kw)
+'''
+
+
+def test_a_configurations_own_reference_is_the_one_used(
+        root, tmp_path, monkeypatch):
+    new = _copy_with_hybrid(root, tmp_path, monkeypatch)
+    ref_dir = os.path.join(new, "perfbench", "reference")
+    with open(os.path.join(ref_dir, "counted.py"), "w") as f:
+        f.write(COUNTED)
+    conf = dict(smokecell.hybrid_file(), name="hybrid-counted",
+                reference="counted")
+    cell = smokecell.add_hybrid_cell(new, conf)
+    log = os.path.join(ref_dir, "calls.log")
+
+    def calls():
+        with open(log) as f:
+            names = f.read().split()
+        return {k: names.count(k) for k in ("param_shapes", "train",
+                                            "loss_fn")}
+
+    spec = harness.load_spec(cell, new)
+    assert spec.reference.__file__ == os.path.join(ref_dir, "counted.py")
+    r = harness.run(cell, 2**31 + 17, 0.2, False, device="cpu", root=new)
+    assert r["correct"] is True, r["checks"]
+    # the program's tree, its layout check and the reference's own tree;
+    # one reference run of compared_steps x microbatches losses
+    steps, micro = spec.compared_steps, spec.traffic["microbatches"]
+    assert calls() == {"param_shapes": 3, "train": 1,
+                       "loss_fn": steps * micro}
+    # the control's readings: the reference, the control, the half batch
+    control.readings(cell, 2**31 + 17, "cpu", new)
+    assert calls() == {"param_shapes": 6, "train": 4,
+                       "loss_fn": 4 * steps * micro}
+
+
+def test_a_layer_schedule_that_differs_is_refused_and_named(
+        root, tmp_path, monkeypatch):
+    from repro_torch.configs.base import ATTN, DENSE, MAMBA, LayerSpec
+
+    ssm, attn = LayerSpec(mixer=MAMBA, ffn=DENSE), LayerSpec(mixer=ATTN,
+                                                             ffn=DENSE)
+    port = smokecell.hybrid_port_config().replace(
+        block_pattern=(ssm, attn, ssm, ssm))
+    new = _copy_with_hybrid(root, tmp_path, monkeypatch, port)
+    spec = harness.load_spec(smokecell.add_hybrid_cell(new), new)
+    with pytest.raises(SystemExit) as e:
+        harness.port_config(spec)
+    assert "'layer 1': ('attn+dense', 'mamba+dense')" in str(e.value)
+    assert "layer 3" not in str(e.value)
 
 
 def test_unknown_cell_is_refused(root):

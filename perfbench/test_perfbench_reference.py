@@ -1,8 +1,10 @@
 """The plain reference against the port at a smoke size, in fp32: the
 loss, every leaf's gradient and one AdamW step on the same weights and
-batch; and its scan's gradient by finite differences. The test imports
-both; the reference itself imports nothing of the port."""
+batch, in each cell and in a configuration whose layers mix kinds; and its
+scan's gradient by finite differences. The test imports both; the
+reference itself imports nothing of the port."""
 import copy
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,13 +16,22 @@ import traffic as traffic_gen
 import weights
 from reference import model as ref_model
 
-CELLS = ["phi4-mini.train.b8s2048", "falcon-mamba.train.b8s2048"]
+EXISTING = ["phi4-mini.train.b8s2048", "falcon-mamba.train.b8s2048"]
+CELLS = EXISTING + [f"{smokecell.HYBRID}.train"]
 
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    with smokecell.few_threads():
-        yield smokecell.make_root(str(tmp_path_factory.mktemp("smoke")))
+    """The smoke root with the mixed configuration added as files; the
+    registry knows it while the module's tests run."""
+    from repro_torch.configs import registry
+
+    with smokecell.few_threads(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(registry, "get_config",
+                   smokecell.with_hybrid(registry.get_config))
+        root = smokecell.make_root(str(tmp_path_factory.mktemp("smoke")))
+        smokecell.add_hybrid_cell(root)
+        yield root
 
 
 def _setup(root, cell, seed=5):
@@ -130,4 +141,37 @@ def test_layer_recompute_changes_no_bit(root, cell, monkeypatch):
     plain_loss, plain_grads = loss_and_grads()
     assert torch.equal(loss, plain_loss)
     for a, b in zip(grads, plain_grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell", EXISTING)
+def test_a_kind_reads_as_its_one_entry_schedule(root, cell):
+    """A file's single ``kind`` and the same file with ``schedule`` giving
+    that kind alone: the same tree and the same loss and gradients, bit
+    for bit."""
+    spec = harness.load_spec(cell, root)
+    other = SimpleNamespace(**vars(spec))
+    other.config = copy.deepcopy(spec.config)
+    m = other.config["model"]
+    m["schedule"] = [m.pop("kind")]
+    assert spec.reference.param_shapes(harness.reference_model(spec)) == \
+        other.reference.param_shapes(harness.reference_model(other))
+    toks = traffic_gen.make_tokens(spec.traffic,
+                                   harness.reference_model(spec)["vocab_size"],
+                                   3)
+    x, y = traffic_gen.expected_batch(toks, spec.traffic, 0)
+    tok, lab = torch.as_tensor(x).long(), torch.as_tensor(y).long()
+    got = []
+    for s in (spec, other):
+        params, _ = weights.make(harness.shape_tree(s), s.config["init"], 3,
+                                 "cpu")
+        leaves = [v.requires_grad_(True)
+                  for _, v in weights.leaf_paths(params)]
+        loss = s.reference.loss_fn(params, harness.reference_model(s), tok,
+                                   lab, torch.matmul)
+        got.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+    (loss_a, grads_a), (loss_b, grads_b) = got
+    assert torch.equal(loss_a, loss_b)
+    assert len(grads_a) == len(grads_b)
+    for a, b in zip(grads_a, grads_b):
         assert torch.equal(a, b)

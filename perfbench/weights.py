@@ -10,6 +10,8 @@ its own copy again from the seed and takes nothing from the program.
 Rules (``[kind, arg...]``):
   ``normal s``      the draw times ``s``
   ``fan_in k``      the draw times (product of the first ``k`` dims)^-1/2
+  ``fan_in_at i``   the draw times (size of dim ``i``)^-1/2 (stacked
+                    experts' ``(E, d, ff)`` and ``(E, ff, d)`` at ``i`` 1)
   ``zeros``/``ones`` constants
   ``s4d_real``      ``log(1..n)`` along the last dim (Mamba's A_log)
   ``dt_log_uniform lo hi``  softplus^-1 of dt drawn log-uniform in
@@ -77,6 +79,8 @@ def _fill(x: torch.Tensor, rule: list) -> None:
     elif kind == "fan_in":
         fan = math.prod(x.shape[:int(arg[0])])
         x.mul_(fan ** -0.5)
+    elif kind == "fan_in_at":
+        x.mul_(x.shape[int(arg[0])] ** -0.5)
     elif kind == "zeros":
         x.zero_()
     elif kind == "ones":
